@@ -1,0 +1,174 @@
+"""Host-side engine of the port: stages read batches onto the device and
+runs the block-bits kernels over them.
+
+Covers the bits/PML surface of `spumoni_tpu/engine/scan_engine.py::
+ScanEngine`: `stage`, the growing staged alphabet, `classify_staged`,
+`query_staged`, and the list API `classify` / `query`.
+
+Reads are bucketed by padded length (a power of two from PAD_TO up to
+CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED and
+rank-mapped into [B, L] uint8 rows by the native packer (8 bits per base:
+the 2- and 4-bit transfer packings of the JAX package existed for the TPU
+host link), and uploaded. Reads longer than CHUNK go through the same
+kernels in one launch: the carry is per lane, so no chunk state is kept.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _host
+from . import kernels
+from .blockbits import BlockBitsIndex, CharTable
+
+
+class ScanEngine:
+    PAD_TO = 128   # shortest bucket
+    CHUNK = 4096   # longest power-of-two bucket; longer reads: multiples
+
+    def __init__(self, index: BlockBitsIndex, table: CharTable):
+        self.index = index
+        self.table = table
+        self.device = index.bblocks.device
+        self._stage_alpha = None   # cached, monotonically growing alphabet
+        self._stage_amap = None    # its 256-byte LUT (255 = not covered)
+        self._tabs: dict = {}      # alphabet -> table on self.device
+
+    # ------------------------------------------------------------------
+    # the staged alphabet: a superset alphabet is always correct (absent
+    # characters carry their own cnt/F), so it only grows
+    # ------------------------------------------------------------------
+
+    def _ensure_alpha(self):
+        if self._stage_alpha is None:
+            seed = ({0} | set(b"ACGTN")
+                    | set(int(c) for c in self.table.index_chars))
+            self._stage_alpha = tuple(sorted(seed))
+            self._stage_amap = self._build_amap255(self._stage_alpha)
+
+    def _extend_alpha(self, present):
+        alpha = tuple(sorted(set(self._stage_alpha)
+                             | set(int(x) for x in present)))
+        if len(alpha) >= 255:
+            raise ValueError("alphabet too large for the staged path")
+        self._stage_alpha = alpha
+        self._stage_amap = self._build_amap255(alpha)
+
+    @staticmethod
+    def _build_amap255(alphabet: tuple) -> np.ndarray:
+        amap = np.full(256, 255, np.uint8)
+        for i, c in enumerate(alphabet):
+            amap[c] = i
+        return amap
+
+    def _table(self, alphabet: tuple) -> torch.Tensor:
+        tab = self._tabs.get(alphabet)
+        if tab is None:
+            tab = self._tabs[alphabet] = self.table.table_for_alphabet(
+                alphabet).to(self.device)
+        return tab
+
+    # ------------------------------------------------------------------
+    # staging
+    # ------------------------------------------------------------------
+
+    def _bucket_L(self, m: np.ndarray) -> np.ndarray:
+        m = np.maximum(m, 1)
+        p2 = (2 ** np.ceil(np.log2(m))).astype(np.int64)
+        return np.where(m > self.CHUNK, -(-m // self.CHUNK) * self.CHUNK,
+                        np.clip(p2, self.PAD_TO, self.CHUNK))
+
+    def stage(self, packed, max_lanes: int = 65536) -> list:
+        """Host prep + device upload for one PackedReads batch: bucketing,
+        reversed rank-mapped packing and the copy to the device. Runs in
+        the prefetch thread while the device works on the previous batch.
+        Returns the staged groups that classify_staged / query_staged
+        consume."""
+        lens_all = np.asarray(packed.lens)
+        if (lens_all == 0).any():
+            i = int(np.flatnonzero(lens_all == 0)[0])
+            raise ValueError(
+                f"{packed.ids[i]} was empty after digestion; remove the read "
+                f"or run without minimizer digestion")
+        Lb = self._bucket_L(lens_all)
+        offs, buf = packed.offs, packed.buf
+        self._ensure_alpha()
+        groups = []
+        for L in np.unique(Lb):
+            L = int(L)
+            idxs = np.flatnonzero(Lb == L)
+            for c0 in range(0, len(idxs), max_lanes):
+                sel = idxs[c0:c0 + max_lanes]
+                rev, miss, _ = _host.pack_rows_native(
+                    buf, offs[sel], offs[sel + 1], len(sel), L,
+                    self._stage_amap, True, 8)
+                if miss:   # a byte outside the alphabet: extend, repack
+                    self._extend_alpha(_host.present_chars(buf))
+                    rev, miss, _ = _host.pack_rows_native(
+                        buf, offs[sel], offs[sel + 1], len(sel), L,
+                        self._stage_amap, True, 8)
+                if miss:
+                    raise RuntimeError("staged alphabet misses a read byte")
+                lens = lens_all[sel].astype(np.int64)
+                groups.append({
+                    "idxs": sel, "L": L, "lens": lens,
+                    "tab": self._table(self._stage_alpha),
+                    "rev_d": torch.from_numpy(rev).to(self.device),
+                    "lens_d": torch.from_numpy(lens).to(self.device)})
+        return groups
+
+    # ------------------------------------------------------------------
+    # device work
+    # ------------------------------------------------------------------
+
+    def classify_staged(self, staged, bin_width: int, max_value_thr: int):
+        """Per-read (found, above, below, sum_maxes) over staged groups, in
+        the batch's read order (K2: only [B] summaries leave the device)."""
+        n = sum(len(g["idxs"]) for g in staged)
+        out = {"found": np.zeros(n, dtype=bool),
+               "above": np.zeros(n, dtype=np.int64),
+               "below": np.zeros(n, dtype=np.int64),
+               "sum_maxes": np.zeros(n, dtype=np.int64)}
+        for g in staged:
+            res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
+                                       g["lens_d"], max_value_thr, bin_width)
+            for key, v in zip(("found", "above", "below", "sum_maxes"), res):
+                out[key][g["idxs"]] = v.cpu().numpy()
+        return out
+
+    def query_staged(self, staged) -> dict:
+        """Per-read PML length arrays over staged groups, in the batch's
+        read order (K1)."""
+        n = sum(len(g["idxs"]) for g in staged)
+        lengths = [None] * n
+        for g in staged:
+            vals = kernels.pml_scan(self.index, g["tab"], g["rev_d"],
+                                    g["lens_d"]).cpu().numpy()
+            for j, i in enumerate(g["idxs"]):
+                lengths[i] = vals[j, :g["lens"][j]]
+        return {"lengths": lengths}
+
+    # ------------------------------------------------------------------
+    # list API
+    # ------------------------------------------------------------------
+
+    def classify(self, reads, bin_width: int, max_value_thr: int,
+                 max_lanes: int = 65536) -> dict:
+        """Fused report-only classification of a list of byte-string
+        reads."""
+        return self.classify_staged(self.stage(_packed(reads), max_lanes),
+                                    bin_width, max_value_thr)
+
+    def query(self, reads, max_lanes: int = 8192) -> dict:
+        """{'lengths': [per-read PML arrays]} for a list of byte-string
+        reads."""
+        return self.query_staged(self.stage(_packed(reads), max_lanes))
+
+
+def _packed(reads):
+    offs = np.zeros(len(reads) + 1, np.int64)
+    np.cumsum([len(r) for r in reads], out=offs[1:])
+    buf = np.frombuffer(b"".join(bytes(r) for r in reads), np.uint8)
+    return _host.fastx_batch.PackedReads(
+        [f"read_{i}" for i in range(len(reads))], buf, offs)
