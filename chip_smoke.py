@@ -5,24 +5,41 @@
 
 Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
-  2. kernel build: nvcc builds K1 `pml_scan` and K2 `pml_classify` from
-     spumoni_tpu_torch/csrc for sm_90a;
-  3. kernels vs plain versions on small seeded indexes: every layout the
+  2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
+     `ms_scan`, K4 `ms_extend`, K5 `binmax_values` and K6 `gather_chase`
+     from spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in
+     parallel;
+  3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
      from the index; equality is exact (integers, tolerance 0);
+  3b. K3 (ms, ms+doc, pml+doc), K4, K5 and K6 vs plain versions the same
+     way, on multi-document MS indexes of the same layouts;
   4. the main path through the CLI at a real size: a synthetic stand-in for
      a 10-strain bacterial pangenome (10 x 4.6 Mbp at 1% divergence from one
      seeded base, reverse complements added: n ~ 92 M), 65,536 reads of
      1,024 bp (half mutated substrings at 8% error, half random);
      `build -P -n`, `run -P -n -c` and `run -P -n -c --report-only`. Checks:
      identical reports, sampled reads equal the native CPU engine, >= 95%
-     of positives and <= 5% of negatives FOUND, both kernels launched;
-  5. kernel vs plain timing at the main-path shape (B = 65,536, L = 1,024)
-     on the main-path index.
+     of positives and <= 5% of negatives FOUND;
+  4b. the MS / doc main path through the CLI on the same strains written
+     as 10 files (one document each): `build -i list -M -P -d -n`, then
+     `run -M -n -c --report-only`, `run -M -n -c -d` and `run -P -n -d -c`
+     over the same reads. Checks: the two MS reports identical, sampled
+     reads' .pointers / .lengths / .doc_numbers (MS) and .pseudo_lengths /
+     .doc_numbers (PML) equal the native CPU engine, FOUND rates;
+  5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
+     on the main-path index;
+  5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the MS
+     index, and K6 through the gather-chase script's entry point at its
+     shape (R = 9,728, W = 128, L = 64).
 
-The line before the last is the per-kernel JSON summary; the last line is
-{"ok": true, "device": {...}}. Nothing of JAX is imported.
+Every CLI run of 4 and 4b, and the gather-chase script of 5b, is a path of
+its own: the launch counts are set to 0 just before it and read just after,
+and it must launch each kernel PATH_KERNELS gives it and no other. The line
+before the last is the per-kernel JSON summary, with the launches of each
+kernel's paths; the last line is {"ok": true, "device": {...}}. Nothing of
+JAX is imported.
 """
 
 from __future__ import annotations
@@ -80,10 +97,12 @@ def build_phase():
     from spumoni_tpu_torch.engine import kernels
 
     t0 = time.time()
-    so = kernels.build()
-    kernels._library()
+    paths = kernels.build()
+    for name in paths:
+        kernels.library(name)
     secs = time.time() - t0
-    print(f"built {os.path.relpath(so, REPO)} in {secs:.1f} s")
+    print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
+          f" in {secs:.1f} s")
     regs = [int(ln.split("Used ")[1].split()[0])
             for ln in kernels.build_log.splitlines() if "Used " in ln]
     spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
@@ -102,6 +121,7 @@ def build_phase():
 SMALL_CASES = [
     ("P64-pack2", dict(P=64, pack=2, wide=False), b"ACGT", False),
     ("P256-pack2", dict(P=256, pack=2, wide=False), b"ACGT", False),
+    ("P512-pack2", dict(P=512, pack=2, wide=False), b"ACGT", False),
     ("P512-pack2-wide", dict(P=512, pack=2, wide=True), b"ACGT", False),
     ("P256-pack4", dict(P=256, pack=4, wide=False), b"ACGT", False),
     ("P512-pack4-wide", dict(P=512, pack=4, wide=True), b"ACGT", False),
@@ -110,7 +130,10 @@ SMALL_CASES = [
 ]
 
 
-def _small_index(seed, n, alphabet, repeat, build_kw):
+def _small_index(seed, n, alphabet, repeat, build_kw, ms=False):
+    """A seeded text, its block-bits index and the native engine over the
+    same tables; ms=True adds SA samples, the text and two documents (the
+    MS + doc index)."""
     from spumoni_tpu_torch import _host
     from spumoni_tpu_torch.engine.blockbits import build_blockbits
 
@@ -123,11 +146,20 @@ def _small_index(seed, n, alphabet, repeat, build_kw):
     else:
         text = rng.choice(alpha, size=n)
     raw = _host.build_raw_index(text)
-    dense = _host.index_format.build_dense_index(raw)
+    docs = {}
+    if ms:
+        ds, de = _host.index_format.build_doc_arrays(
+            raw, [len(text) // 2, len(text) - len(text) // 2])
+        docs = dict(start_doc=ds, end_doc=de, text=text)
+        dense = _host.index_format.build_dense_index(
+            raw, text=text, with_samples=True, doc_start=ds, doc_end=de)
+    else:
+        dense = _host.index_format.build_dense_index(raw)
     native = _host.NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
                                      raw.thresholds, raw.samples_start,
-                                     raw.samples_last)
-    index, table = build_blockbits(dense, **build_kw)
+                                     raw.samples_last, **docs)
+    index, table = build_blockbits(dense, want_ms=ms, want_doc=ms,
+                                   **build_kw)
     return text, index, table, native
 
 
@@ -148,6 +180,24 @@ def _small_reads(seed, text, num, max_len):
                     text[-150:].tobytes()]
 
 
+def _small_batch(table, reads, device, L=1024):
+    """(tab, [B, L] reversed rank-mapped rows, [B, L] forward raw rows,
+    lens) on `device`, as the engine stages them."""
+    alpha = tuple(sorted({0} | set(b"ACGTN") | set(table.index_chars)
+                         | set(b"".join(reads))))
+    amap = table.rank_map(alpha)
+    rev = np.zeros((len(reads), L), np.uint8)
+    fwd = np.zeros((len(reads), L), np.uint8)
+    for i, rd in enumerate(reads):
+        a = np.frombuffer(rd, np.uint8)
+        rev[i, :len(a)] = amap[a[::-1]]
+        fwd[i, :len(a)] = a
+    lens = torch.tensor([len(r) for r in reads], dtype=torch.int64)
+    return (table.table_for_alphabet(alpha).to(device),
+            torch.from_numpy(rev).to(device),
+            torch.from_numpy(fwd).to(device), lens.to(device))
+
+
 def small_phase(device, n=20000, num_reads=300):
     phase("3. kernels vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
@@ -157,17 +207,7 @@ def small_phase(device, n=20000, num_reads=300):
                                                   repeat, build_kw)
         reads = _small_reads(200 + ci, text, num_reads, 1024)
         index = index.to(device)
-        alpha = tuple(sorted({0} | set(b"ACGTN") | set(table.index_chars)
-                             | set(b"".join(reads))))
-        amap = table.rank_map(alpha)
-        rev = np.zeros((len(reads), 1024), np.uint8)
-        for i, rd in enumerate(reads):
-            rev[i, :len(rd)] = amap[np.frombuffer(rd, np.uint8)[::-1]]
-        lens = torch.tensor([len(r) for r in reads], dtype=torch.int64,
-                            device=device)
-        rev = torch.from_numpy(rev).to(device)
-        tab = table.table_for_alphabet(alpha).to(device)
-
+        tab, rev, _, lens = _small_batch(table, reads, device)
         got = kernels.pml_scan(index, tab, rev, lens)
         sync(device)
         want = kernels.pml_scan_reference(index, tab, rev, lens)
@@ -191,6 +231,74 @@ def small_phase(device, n=20000, num_reads=300):
               f"({int(got[0].sum())} FOUND)")
 
 
+def _max_err(got, want) -> int:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want) if g is not None)
+
+
+def small_ms_phase(device, n=20000, num_reads=300):
+    phase("3b. K3-K6 vs plain versions on small indexes")
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
+
+    for ci, (label, build_kw, alphabet, repeat) in enumerate(SMALL_CASES):
+        text, index, table, native = _small_index(300 + ci, n, alphabet,
+                                                  repeat, build_kw, ms=True)
+        reads = _small_reads(400 + ci, text, num_reads, 1024)
+        index = index.to(device)
+        tab, rev, fwd, lens = _small_batch(table, reads, device)
+        wptr, wlen, wdoc = native.query_ms(reads, with_docs=True)
+        plen, pdoc = native.query_pml(reads, with_docs=True)
+        natives = {("ms", True): (wptr, wdoc), ("pml", True): (plen, pdoc)}
+        for mode, use_doc in (("ms", False), ("ms", True), ("pml", True)):
+            got = kernels.ms_scan(index, tab, rev, lens, mode, use_doc)
+            sync(device)
+            want = kernels.ms_scan_reference(index, tab, rev, lens, mode,
+                                             use_doc)
+            if _max_err(got, want):
+                raise AssertionError(f"{label}: ms_scan {mode} doc={use_doc}"
+                                     f" != ms_scan_reference")
+            if use_doc:
+                vals, docs = (t.cpu().numpy() for t in got)
+                for i, (wv, wd) in enumerate(zip(*natives[mode, use_doc])):
+                    if not (np.array_equal(vals[i, :len(wv)], wv)
+                            and np.array_equal(docs[i, :len(wd)], wd)):
+                        raise AssertionError(f"{label}: {mode}+doc read {i} "
+                                             f"!= native engine")
+        ptrs = kernels.ms_scan(index, tab, rev, lens, "ms", False)[0]
+        got = kernels.ms_extend(index, fwd, lens, ptrs)
+        sync(device)
+        if _max_err(got, kernels.ms_extend_reference(index, fwd, lens,
+                                                     ptrs)):
+            raise AssertionError(f"{label}: ms_extend != ms_extend_reference")
+        vals = got.cpu().numpy()
+        for i, w in enumerate(wlen):
+            if not np.array_equal(vals[i, :len(w)], w):
+                raise AssertionError(f"{label}: MS lengths of read {i} != "
+                                     f"native engine")
+        res = kernels.binmax_values(got, lens, 9, BIN_WIDTH)
+        sync(device)
+        if _max_err(res, kernels.binmax_values_reference(got, lens, 9,
+                                                         BIN_WIDTH)):
+            raise AssertionError(f"{label}: binmax_values != plain")
+        print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
+              f"wide={index.meta.wide} n={index.meta.n} r={index.meta.r} "
+              f"B={len(reads)}: K3 (3 modes) == plain == native, K4 == plain "
+              f"== native, K5 == plain, exactly ({int(res[0].sum())} FOUND)")
+    table, idx0 = chase.make_inputs(0, device)
+    table, idx0 = table[:1024].contiguous(), (idx0[:1024] % 1024).contiguous()
+    i0 = int(idx0[5, 7])
+    table[i0, 7] = np.int32(-2**31) ^ np.int32(i0)   # the INT_MIN wrap
+    got = kernels.gather_chase(table, idx0)
+    sync(device)
+    if _max_err(got, kernels.gather_chase_reference(table, idx0)):
+        raise AssertionError("gather_chase != gather_chase_reference")
+    print("gather_chase R=1024 W=128 L=64 (one INT_MIN wrap): K6 == plain, "
+          "exactly")
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path at a real size
 # ---------------------------------------------------------------------------
@@ -210,6 +318,13 @@ def make_inputs(work, strains, strain_len, n_reads, read_len, seed=0):
     with open(ref, "wb") as f:
         for i, c in enumerate(copies):
             f.write(b">strain_%d synthetic\n" % i + c.tobytes() + b"\n")
+    # the same strains as one file each (one document each) for 4b
+    with open(os.path.join(work, "strains.txt"), "w") as lst:
+        for i, c in enumerate(copies):
+            path = os.path.join(work, f"strain_{i}.fa")
+            with open(path, "wb") as f:
+                f.write(b">strain_%d synthetic\n" % i + c.tobytes() + b"\n")
+            lst.write(f"{path} {i + 1}\n")
     text = np.concatenate(copies)
     half = n_reads // 2
     starts = rng.integers(0, len(text) - read_len, size=half)
@@ -226,15 +341,31 @@ def make_inputs(work, strains, strain_len, n_reads, read_len, seed=0):
     return ref, reads
 
 
-def _read_values(path):
-    """{read id: np.ndarray} of a .pseudo_lengths file."""
+def _read_values(path, ids=None):
+    """{read id: np.ndarray} of a value file (.pseudo_lengths, .lengths,
+    .pointers, .doc_numbers); with `ids`, reads outside it map to None
+    (counted, not parsed). Values print as unsigned 64-bit (negative MS
+    pointers), so they are read back as uint64 and viewed as int64."""
     out = {}
     with open(path, "rb") as f:
         lines = f.read().split(b"\n")
     for i in range(0, len(lines) - 1, 2):
-        out[lines[i][1:].decode()] = np.array(lines[i + 1].split(),
-                                              dtype=np.int64)
+        rid = lines[i][1:].decode()
+        out[rid] = None if ids is not None and rid not in ids else np.array(
+            lines[i + 1].split(), dtype=np.uint64).view(np.int64)
     return out
+
+
+def _sampled_reads(reads, n_reads, n_check):
+    """n_check read ids drawn with seed 1, and their sequences."""
+    from spumoni_tpu_torch import _host
+
+    seqs = {rec.name: rec.seq for rec in _host.fasta.read_fastx(reads)}
+    ids = list(seqs)
+    sample = np.random.default_rng(1).choice(
+        n_reads, size=min(n_check, n_reads), replace=False)
+    chk = [ids[i] for i in sample]
+    return chk, [seqs[i] for i in chk]
 
 
 def _read_report(path):
@@ -244,15 +375,21 @@ def _read_report(path):
 
 
 def _native_engine(index_path):
+    """The native CPU engine over a dense index, with its SA samples, doc
+    arrays and text where the index has them (the JAX package's CPU
+    engine set-up, run-major order restored)."""
     from spumoni_tpu_torch import _host
 
+    pl = _host._pipeline
     dense = _host.index_format.load_dense_index(index_path)
-    order = np.argsort(np.asarray(dense.run_heads), kind="stable")
-    thr = np.empty_like(np.asarray(dense.c_thr))
-    thr[order] = np.asarray(dense.c_thr)
     zeros = np.zeros(dense.r, dtype=np.int64)
-    return _host.NativeQueryEngine(dense.n, dense.run_heads,
-                                   dense.run_starts, thr, zeros, zeros)
+    ss = pl._unorder_samples(dense, "c_ssamp")
+    es = pl._unorder_samples(dense, "c_esamp")
+    return _host.NativeQueryEngine(
+        dense.n, dense.run_heads, dense.run_starts,
+        pl._unorder(dense, "c_thr"), zeros if ss is None else ss,
+        zeros if es is None else es, start_doc=pl._unorder(dense, "c_sdoc"),
+        end_doc=pl._unorder(dense, "c_edoc"), text=dense.text)
 
 
 class _KernelTimer:
@@ -295,12 +432,84 @@ class _KernelTimer:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+#: path -> the kernels it launches; a path must launch each of them, and no
+#: other (a CPU run launches none)
+PATH_KERNELS = {
+    "P-c": ("pml_scan",),
+    "P-c-report-only": ("pml_classify",),
+    "M-c-report-only": ("ms_scan", "ms_extend", "binmax_values"),
+    "M-c-d": ("ms_scan", "ms_extend"),
+    "P-d-c": ("ms_scan",),
+    "exp_vmem_gather": ("gather_chase",),
+}
+
+
+def _check_launches(path, counts, cpu_run=False):
+    owns = () if cpu_run else PATH_KERNELS[path]
+    if any((n > 0) != (name in owns) for name, n in counts.items()):
+        raise AssertionError(f"path {path} launched {counts}; it must "
+                             f"launch {owns or 'no kernel'} and no other")
+
+
+def _timed_cli_run(device, path, args, cpu_run=False):
+    """Runs the port's CLI once as `path` of PATH_KERNELS, with the launch
+    counts set to 0 just before and read just after (and checked); returns
+    pipeline.LAST_RUN_STATS plus the wall time, the launch counts and, on a
+    GPU, the CUDA-event time of every launch of the path's kernels."""
+    from spumoni_tpu_torch import cli, pipeline
+    from spumoni_tpu_torch.engine import kernels
+
+    timers = ([_KernelTimer(kernels, name) for name in PATH_KERNELS[path]]
+              if device.type == "cuda" else [])
+    for t in timers:
+        t.__enter__()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        cli.main(args)
+    finally:
+        for t in timers:
+            t.__exit__()
+    sync(device)
+    st = dict(pipeline.LAST_RUN_STATS, wall_s=time.time() - t0,
+              launches=kernels.launch_counts())
+    _check_launches(path, st["launches"], cpu_run)
+    if timers:
+        st["kernel_ms"] = sum(t.ms() for t in timers)
+    return st
+
+
+def _print_runs(stats):
+    for label, st in stats.items():
+        kms = st.get("kernel_ms", float("nan"))
+        own = {k: st["launches"][k] for k in PATH_KERNELS[label]}
+        print(f"run {label}: {st['reads']} reads in {st['stream_s']:.3f} s "
+              f"streaming -> {st['reads'] / st['stream_s']:.1f} reads/s; "
+              f"wall {st['wall_s']:.1f} s; kernel time {kms:.3f} ms "
+              f"(device idle share of the stream "
+              f"{1 - kms / 1e3 / st['stream_s']:.4f}); launches {own}, "
+              f"no other kernel")
+
+
+def _found_rates(report_path):
+    """(FOUND share of pos_* reads, of neg_* reads); fails outside >= 0.95
+    and <= 0.05."""
+    status = _read_report(report_path)
+    pos = np.mean([status[r] == "FOUND" for r in status
+                   if r.startswith("pos")])
+    neg = np.mean([status[r] == "FOUND" for r in status
+                   if r.startswith("neg")])
+    if pos < 0.95 or neg > 0.05:
+        raise AssertionError(f"{os.path.basename(report_path)}: {pos:.3f} of "
+                             f"positives and {neg:.3f} of negatives FOUND")
+    return pos, neg
+
+
 def main_path_phase(device, strains, strain_len=4_600_000, n_reads=65536,
                     read_len=1024, n_check=2048, cpu_run=False):
     phase(f"4. main path: {strains} strains x {strain_len} bp, "
           f"{n_reads} reads x {read_len} bp, through the CLI")
-    from spumoni_tpu_torch import cli, pipeline
-    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch import cli
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -317,79 +526,110 @@ def main_path_phase(device, strains, strain_len=4_600_000, n_reads=65536,
     if cpu_run:
         run_args += ["--device", "cpu"]
     stats = {}
-    kernels.reset_launch_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for label, extra in (("full", []), ("report_only", ["--report-only"])):
-        timers = ([_KernelTimer(kernels, "pml_scan"),
-                   _KernelTimer(kernels, "pml_classify")]
-                  if device.type == "cuda" else [])
-        for t in timers:
-            t.__enter__()
-        t0 = time.time()
-        try:
-            cli.main(run_args + extra)
-        finally:
-            for t in timers:
-                t.__exit__()
-        sync(device)
-        wall = time.time() - t0
-        st = dict(pipeline.LAST_RUN_STATS, wall_s=wall)
-        if timers:
-            st["kernel_ms"] = sum(t.ms() for t in timers)
-        stats[label] = st
+    for label, extra in (("P-c", []), ("P-c-report-only", ["--report-only"])):
+        stats[label] = _timed_cli_run(device, label, run_args + extra,
+                                      cpu_run)
         shutil.copy(reads + ".report", reads + f".{label}.report")
-    launches = {"pml_scan": kernels.pml_scan.launches,
-                "pml_classify": kernels.pml_classify.launches}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
 
     # checks
-    with open(reads + ".full.report", "rb") as f:
+    with open(reads + ".P-c.report", "rb") as f:
         full = f.read()
-    with open(reads + ".report_only.report", "rb") as f:
+    with open(reads + ".P-c-report-only.report", "rb") as f:
         fused = f.read()
     if full != fused:
         raise AssertionError("--report-only .report differs from the full "
                              "run's")
-    vals = _read_values(reads + ".pseudo_lengths")
+    chk, chk_seqs = _sampled_reads(reads, n_reads, n_check)
+    vals = _read_values(reads + ".pseudo_lengths", set(chk))
     if len(vals) != n_reads:
         raise AssertionError(f"{len(vals)} value records, {n_reads} reads")
-    rng = np.random.default_rng(1)
-    sample = rng.choice(n_reads, size=min(n_check, n_reads), replace=False)
-    seqs = {}
-    from spumoni_tpu_torch import _host
-    for rec in _host.fasta.read_fastx(reads):
-        seqs[rec.name] = rec.seq
-    ids = list(seqs)
-    chk = [ids[i] for i in sample]
     want = _native_engine(prefix + ".fa.thrbv.spumoni").query_pml(
-        [seqs[i] for i in chk], threads=os.cpu_count() or 1)
+        chk_seqs, threads=os.cpu_count() or 1)
     for rid, w in zip(chk, want):
         if not np.array_equal(vals[rid], w):
             raise AssertionError(f"{rid}: .pseudo_lengths != native engine")
-    status = _read_report(reads + ".report_only.report")
-    pos_found = np.mean([status[r] == "FOUND" for r in status
-                         if r.startswith("pos")])
-    neg_found = np.mean([status[r] == "FOUND" for r in status
-                         if r.startswith("neg")])
-    if pos_found < 0.95 or neg_found > 0.05:
-        raise AssertionError(f"classification: {pos_found:.3f} of positives "
-                             f"and {neg_found:.3f} of negatives FOUND")
-    if not cpu_run and min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
-    for label, st in stats.items():
-        kms = st.get("kernel_ms", float("nan"))
-        print(f"run {label}: {st['reads']} reads in {st['stream_s']:.3f} s "
-              f"streaming -> {st['reads'] / st['stream_s']:.1f} reads/s; "
-              f"wall {st['wall_s']:.1f} s; kernel time {kms:.3f} ms "
-              f"(device idle share of the stream "
-              f"{1 - kms / 1e3 / st['stream_s']:.4f})")
+    pos_found, neg_found = _found_rates(reads + ".P-c-report-only.report")
+    _print_runs(stats)
     print(f"checks: reports identical; {len(chk)} sampled reads == native "
           f"engine; FOUND: {pos_found:.4f} of positives, {neg_found:.4f} of "
-          f"negatives; launches {launches}; peak device memory "
+          f"negatives; peak device memory {peak / 1e6:.1f} MB")
+    return prefix, reads, stats
+
+
+def ms_main_path_phase(device, reads, n_reads, n_check=2048,
+                       cpu_run=False):
+    """4b: the strains of phase 4 as 10 documents, built with -M -P -d, and
+    the MS report-only, MS + doc value and PML + doc value runs over
+    phase 4's reads (a copy, so phase 4's outputs stay)."""
+    phase(f"4b. MS / doc main path: the strains as documents, {n_reads} "
+          f"reads, through the CLI")
+    from spumoni_tpu_torch import cli
+
+    prefix = os.path.join(WORK, "msidx")
+    t0 = time.time()
+    cli.main(["build", "-i", os.path.join(WORK, "strains.txt"), "-M", "-P",
+              "-d", "-n", "-o", prefix])
+    build_s = time.time() - t0
+    print(f"build -M -P -d: {build_s:.1f} s")
+    ms_reads = os.path.join(WORK, "reads_ms.fa")
+    shutil.copy(reads, ms_reads)
+    base = ["run", "-r", prefix, "-p", ms_reads, "-n"] + (
+        ["--device", "cpu"] if cpu_run else [])
+    chk, chk_seqs = _sampled_reads(ms_reads, n_reads, n_check)
+    chk_set = set(chk)
+    stats, vals = {}, {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for label, extra, exts in (
+            ("M-c-report-only", ["-M", "-c", "--report-only"], ()),
+            ("M-c-d", ["-M", "-c", "-d"],
+             (".pointers", ".lengths", ".doc_numbers")),
+            ("P-d-c", ["-P", "-d", "-c"],
+             (".pseudo_lengths", ".doc_numbers"))):
+        stats[label] = _timed_cli_run(device, label, base + extra, cpu_run)
+        shutil.copy(ms_reads + ".report", ms_reads + f".{label}.report")
+        for ext in exts:   # read now: the next run rewrites .doc_numbers
+            vals[label, ext] = _read_values(ms_reads + ext, chk_set)
+            if len(vals[label, ext]) != n_reads:
+                raise AssertionError(f"{label}{ext}: {len(vals[label, ext])} "
+                                     f"records, {n_reads} reads")
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+
+    # checks
+    with open(ms_reads + ".M-c-report-only.report", "rb") as f:
+        fused = f.read()
+    with open(ms_reads + ".M-c-d.report", "rb") as f:
+        full = f.read()
+    if fused != full:
+        raise AssertionError("-M --report-only .report differs from the "
+                             "-M -d value run's")
+    threads = os.cpu_count() or 1
+    wptr, wlen, wdoc = _native_engine(prefix + ".fa.thrbv.ms").query_ms(
+        chk_seqs, with_docs=True, threads=threads)
+    plen, pdoc = _native_engine(prefix + ".fa.thrbv.spumoni").query_pml(
+        chk_seqs, with_docs=True, threads=threads)
+    for label, ext, want in (
+            ("M-c-d", ".pointers", wptr),
+            ("M-c-d", ".lengths", wlen),
+            ("M-c-d", ".doc_numbers", wdoc),
+            ("P-d-c", ".pseudo_lengths", plen),
+            ("P-d-c", ".doc_numbers", pdoc)):
+        for rid, w in zip(chk, want):
+            if not np.array_equal(vals[label, ext][rid], w):
+                raise AssertionError(f"{label}: {rid}{ext} != native engine")
+    ms_found = _found_rates(ms_reads + ".M-c-report-only.report")
+    pml_found = _found_rates(ms_reads + ".P-d-c.report")
+    _print_runs(stats)
+    print(f"checks: MS reports identical; {len(chk)} sampled reads' "
+          f".pointers/.lengths/.doc_numbers (MS) and .pseudo_lengths/"
+          f".doc_numbers (PML) == native engine; FOUND (pos, neg): MS "
+          f"{ms_found[0]:.4f} {ms_found[1]:.4f}, PML {pml_found[0]:.4f} "
+          f"{pml_found[1]:.4f}; build {build_s:.1f} s; peak device memory "
           f"{peak / 1e6:.1f} MB")
-    return prefix, reads, launches, stats, build_s, peak
+    return prefix, ms_reads, stats
 
 
 # ---------------------------------------------------------------------------
@@ -420,33 +660,93 @@ def timing_phase(device, prefix, reads, n_reads):
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
           f"index P={engine.index.meta.P} pack={engine.index.meta.pack} "
           f"rows {engine.index.bblocks.numel() * 4 / 1e6:.1f} MB")
-    results = []
-    for name, kern, plain, extra, replaces in (
-            ("pml_scan", kernels.pml_scan, kernels.pml_scan_reference, (),
-             "spumoni_tpu/engine/scan_engine.py:145"),
-            ("pml_classify", kernels.pml_classify,
-             kernels.pml_classify_reference, (7, BIN_WIDTH),
-             "spumoni_tpu/parallel/mesh.py:128")):
-        # turns: plain, kernel (warm-up + timed), plain
-        plain_ms1, want = _time_ms(lambda: plain(*args, *extra), 1)
-        kern(*args, *extra)
-        ms, got = _time_ms(lambda: kern(*args, *extra), 5)
-        plain_ms2, _ = _time_ms(lambda: plain(*args, *extra), 1)
-        outs = (got,) if name == "pml_scan" else got
-        wants = (want,) if name == "pml_scan" else want
-        err = max(int((o.long() - w.long()).abs().max()) for o, w in
-                  zip(outs, wants))
-        if err:
-            raise AssertionError(f"{name}: kernel != plain (max |err| {err})")
-        plain_ms = (plain_ms1 + plain_ms2) / 2
-        print(f"{name}: kernel {ms:.3f} ms/call, plain {plain_ms:.3f} "
-              f"ms/call ({plain_ms1:.3f}, {plain_ms2:.3f}); max |err| 0 "
-              f"(tolerance 0: integer outputs)")
-        results.append(dict(name=name, route="cuda",
-                            source="spumoni_tpu_torch/csrc/blockbits_pml.cu",
-                            replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
-    return results
+    src = "spumoni_tpu_torch/csrc/blockbits_pml.cu"
+    return [
+        _time_kernel("pml_scan", kernels.pml_scan,
+                     kernels.pml_scan_reference, args, src,
+                     "spumoni_tpu/engine/scan_engine.py:145"),
+        _time_kernel("pml_classify", kernels.pml_classify,
+                     kernels.pml_classify_reference, (*args, 7, BIN_WIDTH),
+                     src, "spumoni_tpu/parallel/mesh.py:128")]
+
+
+def _time_kernel(name, kern, plain, args, source, replaces):
+    """CUDA-event ms per call of a kernel wrapper and of its plain version,
+    in turns (plain, kernel warm-up + 5 timed calls, plain); fails unless
+    the outputs are equal (tolerance 0: integer outputs)."""
+    plain_ms1, want = _time_ms(lambda: plain(*args), 1)
+    kern(*args)
+    ms, got = _time_ms(lambda: kern(*args), 5)
+    plain_ms2, _ = _time_ms(lambda: plain(*args), 1)
+    err = _max_err(got, want)
+    if err:
+        raise AssertionError(f"{name}: kernel != plain (max |err| {err})")
+    plain_ms = (plain_ms1 + plain_ms2) / 2
+    print(f"{name}: kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
+          f"({plain_ms1:.3f}, {plain_ms2:.3f}); max |err| 0 (tolerance 0: "
+          f"integer outputs)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def ms_timing_phase(device, ms_prefix, reads, n_reads):
+    """5b: K3 (in each of its modes: ms, the report-only run's, ms+doc and
+    pml+doc, the value runs'), K4 and K5 against their plain versions at
+    the main-path shape on the MS index, and K6 through the gather-chase
+    script's entry point at its own shape, run as the path
+    'exp_vmem_gather'. Returns (results, that path's launch counts)."""
+    phase(f"5b. K3-K6 vs plain at the main-path shape (B={n_reads})")
+    from spumoni_tpu_torch import _host, pipeline
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
+
+    engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
+                                  use_doc=True)   # jump_d for the doc modes
+    pk = next(_host.fastx_batch.iter_packed_batches(reads, 1 << 40,
+                                                    upper=True))
+    (g,) = engine.stage(pk, max_lanes=n_reads)
+    index, lens = engine.index, g["lens_d"]
+    print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, index "
+          f"P={index.meta.P} pack={index.meta.pack} wide={index.meta.wide} "
+          f"r={index.meta.r}")
+    ptrs = kernels.ms_scan(index, g["tab"], g["rev_d"], lens, "ms",
+                           False)[0]
+    ms_len = kernels.ms_extend(index, g["fwd_d"], lens, ptrs)
+    src = "spumoni_tpu_torch/csrc/blockbits_ms.cu"
+    replaces = "spumoni_tpu/engine/scan_engine.py:184"
+    modes = {label: _time_kernel(
+                 f"ms_scan {label}", kernels.ms_scan,
+                 kernels.ms_scan_reference,
+                 (index, g["tab"], g["rev_d"], lens, mode, doc), src,
+                 replaces)
+             for label, mode, doc in (("ms", "ms", False),
+                                      ("ms+doc", "ms", True),
+                                      ("pml+doc", "pml", True))}
+    results = [dict(modes["ms"], name="ms_scan",
+                    max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+                    modes={label: {k: m[k] for k in ("ms", "plain_ms",
+                                                     "max_abs_err")}
+                           for label, m in modes.items()})]
+    results += [
+        _time_kernel("ms_extend", kernels.ms_extend,
+                     kernels.ms_extend_reference,
+                     (index, g["fwd_d"], lens, ptrs), src,
+                     "spumoni_tpu/engine/scan_engine.py:1042"),
+        _time_kernel("binmax_values", kernels.binmax_values,
+                     kernels.binmax_values_reference,
+                     (ms_len, lens, 7, BIN_WIDTH), src,
+                     "spumoni_tpu/engine/scan_engine.py:1110")]
+    # K6 through the script's own entry point, as a path of its own
+    kernels.reset_launch_counts()
+    res = chase.main([])
+    counts = kernels.launch_counts()
+    _check_launches("exp_vmem_gather", counts)
+    if res["max_abs_err"]:
+        raise AssertionError("gather_chase != gather_chase_reference")
+    results.append(dict(name="gather_chase", route="cuda",
+                        source="spumoni_tpu_torch/csrc/gather_chase.cu",
+                        replaces="scripts/exp_vmem_gather.py:35", **res))
+    return results, counts
 
 
 def main(argv=None) -> int:
@@ -465,14 +765,29 @@ def main(argv=None) -> int:
     dev, name, _ = device_phase()
     build_phase()
     small_phase(dev)
+    small_ms_phase(dev)
     sync(dev)
-    prefix, reads, launches, _, _, _ = main_path_phase(dev, args.strains,
-                                                       n_reads=args.reads)
+    prefix, reads, stats = main_path_phase(dev, args.strains,
+                                           n_reads=args.reads)
+    sync(dev)
+    ms_prefix, ms_reads, ms_stats = ms_main_path_phase(dev, reads,
+                                                       args.reads)
     sync(dev)
     results = timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
+    ms_results, chase_counts = ms_timing_phase(dev, ms_prefix, ms_reads,
+                                               args.reads)
+    results += ms_results
+    sync(dev)
+    # each path's own counts; a kernel reports those of the paths it is on,
+    # `launches` being its first path's
+    paths = {label: st["launches"] for label, st in {**stats,
+                                                     **ms_stats}.items()}
+    paths["exp_vmem_gather"] = chase_counts
     for r in results:
-        r["launches"] = launches[r["name"]]
+        own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]
+        r["launches"] = paths[own[0]][r["name"]]
+        r["launches_by_path"] = {p: paths[p][r["name"]] for p in own}
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,8 +1,9 @@
 // One backward PML step over the block-bits rows, per thread.
 //
-// The device counterpart of `pml_probe` (spumoni_tpu_torch/engine/
-// blockbits.py), which ports spumoni_tpu/engine/blockbits.py::_make_probe_fn
-// + make_blockbits_step_fn. Row layout (int32 words, W per row):
+// The device counterpart of `_probe` / `pml_probe` (spumoni_tpu_torch/
+// engine/blockbits.py), which port spumoni_tpu/engine/blockbits.py::
+// _make_probe_fn + make_blockbits_step_fn. Row layout (int32 words, W per
+// row):
 //
 //   [0, NSLOTS)            occ checkpoints cp[code] (u32 low word if WIDE)
 //   [W0, W0 + NWCW)        the block's characters, PACK-bit codes
@@ -27,6 +28,7 @@ constexpr int kTabRows = 256;  // per-character table rows held in shared mem
 struct CharTab {
   int code[kTabRows];
   int empty[kTabRows];
+  int run_base[kTabRows];  // char_off of the char (MS / doc tracking only)
   long long F[kTabRows];
   long long Fnext[kTabRows];
 };
@@ -38,6 +40,15 @@ struct IndexScalars {
   long long term_pos;  // -1 when there is no pack=2 terminator alias
   long long F_term;
   int term_code;
+  long long r;            // runs: jump ids EMPTY = 2r, INIT = 2r+1
+  long long term_runidx;  // char-grouped run index of the terminator
+};
+
+// What one step decides, beyond the new position (the MS / doc step reads
+// the branch taken and where).
+struct Probe {
+  long long new_pos;
+  bool is_match, empty, jump_up, is_tq;
 };
 
 template <int P, int PACK, bool WIDE>
@@ -66,19 +77,28 @@ __device__ __forceinline__ uint32_t zero_groups(uint32_t y) {
   return ~z & (PACK == 2 ? 0x55555555u : 0x11111111u);
 }
 
-// One step: returns the new position and sets is_match.
+// Block of a position, clamped to the rows.
+template <int P>
+__device__ __forceinline__ long long block_of(const IndexScalars& s,
+                                              long long pos) {
+  constexpr int LOGP = Layout<P, 2, false>::LOGP;
+  const long long blk = pos >> LOGP;
+  return blk < 0 ? 0 : blk < s.nb - 1 ? blk : s.nb - 1;
+}
+
+// One step's shared math (the probe of PML and MS / doc steps).
 template <int P, int PACK, bool WIDE>
-__device__ __forceinline__ long long pml_step(
-    const uint32_t* __restrict__ rows, const CharTab& tab,
-    const IndexScalars& s, long long pos, int qc, bool& is_match) {
+__device__ __forceinline__ Probe probe(const uint32_t* __restrict__ rows,
+                                       const CharTab& tab,
+                                       const IndexScalars& s, long long pos,
+                                       int qc) {
   using Lay = Layout<P, PACK, WIDE>;
   const int code = tab.code[qc];
   const bool empty = tab.empty[qc] == 1;
   const int rk = code < Lay::NSLOTS - 1 ? code : Lay::NSLOTS - 1;
 
   const long long blk = pos >> Lay::LOGP;
-  const long long blkc = blk < 0 ? 0 : blk < s.nb - 1 ? blk : s.nb - 1;
-  const uint32_t* row = rows + blkc * Lay::W;
+  const uint32_t* row = rows + block_of<P>(s, pos) * Lay::W;
   const int off = (int)(pos & (P - 1));
 
   // in-block rank of code rk over offsets < off
@@ -102,13 +122,15 @@ __device__ __forceinline__ long long pml_step(
   const uint32_t upw = __ldg(row + Lay::T0 + rk * Lay::WPC + (off >> 5));
   int up_bit = (int)((upw >> (off & 31)) & 1u);
 
+  bool is_tq = false;
   if (PACK == 2 && s.term_pos >= 0) {
     // the terminator aliases code term_code at its single position
     const bool at_term_blk = blk == (s.term_pos >> Lay::LOGP);
     const int to = (int)(s.term_pos & (P - 1));
     if (at_term_blk && rk == s.term_code && off > to) inblock -= 1;
     if (at_term_blk && off == to) at_pos = false;
-    if (code == kTermCode) {  // terminator query: one run, threshold 0
+    is_tq = code == kTermCode;
+    if (is_tq) {  // terminator query: one run, threshold 0
       inblock = pos > s.term_pos ? 1 : 0;
       at_pos = pos == s.term_pos;
       cp = s.F_term;
@@ -117,9 +139,23 @@ __device__ __forceinline__ long long pml_step(
   }
 
   const long long A = cp + inblock;  // F[c] + rank(pos, c)
-  is_match = !empty && at_pos;
-  const bool jump_up = !empty && !is_match && (A >= tab.Fnext[qc] || up_bit);
-  return empty ? tab.F[qc] : A - (jump_up ? 1 : 0);
+  Probe p;
+  p.is_match = !empty && at_pos;
+  p.empty = empty;
+  p.jump_up = !empty && !p.is_match && (A >= tab.Fnext[qc] || up_bit);
+  p.is_tq = is_tq;
+  p.new_pos = empty ? tab.F[qc] : A - (p.jump_up ? 1 : 0);
+  return p;
+}
+
+// One PML step: returns the new position and sets is_match.
+template <int P, int PACK, bool WIDE>
+__device__ __forceinline__ long long pml_step(
+    const uint32_t* __restrict__ rows, const CharTab& tab,
+    const IndexScalars& s, long long pos, int qc, bool& is_match) {
+  const Probe p = probe<P, PACK, WIDE>(rows, tab, s, pos, qc);
+  is_match = p.is_match;
+  return p.new_pos;
 }
 
 // Loads the [sq, 5] int64 host table into shared memory (all threads of the
@@ -131,6 +167,7 @@ __device__ __forceinline__ void load_char_tab(CharTab& tab,
     const bool in = i < sq;
     tab.code[i] = in ? (int)t[i * 5 + 0] : 0;
     tab.empty[i] = in ? (int)t[i * 5 + 1] : 0;
+    tab.run_base[i] = in ? (int)t[i * 5 + 4] : 0;
     tab.F[i] = in ? t[i * 5 + 2] : 0;
     tab.Fnext[i] = in ? t[i * 5 + 3] : 0;
   }

@@ -19,6 +19,12 @@ derivation from compute_ms_pml.cpp:237-286).
 `pml_probe` is the plain PyTorch step; the CUDA kernels in
 `csrc/blockbits_pml.cuh` compute the same function per thread.
 
+MS and document tracking (the JAX package's v4-MS engine) add a side row
+per block, `msrows`: per code slot a char-local run-rank checkpoint and P/32
+words of run-start bits. `ms_probe` turns one step into a jump id (2*run,
++1 for a jump up; EMPTY = 2r, INIT = 2r+1), and the jump tables `jump_t`
+(SA samples) and `jump_d` (doc ids) turn jump ids into values.
+
 `pick_P` and `ROW_CLIFF` are the JAX package's TPU gather-cliff tuning,
 kept unchanged so both packages pick the same P and share row caches.
 """
@@ -63,6 +69,11 @@ def _width(P: int, pack: int, wide: bool = False) -> int:
     if pack == 2:
         return nslots + P // 16 + nslots * (P // 32) + nhw
     return nslots + P // 8 + nslots * (P // 32) + nhw
+
+
+def _ms_width(P: int, pack: int) -> int:
+    nslots = MAX_SIGMA2 if pack == 2 else MAX_SIGMA4
+    return nslots * (1 + P // 32)
 
 
 def pick_P(n: int, pack: int, over_cliff: bool = False,
@@ -202,13 +213,22 @@ def load_cached(cache_path: str, src_path: str, max_bytes=None):
 def build_blockbits(idx, P: Optional[int] = None, pack: Optional[int] = None,
                     wide: Optional[bool] = None,
                     cache_path: Optional[str] = None,
-                    src_path: Optional[str] = None):
+                    src_path: Optional[str] = None,
+                    want_ms: bool = False, want_doc: bool = False,
+                    ms_cache_path: Optional[str] = None):
     """DenseIndex -> (BlockBitsIndex on the CPU, CharTable).
 
     wide=True (automatic past 2^31 positions) selects the split-checkpoint
     row layout and int64 positions. cache_path: .npz of the packed rows,
     keyed by index content; src_path: the index file the cache manifest
-    pins for `load_cached`."""
+    pins for `load_cached`. want_ms / want_doc add the msrows and the SA
+    sample (MS, with the text) or doc-id jump tables; ms_cache_path caches
+    the msrows under the rows' key (`.bbms.npz`, shared with the JAX
+    package)."""
+    if want_ms and idx.c_ssamp is None:
+        raise ValueError("MS needs an index with SA samples (build -M)")
+    if want_doc and idx.c_sdoc is None:
+        raise ValueError("doc tracking needs a doc-array index (build -d)")
     n = int(idx.n)
     if wide is None:
         wide = n >= 2**31
@@ -241,12 +261,15 @@ def build_blockbits(idx, P: Optional[int] = None, pack: Optional[int] = None,
             # pre-manifest cache: rewrite it with the manifest so the next
             # run gets the fast start
             _write_cache(cache_path, cache_key, rows, idx, src_path)
-        return _assemble(idx, rows, P, pack, wide)
-
-    rows = _build_rows(idx, n, P, pack, wide)
-    if cache_path is not None:
-        _write_cache(cache_path, cache_key, rows, idx, src_path)
-    return _assemble(idx, rows, P, pack, wide)
+    else:
+        rows = _build_rows(idx, n, P, pack, wide)
+        if cache_path is not None:
+            _write_cache(cache_path, cache_key, rows, idx, src_path)
+    msrows = None
+    if want_ms or want_doc:
+        msrows = _build_msrows(idx, P, pack, ms_cache_path, cache_key)
+    return _assemble(idx, rows, P, pack, wide, msrows=msrows,
+                     want_ms=want_ms, want_doc=want_doc)
 
 
 def _build_rows(idx, n: int, P: int, pack: int, wide: bool) -> np.ndarray:
@@ -363,6 +386,61 @@ def _code_chars(index_chars: np.ndarray, pack: int) -> np.ndarray:
     return np.asarray(index_chars, dtype=np.int64)
 
 
+def _build_msrows(idx, P: int, pack: int, cache_path: Optional[str] = None,
+                  cache_key: Optional[np.ndarray] = None) -> np.ndarray:
+    """[nb, Wm] int32 run-rank rows (spumoni_tpu/engine/blockbits.py:504-
+    561): per code slot k, the count of code-char-k runs starting before
+    the block, then P/32 words whose bit (k, pos) says a run of code-char k
+    starts at pos. Read from / written to the `.bbms.npz` cache under the
+    rows' key."""
+    n, r = int(idx.n), int(idx.r)
+    if r >= 2**30:
+        raise ValueError("v4-MS jump ids are int32 (2r+2 slots): r < 2^30")
+    nslots = MAX_SIGMA2 if pack == 2 else MAX_SIGMA4
+    wpc = P // 32
+    Wm = _ms_width(P, pack)
+    nb = -(-n // P)
+    use_cache = cache_path is not None and cache_key is not None
+    if use_cache and os.path.exists(cache_path):
+        try:
+            d = np.load(cache_path)
+            if (d["key"].shape == cache_key.shape
+                    and (d["key"] == cache_key).all()
+                    and d["msrows"].shape == (nb, Wm)):
+                return d["msrows"]
+        except _CACHE_ERRORS:
+            pass   # unreadable or foreign cache: rebuild below
+
+    code_chars = _code_chars(np.nonzero(np.asarray(idx.cnt))[0], pack)
+    char_off = np.asarray(idx.char_off, dtype=np.int64)
+    c_start = np.asarray(idx.c_start, dtype=np.int64)
+    logP = int(math.log2(P))
+    msrows = np.zeros((nb, Wm), dtype=np.uint32)
+    flat = msrows.reshape(-1)
+    block_starts = np.arange(nb, dtype=np.int64) * P
+    for k, ch in enumerate(code_chars):
+        cs = c_start[char_off[ch]:char_off[ch + 1]]
+        msrows[:, k] = np.searchsorted(cs, block_starts,
+                                       side="left").astype(np.uint32)
+        if len(cs) == 0:
+            continue
+        # run-start bits: cs is ascending, so its flat word indices are
+        # non-decreasing and one OR-reduce per word replaces
+        # np.bitwise_or.at (same bytes, vectorised)
+        off = cs & (P - 1)
+        word = (cs >> logP) * Wm + nslots + k * wpc + (off >> 5)
+        bits = np.uint32(1) << (off & 31).astype(np.uint32)
+        first = np.flatnonzero(np.concatenate([[True],
+                                               word[1:] != word[:-1]]))
+        flat[word[first]] |= np.bitwise_or.reduceat(bits, first)
+    msrows = msrows.view(np.int32)
+    if use_cache:
+        tmp = f"{cache_path}.tmp{os.getpid()}.npz"
+        np.savez(tmp, key=cache_key, msrows=msrows)
+        os.replace(tmp, cache_path)
+    return msrows
+
+
 # ---------------------------------------------------------------------------
 # torch state
 # ---------------------------------------------------------------------------
@@ -376,6 +454,8 @@ class BitMeta(NamedTuple):
     term_pos: int = -1     # pack=2: the terminator's BWT position
     term_code: int = 0     # pack=2: the code the terminator aliases
     F_term: int = 0        # pack=2: F[terminator]
+    r: int = 0             # runs (jump ids: EMPTY = 2r, INIT = 2r+1)
+    term_runidx: int = -1  # pack=2: char-grouped run index of the terminator
 
     @property
     def nslots(self) -> int:
@@ -385,24 +465,67 @@ class BitMeta(NamedTuple):
     def width(self) -> int:
         return _width(self.P, self.pack, self.wide)
 
+    @property
+    def ms_width(self) -> int:
+        return _ms_width(self.P, self.pack)
+
+    @property
+    def pos_dtype(self) -> torch.dtype:
+        """Positions, SA samples and MS values: int64 in wide mode."""
+        return torch.int64 if self.wide else torch.int32
+
 
 class BlockBitsIndex(nn.Module):
     """The block-bits rows as module buffers: `bblocks` [nb, W] int32 plus
-    the 0-d scalars of `meta`. `meta` keeps the same scalars as Python
+    the 0-d scalars of `meta`, and for MS / doc tracking the optional
+    `msrows` [nb, Wm] int32, `jump_t` [2r+2] (SA samples, meta.pos_dtype),
+    `jump_d` [2r+2] int32 (doc ids) and `text` [n-1] uint8, so one
+    `.to(device)` moves them all. `meta` keeps the same scalars as Python
     ints, so a launch reads none of them back from the device."""
 
-    def __init__(self, bblocks: torch.Tensor, meta: BitMeta):
+    def __init__(self, bblocks: torch.Tensor, meta: BitMeta,
+                 msrows: Optional[torch.Tensor] = None,
+                 jump_t: Optional[torch.Tensor] = None,
+                 jump_d: Optional[torch.Tensor] = None,
+                 text: Optional[torch.Tensor] = None):
         super().__init__()
+        nb = -(-meta.n // meta.P)
         if bblocks.dtype != torch.int32 or bblocks.dim() != 2:
             raise ValueError("bblocks must be a 2-D int32 tensor")
-        if tuple(bblocks.shape) != (-(-meta.n // meta.P), meta.width):
+        if tuple(bblocks.shape) != (nb, meta.width):
             raise ValueError(f"bblocks shape {tuple(bblocks.shape)} does not "
                              f"match n={meta.n}, P={meta.P}, W={meta.width}")
+        njump = 2 * meta.r + 2
+        for name, t, dtype, shape in (
+                ("msrows", msrows, torch.int32, (nb, meta.ms_width)),
+                ("jump_t", jump_t, meta.pos_dtype, (njump,)),
+                ("jump_d", jump_d, torch.int32, (njump,))):
+            if t is not None and (t.dtype != dtype
+                                  or tuple(t.shape) != shape):
+                raise ValueError(f"{name} must be {dtype} of shape {shape}, "
+                                 f"not {t.dtype} {tuple(t.shape)}")
+        if (jump_t is not None or jump_d is not None) and msrows is None:
+            raise ValueError("jump tables need the msrows")
+        if text is not None and (text.dtype != torch.uint8
+                                 or text.dim() != 1):
+            raise ValueError("text must be a 1-D uint8 tensor")
         self.meta = meta
         self.register_buffer("bblocks", bblocks)
+        self.register_buffer("msrows", msrows)
+        self.register_buffer("jump_t", jump_t)
+        self.register_buffer("jump_d", jump_d)
+        self.register_buffer("text", text)
         for name, value in meta._asdict().items():
             self.register_buffer(name, torch.tensor(int(value),
                                                     dtype=torch.int64))
+
+    @property
+    def text_bound(self) -> int:
+        """The extension's text bound: the text length rounded up to a power
+        of two. The JAX package zero-pads its device text to that length
+        (blockbits.py:616-621) and compares reads against the padding; the
+        kernels read positions past the text as 0 instead of storing it."""
+        return max(1, 1 << (int(self.text.shape[0]) - 1).bit_length())
 
     def extra_repr(self) -> str:
         return ", ".join(f"{k}={v}" for k, v in self.meta._asdict().items())
@@ -417,20 +540,24 @@ class CharTable:
     COLS = 5  # code, empty, F, Fnext, run_base
 
     def __init__(self, F_all, cnt_all, rmap, F_sigma, Fnext_sigma,
-                 index_chars):
+                 index_chars, runbase_sigma=None):
         self.F_all = np.asarray(F_all, dtype=np.int64)
         self.cnt_all = np.asarray(cnt_all, dtype=np.int64)
         self.rmap = np.asarray(rmap, dtype=np.uint8)
         self.F_sigma = np.asarray(F_sigma, dtype=np.int64)
         self.Fnext_sigma = np.asarray(Fnext_sigma, dtype=np.int64)
         self.index_chars = tuple(int(c) for c in index_chars)
+        self.runbase_sigma = np.zeros(16, dtype=np.int64) \
+            if runbase_sigma is None \
+            else np.asarray(runbase_sigma, dtype=np.int64)
         self._tables: dict = {}
 
     def table_for_alphabet(self, alphabet: tuple) -> torch.Tensor:
         """[sq, 5] int64 per-rank rows for `alphabet` (sorted bytes, rank =
         position): the char's code (MAX_SIGMA when absent from the index,
-        TERM_CODE for the pack=2 terminator), empty, F, F + cnt, and a zero
-        run base (used only by MS / doc tracking)."""
+        TERM_CODE for the pack=2 terminator), empty, F, F + cnt, and the
+        run base char_off[char] of MS / doc tracking (zero on a PML-only
+        index)."""
         tab = self._tables.get(alphabet)
         if tab is None:
             sq = max(16, -(-len(alphabet) // 16) * 16)
@@ -441,6 +568,7 @@ class CharTable:
                 mat[i, 1] = 1 if self.cnt_all[byte] == 0 else 0
                 mat[i, 2] = self.F_all[byte]
                 mat[i, 3] = 0 if rk == MAX_SIGMA else self.Fnext_sigma[rk]
+                mat[i, 4] = self.runbase_sigma[rk]
             tab = self._tables[alphabet] = torch.from_numpy(mat)
         return tab
 
@@ -452,57 +580,108 @@ class CharTable:
         return amap
 
 
-def _assemble(idx, rows: np.ndarray, P: int, pack: int, wide: bool):
+def _assemble(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
+              msrows: Optional[np.ndarray] = None, want_ms: bool = False,
+              want_doc: bool = False):
     """Host rows (built or loaded) -> (BlockBitsIndex on the CPU,
-    CharTable). Everything besides the rows is O(sigma)."""
-    n = int(idx.n)
+    CharTable); with msrows, also the jump tables of want_ms (SA samples,
+    and the text when the index has it) and want_doc (doc ids)
+    (spumoni_tpu/engine/blockbits.py:564-664, without the TPU's 128-slot
+    padding of the tables)."""
+    n, r = int(idx.n), int(idx.r)
     cnt = np.asarray(idx.cnt, dtype=np.int64)
     F = np.asarray(idx.F, dtype=np.int64)
+    char_off = np.asarray(idx.char_off, dtype=np.int64)
     index_chars = np.nonzero(cnt)[0]
     code_chars = _code_chars(index_chars, pack)
     rmap = np.full(256, MAX_SIGMA, dtype=np.uint8)
     rmap[code_chars] = np.arange(len(code_chars), dtype=np.uint8)
-    term_pos, F_term = -1, 0
+    term_pos, F_term, term_runidx = -1, 0, -1
     if pack == 2 and cnt[TERM_BYTE]:
         rmap[TERM_BYTE] = TERM_CODE
         run_heads = np.asarray(idx.run_heads, dtype=np.uint8)
         run_starts = np.asarray(idx.run_starts, dtype=np.int64)
         term_pos = int(run_starts[np.nonzero(run_heads == TERM_BYTE)[0][0]])
         F_term = int(F[TERM_BYTE])
+        term_runidx = int(char_off[TERM_BYTE])
     meta = BitMeta(n=n, P=P, pack=pack, wide=bool(wide), term_pos=term_pos,
-                   term_code=0, F_term=F_term)
-    # F / Fnext by query-rank code; slot TERM_CODE serves the terminator
+                   term_code=0, F_term=F_term, r=r, term_runidx=term_runidx)
+    # F / Fnext / run base by query-rank code; slot TERM_CODE serves the
+    # terminator
     f_by_code = np.zeros(16, dtype=np.int64)
     fnext_by_code = np.zeros(16, dtype=np.int64)
+    runbase_by_code = np.zeros(16, dtype=np.int64)
     for k, ch in enumerate(code_chars):
         f_by_code[k] = F[ch]
         fnext_by_code[k] = F[ch] + cnt[ch]
+        runbase_by_code[k] = char_off[ch]
     if term_pos >= 0:
         f_by_code[TERM_CODE] = F_term
         fnext_by_code[TERM_CODE] = F_term + cnt[TERM_BYTE]
-    table = CharTable(F, cnt, rmap, f_by_code, fnext_by_code, index_chars)
-    index = BlockBitsIndex(torch.from_numpy(np.ascontiguousarray(rows)), meta)
+        runbase_by_code[TERM_CODE] = term_runidx
+
+    ms = dict(msrows=None, jump_t=None, jump_d=None, text=None)
+    if msrows is not None:
+        ms["msrows"] = torch.from_numpy(np.ascontiguousarray(msrows))
+        if want_ms:
+            sdt = np.int64 if wide else np.int32
+            T = np.zeros(2 * r + 2, dtype=sdt)
+            T[0:2 * r:2] = np.asarray(idx.c_ssamp, dtype=sdt)
+            T[1:2 * r:2] = np.asarray(idx.c_esamp, dtype=sdt)
+            T[2 * r + 1] = idx.last_run_sample
+            ms["jump_t"] = torch.from_numpy(T)
+            if idx.text is not None:
+                ms["text"] = torch.from_numpy(
+                    np.ascontiguousarray(idx.text, dtype=np.uint8))
+        if want_doc:
+            D = np.zeros(2 * r + 2, dtype=np.int32)
+            D[0:2 * r:2] = np.asarray(idx.c_sdoc, dtype=np.int32)
+            D[1:2 * r:2] = np.asarray(idx.c_edoc, dtype=np.int32)
+            D[2 * r] = idx.first_run_sdoc     # the MS empty-char reset
+            D[2 * r + 1] = idx.last_run_edoc
+            ms["jump_d"] = torch.from_numpy(D)
+    table = CharTable(F, cnt, rmap, f_by_code, fnext_by_code, index_chars,
+                      runbase_by_code if msrows is not None else None)
+    index = BlockBitsIndex(torch.from_numpy(np.ascontiguousarray(rows)), meta,
+                           **ms)
     return index, table
 
 
 def from_jax(bblocks_np: np.ndarray, meta_fields: dict,
-             occhost_fields: dict):
+             occhost_fields: dict, ms_arrays: Optional[dict] = None):
     """(BlockBitsIndex, CharTable) from the JAX package's state, passed as
     numpy: `bblocks_np` = np.asarray(BitArrays.bblocks); `meta_fields` =
-    BitMeta._asdict() plus `n`; `occhost_fields` = vars(OccHost)."""
-    if meta_fields.get("has_ms") or meta_fields.get("tp_axis") is not None:
-        raise ValueError("only the PML block-bits state carries over")
-    meta = BitMeta(n=int(meta_fields["n"]), P=int(meta_fields["P"]),
+    BitMeta._asdict() plus `n`; `occhost_fields` = vars(OccHost);
+    `ms_arrays` (v4-MS state) = the BitArrays fields msrows, jump_t,
+    jump_d and text as numpy (None where absent). The JAX package's
+    128-slot table padding and power-of-two text padding are cut off."""
+    if meta_fields.get("tp_axis") is not None:
+        raise ValueError("a sharded (TP) block-bits state does not carry "
+                         "over")
+    n, r = int(meta_fields["n"]), int(meta_fields.get("r", 0))
+    meta = BitMeta(n=n, P=int(meta_fields["P"]),
                    pack=int(meta_fields["pack"]),
                    wide=bool(meta_fields["wide"]),
                    term_pos=int(meta_fields["term_pos"]),
                    term_code=int(meta_fields["term_code"]),
-                   F_term=int(meta_fields["F_term"]))
+                   F_term=int(meta_fields["F_term"]), r=r,
+                   term_runidx=int(meta_fields.get("term_runidx", -1)))
     h = occhost_fields
     table = CharTable(h["F_all"], h["cnt_all"], h["rmap"], h["F_sigma"],
-                      h["Fnext_sigma"], h["index_chars"])
+                      h["Fnext_sigma"], h["index_chars"],
+                      h.get("runbase_sigma"))
+    ms = {}
+    if meta_fields.get("has_ms"):
+        cut = dict(jump_t=2 * r + 2, jump_d=2 * r + 2, text=n - 1)
+        for name, a in (ms_arrays or {}).items():
+            if a is not None:
+                a = np.asarray(a)
+                ms[name] = torch.from_numpy(np.array(
+                    a[:cut[name]] if name in cut else a))
+        if "msrows" not in ms:
+            raise ValueError("a v4-MS state needs its msrows")
     rows = torch.from_numpy(np.require(bblocks_np, np.int32, ["C", "W"]))
-    return BlockBitsIndex(rows, meta), table
+    return BlockBitsIndex(rows, meta, **ms), table
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +711,51 @@ def pml_probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
     ([sq, 5] int64, CharTable.table_for_alphabet). Returns
     (new_pos [B] int64, is_match [B] bool); the caller updates the PML
     length as is_match ? length + 1 : 0."""
+    pr = _probe(index, tab, pos, qc)
+    return pr["new_pos"], pr["is_match"]
+
+
+def ms_probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
+             qc: torch.Tensor):
+    """One backward v4-MS / doc step: the probe of `pml_probe` plus the
+    msrow read of the same block (make_blockbits_ms_step_fn,
+    spumoni_tpu/engine/blockbits.py:864-899). Returns (new_pos, is_match,
+    empty, jjump): jjump [B] int64 is the jump id a mismatch takes,
+    2 * (run base + char-local run rank), minus one for a jump up (the
+    previous run's end entry), floored at 0; 2 * term_runidx for a
+    terminator query. The caller applies the MS or PML+doc carry."""
+    m = index.meta
+    if index.msrows is None:
+        raise ValueError("index built without want_ms / want_doc")
+    pr = _probe(index, tab, pos, qc)
+    rk, off = pr["rk"], pr["off"]
+    wpc = m.P // 32
+    # char-local run rank at pos: checkpoint + popcount of the start bits
+    # at offsets < off over the code's P/32 words (each masked to 32 bits)
+    msrow = index.msrows[pr["blkc"]].long() & _U32             # [B, Wm]
+    k_local = msrow.gather(1, rk[:, None])[:, 0]
+    bits = msrow.gather(1, m.nslots + rk[:, None] * wpc
+                        + torch.arange(wpc, device=pos.device)[None, :])
+    widx = torch.arange(wpc, device=pos.device)[None, :]
+    wcut = (off >> 5)[:, None]
+    lowmask = ((1 << (off & 31)) - 1)[:, None]
+    mb = torch.where(widx < wcut, bits,
+                     torch.where(widx == wcut, bits & lowmask,
+                                 torch.zeros_like(bits)))
+    k_local = k_local + _popcount32(mb).sum(dim=1)
+    jdown = 2 * (pr["run_base"] + k_local)
+    if pr["is_tq"] is not None:
+        jdown = torch.where(pr["is_tq"],
+                            torch.full_like(jdown, 2 * m.term_runidx), jdown)
+    jjump = torch.clamp(jdown - pr["jump_up"].long(), min=0)
+    return pr["new_pos"], pr["is_match"], pr["empty"], jjump
+
+
+def _probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
+           qc: torch.Tensor) -> dict:
+    """The shared per-step math of `pml_probe` and `ms_probe`
+    (_make_probe_fn): THE row read, SWAR in-block rank, checkpoint and
+    up-bit selects, terminator corrections and the 3-way branch."""
     m = index.meta
     P, pack, nslots = m.P, m.pack, m.nslots
     logP = int(math.log2(P))
@@ -550,7 +774,8 @@ def pml_probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
     # THE row read; every word is masked to its 32 bits
     nb = index.bblocks.shape[0]
     blk = pos >> logP
-    row = index.bblocks[blk.clamp(0, nb - 1)].long() & _U32    # [B, W]
+    blkc = blk.clamp(0, nb - 1)
+    row = index.bblocks[blkc].long() & _U32                    # [B, W]
     off = pos & (P - 1)
 
     # in-block rank: SWAR equality mask over the packed char words
@@ -582,6 +807,7 @@ def pml_probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
     word = row.gather(1, (T0 + rk * wpc + (off >> 5))[:, None])[:, 0]
     up_bit = (word >> (off & 31)) & 1
 
+    is_tq = None
     if pack == 2 and m.term_pos >= 0:
         # the terminator's alias of term_code, corrected with scalars
         tb, to = m.term_pos >> logP, m.term_pos & (P - 1)
@@ -600,4 +826,6 @@ def pml_probe(index: BlockBitsIndex, tab: torch.Tensor, pos: torch.Tensor,
     is_match = ~empty & at_pos
     jump_up = ~empty & ~is_match & ((A >= Fnext) | (up_bit == 1))
     new_pos = torch.where(empty, Fb, A - jump_up.long())
-    return new_pos, is_match
+    return dict(new_pos=new_pos, is_match=is_match, empty=empty,
+                jump_up=jump_up, rk=rk, off=off, blkc=blkc, is_tq=is_tq,
+                run_base=t[:, 4])

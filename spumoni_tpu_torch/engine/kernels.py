@@ -4,15 +4,25 @@ plain PyTorch versions.
   * `pml_scan` (K1): PML lengths of every read, in forward order.
   * `pml_classify` (K2): the same scan with the bin-max classification
     folded in; per-read (found, above, below, sum_maxes).
+  * `ms_scan` (K3): the v4-MS / doc scan: MS pointers, PML+doc lengths and
+    doc ids, reconstructed from the jump tables in forward order.
+  * `ms_extend` (K4): MS lengths from MS pointers by comparison with the
+    text (the two-pointer sequential carry).
+  * `binmax_values` (K5): bin-max classification of a [B, L] value matrix.
+  * `gather_chase` (K6): the dependent gather chase of the
+    `scripts/exp_vmem_gather.py` microbenchmark.
 
-The kernels live in `csrc/blockbits_pml.cu` behind a plain C interface.
-They are compiled with nvcc for sm_90a on first use, into `_build/` next to
-this package, keyed by a hash of the sources, and bound with ctypes.
+K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`
+and K6 in `csrc/gather_chase.cu`, each behind a plain C interface. Each
+source is compiled with nvcc for sm_90a on first use, all at once, into
+`_build/` next to this package, keyed by a hash of the sources, and bound
+with ctypes.
 
-A wrapper runs the plain version (`pml_scan_reference`,
-`pml_classify_reference`) only for tensors on the CPU. For CUDA tensors it
-launches its kernel, or raises: no failure falls back to the plain version.
-Each wrapper counts its launches in `.launches`.
+A wrapper runs the plain version (`*_reference`) only for tensors on the
+CPU. For CUDA tensors it launches its kernel, or raises: no failure falls
+back to the plain version. Each wrapper counts its launches in
+`.launches` (`launch_counts()` reads them all, `reset_launch_counts()` sets
+them to 0).
 """
 
 from __future__ import annotations
@@ -26,20 +36,26 @@ import threading
 
 import torch
 
-from .blockbits import BlockBitsIndex, pml_probe
+from .blockbits import BlockBitsIndex, ms_probe, pml_probe
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("blockbits_pml.cu", "blockbits_pml.cuh")
+#: every file the libraries are built from: a change to any rebuilds all
+_SOURCES = ("blockbits_pml.cu", "blockbits_pml.cuh", "blockbits_ms.cu",
+            "gather_chase.cu")
+#: library name -> its translation unit
+LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
+             "blockbits_ms": "blockbits_ms.cu",
+             "gather_chase": "gather_chase.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 _TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_lib = None
-#: nvcc's output of the build that produced the loaded library (ptxas -v:
-#: registers, shared memory and spills per kernel); empty on a cache hit
+_libs: dict = {}
+#: nvcc's output of the builds that produced the loaded libraries (ptxas
+#: -v: registers, shared memory and spills per kernel); empty on a cache hit
 build_log = ""
 
 
@@ -53,45 +69,76 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> str:
-    """Compiles the kernels (once per source hash); returns the .so path."""
+def build() -> dict:
+    """Compiles every library (once per source hash), one nvcc process
+    per source, all started together; returns {name: .so path}."""
     global build_log
     h = hashlib.sha256()
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so_path = os.path.join(BUILD_DIR, f"libblockbits_pml_{h.hexdigest()[:16]}"
-                                      ".so")
-    if os.path.exists(so_path):
-        return so_path
+    paths = {name: os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}"
+                                           ".so")
+             for name in LIBRARIES}
+    todo = [name for name, path in paths.items() if not os.path.exists(path)]
+    if not todo:
+        return paths
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           os.path.join(_CSRC, "blockbits_pml.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    build_log = res.stdout + res.stderr
-    os.replace(tmp, so_path)
-    return so_path
+    procs = {}
+    for name in todo:
+        tmp = f"{paths[name]}.tmp{os.getpid()}"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp,
+             os.path.join(_CSRC, LIBRARIES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"--- {LIBRARIES[name]}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{LIBRARIES[name]} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: library -> {entry point: argtypes}; every entry point returns an int
+_SIGNATURES = {
+    "blockbits_pml": {
+        "spn_pml_scan": [_P, _I64, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
+                         _P, _I32, _P, _P, _I64, _I64, _P, _P],
+        "spn_pml_classify": [_P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
+                             _I32, _P, _I32, _P, _P, _I64, _I64, _I64, _I32,
+                             _P, _P, _P, _P, _P]},
+    "blockbits_ms": {
+        "spn_ms_scan": [_P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
+                        _I32, _I64, _I64, _P, _I32, _P, _P, _I64, _I64, _P,
+                        _P, _I32, _P, _P, _P],
+        "spn_ms_extend": [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _I32, _P,
+                          _P],
+        "spn_binmax_values": [_P, _P, _I64, _I64, _I32, _I64, _I32, _P, _P,
+                              _P, _P, _P]},
+    "gather_chase": {
+        "spn_gather_chase": [_P, _P, _I32, _I32, _I32, _P, _P]},
+}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name` of LIBRARIES (built on first use)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            head = [p, i64, i32, i32, i32, i64, i64, i64, i32, p, i32, p, p,
-                    i64, i64]
-            lib.spn_pml_scan.argtypes = head + [p, p]
-            lib.spn_pml_scan.restype = i32
-            lib.spn_pml_classify.argtypes = head + [i64, i32, p, p, p, p, p]
-            lib.spn_pml_classify.restype = i32
-            _lib = lib
-    return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(build()[name])
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I32
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _check_inputs(index: BlockBitsIndex, tab: torch.Tensor,
@@ -127,10 +174,14 @@ def _launch_head(index: BlockBitsIndex, tab, reads_rev, lens):
             lens.data_ptr(), B, L]
 
 
-def _raise_on(rc: int, name: str, index: BlockBitsIndex):
+def _raise_on(rc: int, name: str, index: BlockBitsIndex = None):
+    """Raises for a nonzero entry-point return: -1 is a layout or argument
+    the source does not instantiate, anything else a CUDA error."""
     if rc == -1:
-        raise ValueError(f"{name}: no kernel for P={index.meta.P}, "
-                         f"pack={index.meta.pack}, wide={index.meta.wide}")
+        what = ("these arguments" if index is None else
+                f"P={index.meta.P}, pack={index.meta.pack}, "
+                f"wide={index.meta.wide}")
+        raise ValueError(f"{name}: no kernel for {what}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
@@ -146,7 +197,7 @@ def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
                       device=reads_rev.device)
     if out.numel() == 0:
         return out
-    rc = _library().spn_pml_scan(
+    rc = library("blockbits_pml").spn_pml_scan(
         *_launch_head(index, tab, reads_rev, lens), out.data_ptr(),
         torch.cuda.current_stream(reads_rev.device).cuda_stream)
     _raise_on(rc, "pml_scan", index)
@@ -176,7 +227,7 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
     summ = torch.zeros(B, dtype=torch.int64, device=dev)
     if B == 0:
         return found, above, below, summ
-    rc = _library().spn_pml_classify(
+    rc = library("blockbits_pml").spn_pml_classify(
         *_launch_head(index, tab, reads_rev, lens), int(max_value_thr),
         int(bin_width), found.data_ptr(), above.data_ptr(), below.data_ptr(),
         summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -188,9 +239,198 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
 pml_classify.launches = 0
 
 
+_MS_MODES = {("ms", False): 0, ("ms", True): 1, ("pml", True): 2}
+
+
+def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
+            reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
+            use_doc: bool):
+    """K3. Same read inputs as pml_scan; mode 'ms' (with or without doc
+    ids) or 'pml' with use_doc. Returns (vals, docs): [B, L] tensors of
+    index.meta.pos_dtype in FORWARD order (columns >= lens[b] are 0):
+    MS pointers jump_t[jidx] - d, or PML lengths; docs = jump_d[jidx], or
+    None without use_doc."""
+    kind = _check_inputs(index, tab, reads_rev, lens)
+    code = _MS_MODES.get((mode, bool(use_doc)))
+    if code is None:
+        raise ValueError(f"ms_scan: mode={mode!r}, use_doc={use_doc} (plain "
+                         f"PML is pml_scan)")
+    need = ["msrows"] + (["jump_t"] if mode == "ms" else []) + (
+        ["jump_d"] if use_doc else [])
+    for name in need:
+        t = getattr(index, name)
+        if t is None:
+            raise ValueError(f"ms_scan: the index has no {name} (build with "
+                             f"want_ms / want_doc)")
+        if t.device != reads_rev.device:
+            raise ValueError(f"{name} is on {t.device}, reads on "
+                             f"{reads_rev.device}")
+    if kind == "cpu":
+        return ms_scan_reference(index, tab, reads_rev, lens, mode, use_doc)
+    dev = reads_rev.device
+    vals = torch.zeros(reads_rev.shape, dtype=index.meta.pos_dtype,
+                       device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    if vals.numel() == 0:
+        return vals, docs
+    m = index.meta
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
+    rc = library("blockbits_ms").spn_ms_scan(
+        index.bblocks.data_ptr(), index.msrows.data_ptr(),
+        index.bblocks.shape[0], m.P, m.pack, int(m.wide), m.n, m.term_pos,
+        m.F_term, m.term_code, m.r, m.term_runidx, tab.data_ptr(),
+        tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
+        reads_rev.shape[0], reads_rev.shape[1], ptr(index.jump_t),
+        ptr(index.jump_d), code, vals.data_ptr(), ptr(docs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "ms_scan", index)
+    ms_scan.launches += 1
+    return vals, docs
+
+
+ms_scan.launches = 0
+
+
+def _check_matrix_inputs(name, mats, lens):
+    """[B, L] matrices and [B] int64 lens on one device, contiguous;
+    returns the device kind."""
+    dev = lens.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if lens.dtype != torch.int64 or lens.dim() != 1:
+        raise ValueError(f"{name}: lens must be a [B] int64 tensor")
+    for label, t, dtypes in mats:
+        if t.device != dev:
+            raise ValueError(f"{label} is on {t.device}, lens on {dev}")
+        if t.dtype not in dtypes or t.dim() != 2 \
+                or t.shape[0] != lens.shape[0]:
+            raise ValueError(f"{name}: {label} must be a [B, L] tensor of "
+                             f"{dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if not lens.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return dev.type
+
+
+def ms_extend(index: BlockBitsIndex, reads_fwd: torch.Tensor,
+              lens: torch.Tensor, ptrs: torch.Tensor) -> torch.Tensor:
+    """K4. reads_fwd: [B, L] uint8 raw read bytes in natural order; ptrs:
+    [B, L] forward MS pointers (index.meta.pos_dtype, from ms_scan). Returns
+    the [B, L] MS lengths in the pointer dtype (columns >= lens[b] are 0)."""
+    if index.text is None:
+        raise ValueError("ms_extend: the index has no text (build -M)")
+    kind = _check_matrix_inputs("ms_extend", (
+        ("reads_fwd", reads_fwd, (torch.uint8,)),
+        ("ptrs", ptrs, (index.meta.pos_dtype,))), lens)
+    if reads_fwd.shape != ptrs.shape:
+        raise ValueError("ms_extend: reads_fwd and ptrs differ in shape")
+    if index.text.device != lens.device:
+        raise ValueError(f"text is on {index.text.device}, lens on "
+                         f"{lens.device}")
+    if kind == "cpu":
+        return ms_extend_reference(index, reads_fwd, lens, ptrs)
+    out = torch.zeros_like(ptrs)
+    if out.numel() == 0:
+        return out
+    dev = lens.device
+    rc = library("blockbits_ms").spn_ms_extend(
+        index.text.data_ptr(), index.text.shape[0], index.text_bound,
+        reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
+        ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "ms_extend")
+    ms_extend.launches += 1
+    return out
+
+
+ms_extend.launches = 0
+
+
+def binmax_values(vals: torch.Tensor, lens: torch.Tensor, max_value_thr: int,
+                  bin_width: int):
+    """K5. Bin-max classification of a natural-order [B, L] int32 / int64
+    value matrix (scan_engine.py::binmax_values_kernel): returns per-read
+    (found [B] bool, above [B] int32, below [B] int32, sum_maxes [B]
+    int64)."""
+    if bin_width <= 0:
+        raise ValueError("bin_width must be positive")
+    kind = _check_matrix_inputs("binmax_values", (
+        ("vals", vals, (torch.int32, torch.int64)),), lens)
+    if kind == "cpu":
+        return binmax_values_reference(vals, lens, max_value_thr, bin_width)
+    B = vals.shape[0]
+    dev = vals.device
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    above = torch.zeros(B, dtype=torch.int32, device=dev)
+    below = torch.zeros(B, dtype=torch.int32, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return found, above, below, summ
+    rc = library("blockbits_ms").spn_binmax_values(
+        vals.data_ptr(), lens.data_ptr(), B, vals.shape[1],
+        int(vals.dtype == torch.int64), int(max_value_thr), int(bin_width),
+        found.data_ptr(), above.data_ptr(), below.data_ptr(),
+        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "binmax_values")
+    binmax_values.launches += 1
+    return found, above, below, summ
+
+
+binmax_values.launches = 0
+
+
+def _check_chase(table: torch.Tensor, idx0: torch.Tensor) -> str:
+    if table.dim() != 2 or table.dtype not in (torch.int32, torch.uint32):
+        raise ValueError("table must be an [R, W] int32 / uint32 tensor")
+    if idx0.dtype != torch.int32 or tuple(idx0.shape) != tuple(table.shape):
+        raise ValueError("idx0 must be an int32 tensor of the table's shape")
+    if idx0.device != table.device:
+        raise ValueError(f"idx0 is on {idx0.device}, table on "
+                         f"{table.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    if not (table.is_contiguous() and idx0.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    rows = table.shape[0]
+    if idx0.numel() and not (-rows <= int(idx0.min())
+                             and int(idx0.max()) < rows):
+        raise ValueError(f"idx0 must lie in [-R, R) = [{-rows}, {rows})")
+    return table.device.type
+
+
+def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
+                 steps: int = 64) -> torch.Tensor:
+    """K6. table: [R, W] u32 (int32 or uint32 storage); idx0: [R, W] int32
+    in [-R, R) (checked: the kernel reads row idx or idx + R). Returns the
+    [R, W] int32 indices after `steps` steps of
+    idx = rem(abs(int32(table[idx, j]) ^ idx), R)."""
+    if _check_chase(table, idx0) == "cpu":
+        return gather_chase_reference(table, idx0, steps)
+    out = torch.empty_like(idx0)
+    rc = library("gather_chase").spn_gather_chase(
+        table.data_ptr(), idx0.data_ptr(), table.shape[0], table.shape[1],
+        int(steps), out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on(rc, "gather_chase")
+    gather_chase.launches += 1
+    return out
+
+
+gather_chase.launches = 0
+
+_WRAPPERS = (pml_scan, pml_classify, ms_scan, ms_extend, binmax_values,
+             gather_chase)
+
+
 def reset_launch_counts() -> None:
-    pml_scan.launches = 0
-    pml_classify.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{wrapper name: kernel launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +495,120 @@ def pml_classify_reference(index: BlockBitsIndex, tab: torch.Tensor,
     summ += torch.where(has, cur_max, 0)
     found = (above > below) & has
     return found, above.to(torch.int32), below.to(torch.int32), summ
+
+
+def ms_scan_reference(index: BlockBitsIndex, tab: torch.Tensor,
+                      reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
+                      use_doc: bool):
+    """Plain PyTorch version of K3 (query_batch_kernel_v4ms with
+    ms_initial_state and the jump-table reconstruction, in forward
+    order)."""
+    m = index.meta
+    B, L = reads_rev.shape
+    dev = reads_rev.device
+    lens = lens.clamp(0, L)
+    vals = torch.zeros((B, L), dtype=m.pos_dtype, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    lanes = torch.arange(B, device=dev)
+    pos = torch.full((B,), m.n - 1, dtype=torch.int64, device=dev)
+    jidx = torch.full((B,), 2 * m.r + 1, dtype=torch.int64, device=dev)
+    run = torch.zeros(B, dtype=torch.int64, device=dev)   # d, or length
+    steps = int(lens.max()) if B else 0
+    for t in range(steps):
+        pos, is_match, empty, jjump = ms_probe(index, tab, pos,
+                                               reads_rev[:, t])
+        if mode == "ms":
+            # an absent character resets to EMPTY: jump_t 0, first_run_sdoc
+            jidx = torch.where(is_match, jidx,
+                               torch.where(empty, 2 * m.r, jjump))
+            run = torch.where(is_match, run + 1, 0)
+            val = index.jump_t[jidx].long() - run
+        else:
+            # PML + doc: an absent character keeps the doc
+            jidx = torch.where(is_match | empty, jidx, jjump)
+            run = torch.where(is_match, run + 1, 0)
+            val = run
+        act = t < lens
+        col = (lens - 1 - t)[act]
+        vals[lanes[act], col] = val[act].to(m.pos_dtype)
+        if use_doc:
+            docs[lanes[act], col] = index.jump_d[jidx][act].to(m.pos_dtype)
+    return vals, docs
+
+
+def ms_extend_reference(index: BlockBitsIndex, reads_fwd: torch.Tensor,
+                        lens: torch.Tensor,
+                        ptrs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: extend_pointers_kernel's two-pointer
+    loop (scan_engine.py:1041-1101). Each iteration either extends a lane's
+    match by one character or emits its length at i and moves to i + 1,
+    keeping max(l - 1, 0) characters (MS are 1-Lipschitz), so a lane takes
+    at most 3 L iterations. A position mismatches when its pointer is
+    negative (the reference's unsigned underflow) or the text position is
+    past index.text_bound, where text past its end reads as 0."""
+    B, L = reads_fwd.shape
+    dev = reads_fwd.device
+    text = index.text
+    ntext, nt = int(text.shape[0]), index.text_bound
+    out = torch.zeros_like(ptrs)
+    lanes = torch.arange(B, device=dev)
+    i = torch.zeros(B, dtype=torch.int64, device=dev)
+    l = torch.zeros_like(i)
+    while True:
+        active = i < lens
+        if not bool(active.any()):
+            return out
+        rch = reads_fwd.gather(1, (i + l).clamp(0, L - 1)[:, None])[:, 0]
+        ptr = ptrs.gather(1, i.clamp(0, L - 1)[:, None])[:, 0].long()
+        tpos = ptr + l
+        in_text = (tpos >= 0) & (tpos < ntext)
+        tch = torch.where(in_text, text[tpos.clamp(0, max(ntext - 1, 0))],
+                          torch.zeros_like(rch))
+        ok = (active & (i + l < lens) & (ptr >= 0) & (tpos >= 0)
+              & (tpos < nt) & (rch == tch))
+        emit = active & ~ok
+        out[lanes[emit], i[emit]] = l[emit].to(out.dtype)
+        l = torch.where(active, torch.where(ok, l + 1,
+                                            (l - 1).clamp(min=0)), l)
+        i = torch.where(emit, i + 1, i)
+
+
+def binmax_values_reference(vals: torch.Tensor, lens: torch.Tensor,
+                            max_value_thr: int, bin_width: int):
+    """Plain PyTorch version of K5 (binmax_values_kernel): the value max of
+    each bin of bin_width positions, the short tail merged into the last
+    bin; nbins = max(len // bin_width, 1); below = nbins - above."""
+    B, L = vals.shape
+    dev = vals.device
+    p = torch.arange(L, device=dev)
+    nbins = torch.clamp(lens // bin_width, min=1)
+    binid = torch.minimum(p[None, :] // bin_width, nbins[:, None] - 1)
+    valid = p[None, :] < lens[:, None]
+    above = torch.zeros(B, dtype=torch.int64, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    for j in range(max(1, -(-L // bin_width))):
+        mx = torch.where(valid & (binid == j), vals.long(),
+                         torch.full_like(vals, -1, dtype=torch.int64)
+                         ).max(dim=1).values
+        has = mx >= 0
+        above += (has & (mx >= max_value_thr)).long()
+        summ += torch.where(has, mx, 0)
+    below = nbins - above
+    found = (above > below) & (lens > 0)
+    return found, above.to(torch.int32), below.to(torch.int32), summ
+
+
+def gather_chase_reference(table: torch.Tensor, idx0: torch.Tensor,
+                           steps: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of K6 (chase_kernel): jnp.abs wraps on
+    INT_MIN, lax.rem truncates, and a negative index reads row idx + R
+    (take_along_axis's normalisation)."""
+    rows = table.shape[0]
+    tab = table.view(torch.int32).long()
+    idx = idx0.long()
+    for _ in range(steps):
+        g = torch.gather(tab, 0, torch.where(idx < 0, idx + rows, idx))
+        a = (g ^ idx).abs()
+        a = torch.where(a > 2**31 - 1, a - 2**32, a)   # abs(INT_MIN) wraps
+        idx = torch.fmod(a, rows)                      # lax.rem: truncated
+    return idx.to(torch.int32)

@@ -1,16 +1,18 @@
 """Host-side engine of the port: stages read batches onto the device and
 runs the block-bits kernels over them.
 
-Covers the bits/PML surface of `spumoni_tpu/engine/scan_engine.py::
+Covers the block-bits surface of `spumoni_tpu/engine/scan_engine.py::
 ScanEngine`: `stage`, the growing staged alphabet, `classify_staged`,
-`query_staged`, and the list API `classify` / `query`.
+`query_staged`, and the list API `classify` / `query`, for PML (K1, K2),
+MS (K3 pointers, K4 lengths, K5 bin-max) and document tracking (K3).
 
 Reads are bucketed by padded length (a power of two from PAD_TO up to
 CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED and
 rank-mapped into [B, L] uint8 rows by the native packer (8 bits per base:
 the 2- and 4-bit transfer packings of the JAX package existed for the TPU
-host link), and uploaded. Reads longer than CHUNK go through the same
-kernels in one launch: the carry is per lane, so no chunk state is kept.
+host link), and uploaded; MS runs also upload the raw forward rows for the
+extension. Reads longer than CHUNK go through the same kernels in one
+launch: the carry is per lane, so no chunk state is kept.
 """
 
 from __future__ import annotations
@@ -22,14 +24,28 @@ from .. import _host
 from . import kernels
 from .blockbits import BlockBitsIndex, CharTable
 
+#: raw-byte staging of the forward rows (the MS extension compares bytes)
+_IDENT_AMAP = np.arange(256, dtype=np.uint8)
+
 
 class ScanEngine:
     PAD_TO = 128   # shortest bucket
     CHUNK = 4096   # longest power-of-two bucket; longer reads: multiples
 
-    def __init__(self, index: BlockBitsIndex, table: CharTable):
+    def __init__(self, index: BlockBitsIndex, table: CharTable,
+                 mode: str = "pml", use_doc: bool = False):
+        if mode not in ("pml", "ms"):
+            raise ValueError(f"mode must be 'pml' or 'ms', not {mode!r}")
+        if mode == "ms" and (index.jump_t is None or index.text is None):
+            raise ValueError("MS needs an index built with want_ms from a "
+                             "dense index with SA samples and text (build -M)")
+        if use_doc and index.jump_d is None:
+            raise ValueError("doc tracking needs an index built with "
+                             "want_doc (build -d)")
         self.index = index
         self.table = table
+        self.mode = mode
+        self.use_doc = use_doc
         self.device = index.bblocks.device
         self._stage_alpha = None   # cached, monotonically growing alphabet
         self._stage_amap = None    # its 256-byte LUT (255 = not covered)
@@ -111,43 +127,83 @@ class ScanEngine:
                 if miss:
                     raise RuntimeError("staged alphabet misses a read byte")
                 lens = lens_all[sel].astype(np.int64)
-                groups.append({
-                    "idxs": sel, "L": L, "lens": lens,
-                    "tab": self._table(self._stage_alpha),
-                    "rev_d": torch.from_numpy(rev).to(self.device),
-                    "lens_d": torch.from_numpy(lens).to(self.device)})
+                g = {"idxs": sel, "L": L, "lens": lens,
+                     "tab": self._table(self._stage_alpha),
+                     "rev_d": torch.from_numpy(rev).to(self.device),
+                     "lens_d": torch.from_numpy(lens).to(self.device)}
+                if self.mode == "ms":
+                    # raw bytes: the identity LUT's 255 "miss" is moot
+                    fwd, _, _ = _host.pack_rows_native(
+                        buf, offs[sel], offs[sel + 1], len(sel), L,
+                        _IDENT_AMAP, False, 8)
+                    g["fwd_d"] = torch.from_numpy(fwd).to(self.device)
+                groups.append(g)
         return groups
 
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
 
+    def _ms_values(self, g, use_doc: bool):
+        """{'pointers', 'lengths'[, 'docs']} [B, L] on the device: K3,
+        then K4 on its pointers."""
+        ptrs, docs = kernels.ms_scan(self.index, g["tab"], g["rev_d"],
+                                     g["lens_d"], "ms", use_doc)
+        mats = {"pointers": ptrs, "lengths": kernels.ms_extend(
+            self.index, g["fwd_d"], g["lens_d"], ptrs)}
+        if use_doc:
+            mats["docs"] = docs
+        return mats
+
     def classify_staged(self, staged, bin_width: int, max_value_thr: int):
         """Per-read (found, above, below, sum_maxes) over staged groups, in
-        the batch's read order (K2: only [B] summaries leave the device)."""
+        the batch's read order. PML: K2; MS: K3 -> K4 -> K5 (the port of
+        _classify_ms_dev). Only [B] summaries leave the device."""
+        if self.use_doc:
+            raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
         out = {"found": np.zeros(n, dtype=bool),
                "above": np.zeros(n, dtype=np.int64),
                "below": np.zeros(n, dtype=np.int64),
                "sum_maxes": np.zeros(n, dtype=np.int64)}
         for g in staged:
-            res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
-                                       g["lens_d"], max_value_thr, bin_width)
+            if self.mode == "pml":
+                res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
+                                           g["lens_d"], max_value_thr,
+                                           bin_width)
+            else:
+                res = kernels.binmax_values(
+                    self._ms_values(g, False)["lengths"], g["lens_d"],
+                    max_value_thr, bin_width)
             for key, v in zip(("found", "above", "below", "sum_maxes"), res):
                 out[key][g["idxs"]] = v.cpu().numpy()
         return out
 
     def query_staged(self, staged) -> dict:
-        """Per-read PML length arrays over staged groups, in the batch's
-        read order (K1)."""
+        """Per-read value arrays over staged groups, in the batch's read
+        order: 'lengths' (PML: K1, or K3 with doc tracking; MS: K4),
+        'pointers' (MS: K3) and 'docs' (doc tracking: K3)."""
         n = sum(len(g["idxs"]) for g in staged)
-        lengths = [None] * n
+        fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
+        if self.use_doc:
+            fields.append("docs")
+        out = {f: [None] * n for f in fields}
         for g in staged:
-            vals = kernels.pml_scan(self.index, g["tab"], g["rev_d"],
-                                    g["lens_d"]).cpu().numpy()
-            for j, i in enumerate(g["idxs"]):
-                lengths[i] = vals[j, :g["lens"][j]]
-        return {"lengths": lengths}
+            if self.mode == "ms":
+                mats = self._ms_values(g, self.use_doc)
+            elif self.use_doc:
+                lengths, docs = kernels.ms_scan(
+                    self.index, g["tab"], g["rev_d"], g["lens_d"], "pml",
+                    True)
+                mats = {"lengths": lengths, "docs": docs}
+            else:
+                mats = {"lengths": kernels.pml_scan(
+                    self.index, g["tab"], g["rev_d"], g["lens_d"])}
+            for f in fields:
+                vals = mats[f].cpu().numpy()
+                for j, i in enumerate(g["idxs"]):
+                    out[f][i] = vals[j, :g["lens"][j]]
+        return out
 
     # ------------------------------------------------------------------
     # list API
@@ -161,8 +217,8 @@ class ScanEngine:
                                     bin_width, max_value_thr)
 
     def query(self, reads, max_lanes: int = 8192) -> dict:
-        """{'lengths': [per-read PML arrays]} for a list of byte-string
-        reads."""
+        """Per-read value arrays (query_staged's fields) for a list of
+        byte-string reads."""
         return self.query_staged(self.stage(_packed(reads), max_lanes))
 
 

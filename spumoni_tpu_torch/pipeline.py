@@ -1,12 +1,14 @@
 """`run` for the port: streams a query file through the block-bits kernels
 and writes the reference's output files.
 
-Mirrors `spumoni_tpu/pipeline.py::run` for PML on the staged fast path:
-the fast start from the `.bbrows.npz` cache, the null-DB threshold, the
+Mirrors `spumoni_tpu/pipeline.py::run` on the staged fast path, for PML
+(-P) and MS (-M), with or without document tracking (-d): the fast start
+from the `.bbrows.npz` cache (PML without -d), the null-DB threshold, the
 prefetch thread that parses and stages batches, the writer thread, the
 durable read cursor with `--resume`, and `--ks-report` with its glibc
-rand() draws kept in global read order. Outputs are byte-identical to the
-JAX package's.
+rand() draws kept in global read order. Outputs (`.pseudo_lengths`,
+`.lengths`, `.pointers`, `.doc_numbers`, `.report`) are byte-identical to
+the JAX package's.
 
 What this slice does not cover raises NotImplementedError naming its
 ROADMAP item; nothing falls back silently. `build` and `import-ref` are the
@@ -48,8 +50,6 @@ class RunConfig(_host.RunConfig):
 
 def _check_supported(cfg: RunConfig) -> None:
     unsupported = (
-        (cfg.mode != "pml", "-M (MS) runs are ROADMAP A8"),
-        (cfg.use_doc, "-d document tracking is ROADMAP A8"),
         (cfg.is_general_text, "-g general text is ROADMAP A7"),
         (cfg.min_digest, "-m / -a minimizer digestion is ROADMAP A12"),
         (cfg.engine == "layered", "--engine layered is ROADMAP A7"),
@@ -80,13 +80,18 @@ def select_device(name: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def make_engine(index_path: str, device: torch.device) -> ScanEngine:
-    """The block-bits engine for the index at index_path: from the rows
-    cache when it is fresh and under SPN_HBM_BUDGET_GB (default 12), else
-    from the dense index (building and caching the rows)."""
-    budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
-    fast = load_cached(index_path + ".bbrows.npz", index_path + ".npz",
-                       max_bytes=budget)
+def make_engine(index_path: str, device: torch.device, mode: str = "pml",
+                use_doc: bool = False) -> ScanEngine:
+    """The block-bits engine for the index at index_path. PML without doc
+    tracking starts from the rows cache when it is fresh and under
+    SPN_HBM_BUDGET_GB (default 12); otherwise the dense index is loaded and
+    the rows (and for MS / doc tracking the msrows, `.bbms.npz`) are built
+    or loaded from their caches, as spumoni_tpu/pipeline.py:587-607 does."""
+    fast = None
+    if mode == "pml" and not use_doc:
+        budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
+        fast = load_cached(index_path + ".bbrows.npz", index_path + ".npz",
+                           max_bytes=budget)
     if fast is not None:
         index, table, n, r = fast
         log("run", "fast start: engine rows from cache "
@@ -98,16 +103,27 @@ def make_engine(index_path: str, device: torch.device) -> ScanEngine:
                 "not in the port yet: an index with more than 8 BWT "
                 "characters or n >= 2^40 needs the layered engine "
                 "(ROADMAP A7)")
-        index, table = build_blockbits(dense,
-                                       cache_path=index_path + ".bbrows.npz",
-                                       src_path=index_path + ".npz")
+        if (mode == "ms" or use_doc) and dense.r >= 2**30:
+            raise NotImplementedError(
+                "not in the port yet: MS / doc tracking with r >= 2^30 runs "
+                "needs the layered engine (ROADMAP A7)")
+        if mode == "ms" and dense.text is None:
+            raise ValueError("-M needs an index built with -M (SA samples "
+                             "and text)")
+        want_ms, want_doc = mode == "ms", use_doc
+        index, table = build_blockbits(
+            dense, cache_path=index_path + ".bbrows.npz",
+            src_path=index_path + ".npz", want_ms=want_ms,
+            want_doc=want_doc,
+            ms_cache_path=(index_path + ".bbms.npz")
+            if want_ms or want_doc else None)
         n, r = dense.n, dense.r
     index = index.to(device)
-    log("run", f"index resident on {device}: "
-               f"{index.bblocks.numel() * 4 / 1e6:.1f} MB (n={n}, r={r}, "
-               f"P={index.meta.P}, pack={index.meta.pack}, "
-               f"wide={index.meta.wide})")
-    return ScanEngine(index, table)
+    nbytes = sum(b.numel() * b.element_size() for b in index.buffers())
+    log("run", f"index resident on {device}: {nbytes / 1e6:.1f} MB "
+               f"(n={n}, r={r}, P={index.meta.P}, pack={index.meta.pack}, "
+               f"wide={index.meta.wide}, msrows={index.msrows is not None})")
+    return ScanEngine(index, table, mode=mode, use_doc=use_doc)
 
 
 def run(cfg: RunConfig) -> int:
@@ -117,9 +133,12 @@ def run(cfg: RunConfig) -> int:
     _check_supported(cfg)
     device = select_device(cfg.device)
     base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
-    engine = make_engine(base + ".thrbv.spumoni", device)
+    ms = cfg.mode == "ms"
+    engine = make_engine(base + (".thrbv.ms" if ms else ".thrbv.spumoni"),
+                         device, cfg.mode, cfg.use_doc)
 
-    null_db = _host.null_db.EmpNullDatabase.load(base + ".pmlnulldb")
+    null_db = _host.null_db.EmpNullDatabase.load(
+        base + (".msnulldb" if ms else ".pmlnulldb"))
     thr = _host.binmax.max_value_threshold(
         null_db.percentile_value, cfg.use_promotions, cfg.use_dna_letters,
         cfg.mode)
@@ -127,7 +146,13 @@ def run(cfg: RunConfig) -> int:
     out_prefix = cfg.pattern_file
     paths = {}
     if not cfg.report_only:
-        paths["lengths"] = out_prefix + ".pseudo_lengths"
+        if ms:
+            paths["lengths"] = out_prefix + ".lengths"
+            paths["pointers"] = out_prefix + ".pointers"
+        else:
+            paths["lengths"] = out_prefix + ".pseudo_lengths"
+        if cfg.use_doc:
+            paths["docs"] = out_prefix + ".doc_numbers"
     if cfg.write_report:
         paths["report"] = out_prefix + ".report"
 
@@ -174,6 +199,14 @@ def run(cfg: RunConfig) -> int:
                 wstate["num"] += 1
         else:
             for i, rid in enumerate(ids):
+                # the JAX package's writer order (spumoni_tpu/pipeline.py:
+                # 971-977)
+                if cfg.use_doc:
+                    rep.write_values_record(files["docs"], rid,
+                                            out["docs"][i])
+                if ms:
+                    rep.write_values_record(files["pointers"], rid,
+                                            out["pointers"][i])
                 lengths = out["lengths"][i]
                 rep.write_values_record(files["lengths"], rid, lengths)
                 if cfg.write_report and cfg.ks_report:

@@ -1,12 +1,14 @@
 """End-to-end parity of the port's `run` (device='cpu': the plain PyTorch
 versions) with the JAX package's `run` (JAX CPU backend): byte-identical
-output files on the tests/test_pipeline.py fixtures and the golden corpus.
+output files on the tests/test_pipeline.py fixtures and the golden corpus,
+for PML (-P) and MS (-M), with and without document tracking (-d).
 """
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from spumoni_tpu.pipeline import BuildConfig, RunConfig as JaxRunConfig
@@ -125,9 +127,102 @@ def test_golden_pml_outputs(tmp_path):
         assert got == open(os.path.join(GOLDEN, name), "rb").read(), name
 
 
+@pytest.fixture(scope="module")
+def msdoc(tmp_path_factory):
+    """A three-document index built with -M -P -d from a file list, and
+    reads with N, bytes absent from the index, reads running off a
+    document's and the text's end, and a read spanning two documents."""
+    tmp = tmp_path_factory.mktemp("msdoc")
+    rng = np.random.default_rng(17)
+    docs, listing = [], []
+    for d in range(3):
+        path = str(tmp / f"doc{d}.fa")
+        seqs = _write_genome(path, rng, contigs=((f"seq{d}", 3000 + 700 * d),))
+        docs.append("".join(seqs.values()))
+        listing.append(f"{path} {d + 1}\n")
+    with open(tmp / "files.txt", "w") as f:
+        f.writelines(listing)
+    reads_path = str(tmp / "reads.fa")
+    genome = "".join(docs)
+    _write_reads(reads_path, rng, genome, n_pos=5, n_neg=4, m=300)
+    with open(reads_path, "a") as f:
+        f.write(">with_n\n" + "N" * 30 + docs[0][500:800] + "NXY\n")
+        f.write(">doc_end\n" + docs[1][-250:] + docs[2][:40] + "\n")
+        f.write(">text_end\n" + docs[2][-200:] + "ACGTA\n")
+        f.write(">long\n" + (docs[0] + docs[1])[2000:3300] + "\n")
+    build(BuildConfig(input_list=str(tmp / "files.txt"),
+                      output_prefix=str(tmp / "idx"), ms_index=True,
+                      pml_index=True, build_doc=True, use_minimizers=False))
+    return dict(ref_file=str(tmp / "idx"), pattern_file=reads_path,
+                min_digest=False)
+
+
+_VALUE_EXTS = (".pointers", ".lengths", ".pseudo_lengths", ".doc_numbers",
+               ".report")
+
+
+def _clear(reads_path):
+    for e in _VALUE_EXTS:
+        if os.path.exists(reads_path + e):
+            os.remove(reads_path + e)
+
+
+_MSDOC_RUNS = {
+    "M-c": dict(ms_requested=True, write_report=True),
+    "M-c-report-only": dict(ms_requested=True, write_report=True,
+                            report_only=True),
+    "M-d": dict(ms_requested=True, use_doc=True),
+    "M-d-c": dict(ms_requested=True, use_doc=True, write_report=True),
+    "P-d-c": dict(pml_requested=True, use_doc=True, write_report=True),
+    "M-c-ks-report": dict(ms_requested=True, write_report=True,
+                          ks_report=True),
+}
+
+
+@pytest.mark.parametrize("run_id", sorted(_MSDOC_RUNS))
+def test_ms_and_doc_runs_match_jax(msdoc, run_id):
+    """-M and -d runs write the files the JAX package's block-bits engine
+    writes, byte for byte."""
+    kw = _MSDOC_RUNS[run_id]
+    reads_path = msdoc["pattern_file"]
+    _clear(reads_path)
+    n_jax = jax_run(JaxRunConfig(**msdoc, engine="bits", **kw))
+    want = _outputs(reads_path, _VALUE_EXTS)
+    _clear(reads_path)
+    n_port = tpl.run(tpl.RunConfig(device="cpu", **msdoc, **kw))
+    assert n_jax == n_port == 13
+    expect = {".report"} if kw.get("write_report") else set()
+    if not kw.get("report_only"):
+        expect |= ({".pointers", ".lengths"} if kw.get("ms_requested")
+                   else {".pseudo_lengths"})
+        expect |= {".doc_numbers"} if kw.get("use_doc") else set()
+    assert set(want) == expect
+    assert _outputs(reads_path, _VALUE_EXTS) == want
+
+
+@pytest.mark.parametrize("run_id", sorted(_MSDOC_RUNS))
+def test_ms_doc_resume_continues_the_files(msdoc, run_id):
+    """--resume after 4 durable reads appends the rest of every file
+    byte-identically to the JAX package's uninterrupted run (with
+    --ks-report, the rand() draws owed for the skipped reads included)."""
+    reads_path = msdoc["pattern_file"]
+    kw = _MSDOC_RUNS[run_id]
+    _clear(reads_path)
+    full = jax_run(JaxRunConfig(**msdoc, engine="bits", **kw))
+    want = _outputs(reads_path, _VALUE_EXTS)
+    assert want
+    for e, data in want.items():
+        keep = 5 if e == ".report" else 8      # header + 4 lines / records
+        with open(reads_path + e, "wb") as f:
+            f.write(b"".join(data.splitlines(True)[:keep]))
+    with open(reads_path + ".cursor", "w") as f:
+        f.write("4")
+    n = tpl.run(tpl.RunConfig(device="cpu", resume=True, **msdoc, **kw))
+    assert n == full == 13
+    assert _outputs(reads_path, _VALUE_EXTS) == want
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(ms_requested=True, pml_requested=False), "A8"),
-    (dict(use_doc=True), "A8"),
     (dict(min_digest=True, use_dna_letters=True), "A12"),
     (dict(engine="layered"), "A7"),
     (dict(engine="occ"), "A11"),
