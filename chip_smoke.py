@@ -6,15 +6,19 @@
 Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
   2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
-     `ms_scan`, K4 `ms_extend`, K5 `binmax_values` and K6 `gather_chase`
-     from spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in
-     parallel;
+     `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
+     `layered_scan` and K8 `layered_classify` from spumoni_tpu_torch/csrc
+     for sm_90a, one nvcc per source, in parallel;
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
      from the index; equality is exact (integers, tolerance 0);
   3b. K3 (ms, ms+doc, pml+doc), K4, K5 and K6 vs plain versions the same
      way, on multi-document MS indexes of the same layouts;
+  3c. K7 `layered_scan` (pml, pml+doc, ms, ms+doc; int32 and int64), K8
+     `layered_classify` and K4 on K7's pointers vs plain versions on small
+     layered indexes: DNA of depth 2 and 3, two documents, general text
+     (26 letters), -m digested text; DNA cases also vs the native engine;
   4. the main path through the CLI at a real size: a synthetic stand-in for
      a 10-strain bacterial pangenome (10 x 4.6 Mbp at 1% divergence from one
      seeded base, reverse complements added: n ~ 92 M), 65,536 reads of
@@ -28,14 +32,23 @@ Phases, each of which fails the script (exit != 0) on any fault:
      over the same reads. Checks: the two MS reports identical, sampled
      reads' .pointers / .lengths / .doc_numbers (MS) and .pseudo_lengths /
      .doc_numbers (PML) equal the native CPU engine, FOUND rates;
+  4c. the layered engine: 4b's runs and `-P -c [--report-only]` with
+     `--engine layered` on 4b's index, every output file byte-identical to
+     the block-bits run's; then `build -m -P` and `build -a -P` of the
+     phase-4 FASTA, `run -m -P -c --report-only` (K8), `run -m -P -c` (K7;
+     sampled reads equal the native engine on their digested bytes) and
+     `run -a -P -c --report-only` (K2); FOUND rates checked as in 4;
   5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
      on the main-path index;
   5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the MS
      index, and K6 through the gather-chase script's entry point at its
-     shape (R = 9,728, W = 128, L = 64).
+     shape (R = 9,728, W = 128, L = 64);
+  5c. K7 (pml, pml+doc, ms, ms+doc) and K8 vs plain at the same shape on
+     4b's index with the layered engine, and K7-pml and K8 on the -m index
+     at the digested reads' bucket (L = 256).
 
-Every CLI run of 4 and 4b, and the gather-chase script of 5b, is a path of
-its own: the launch counts are set to 0 just before it and read just after,
+Every CLI run of 4, 4b and 4c, and the gather-chase script of 5b, is a
+path of its own: the launch counts are set to 0 just before it and read just after,
 and it must launch each kernel PATH_KERNELS gives it and no other. The line
 before the last is the per-kernel JSON summary, with the launches of each
 kernel's paths; the last line is {"ok": true, "device": {...}}. Nothing of
@@ -45,6 +58,7 @@ JAX is imported.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -268,10 +282,11 @@ def small_ms_phase(device, n=20000, num_reads=300):
                         raise AssertionError(f"{label}: {mode}+doc read {i} "
                                              f"!= native engine")
         ptrs = kernels.ms_scan(index, tab, rev, lens, "ms", False)[0]
-        got = kernels.ms_extend(index, fwd, lens, ptrs)
+        got = kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                                ptrs)
         sync(device)
-        if _max_err(got, kernels.ms_extend_reference(index, fwd, lens,
-                                                     ptrs)):
+        if _max_err(got, kernels.ms_extend_reference(
+                index.text, index.text_bound, fwd, lens, ptrs)):
             raise AssertionError(f"{label}: ms_extend != ms_extend_reference")
         vals = got.cpu().numpy()
         for i, w in enumerate(wlen):
@@ -297,6 +312,81 @@ def small_ms_phase(device, n=20000, num_reads=300):
         raise AssertionError("gather_chase != gather_chase_reference")
     print("gather_chase R=1024 W=128 L=64 (one INT_MIN wrap): K6 == plain, "
           "exactly")
+
+
+LAYERED_CASES = [
+    # label, text length, alphabet, documents, -m digestion, position type
+    ("dna-D2", 20000, b"ACGT", False, False, None),
+    ("dna-D3", 300000, b"ACGT", False, False, None),
+    ("two-docs", 20000, b"ACGT", True, False, None),
+    ("int64-two-docs", 20000, b"ACGT", True, False, np.int64),
+    ("text26", 20000, bytes(range(97, 123)), False, False, None),
+    ("minimizer", 60000, b"ACGT", False, True, None),
+]
+
+
+def small_layered_phase(device, num_reads=300):
+    """3c: K7 in each mode the index has (PML, MS; PML+doc, MS+doc with two
+    documents), K8, and K4 on K7's pointers against their plain versions on
+    small layered indexes (depth 2 and 3, int32 and int64, two documents,
+    general text, -m digested text), and DNA cases against the native
+    engine."""
+    phase("3c. K7 / K8 (and K4 on K7's pointers) vs plain versions on small "
+          "layered indexes")
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.layered import raw_rows, seeded_layered
+
+    for ci, (label, n, alphabet, docs, digest, dtype) in enumerate(
+            LAYERED_CASES):
+        text, index, native = seeded_layered(500 + ci, n, alphabet, docs,
+                                             digest, dtype)
+        reads = _small_reads(600 + ci, text, num_reads, 1024)
+        if alphabet != b"ACGT" or digest:   # the text's own alphabet
+            rng = np.random.default_rng(700 + ci)
+            reads += [rng.choice(np.unique(text), m).tobytes()
+                      for m in rng.integers(1, 1024, size=num_reads // 4)]
+        index = index.to(device)
+        rev, fwd, lens = raw_rows(reads, 1024, device)
+        m = index.meta
+        modes = [("pml", False), ("ms", False)] + (
+            [("pml", True), ("ms", True)] if m.has_doc else [])
+        for mode, use_doc in modes:
+            got = kernels.layered_scan(index, rev, lens, mode, use_doc)
+            sync(device)
+            want = kernels.layered_scan_reference(index, rev, lens, mode,
+                                                  use_doc)
+            if _max_err(got, want):
+                raise AssertionError(f"{label}: layered_scan {mode} doc="
+                                     f"{use_doc} != layered_scan_reference")
+        ptrs = kernels.layered_scan(index, rev, lens, "ms")[0]
+        mslen = kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                                  ptrs)
+        sync(device)
+        if _max_err(mslen, kernels.ms_extend_reference(
+                index.text, index.text_bound, fwd, lens, ptrs)):
+            raise AssertionError(f"{label}: ms_extend on K7 pointers != "
+                                 f"plain")
+        res = kernels.layered_classify(index, rev, lens, 7, BIN_WIDTH)
+        sync(device)
+        if _max_err(res, kernels.layered_classify_reference(
+                index, rev, lens, 7, BIN_WIDTH)):
+            raise AssertionError(f"{label}: layered_classify != plain")
+        checked = ""
+        if alphabet == b"ACGT" and not digest:
+            plen = kernels.layered_scan(index, rev, lens)[0].cpu().numpy()
+            wptr, wlen = native.query_ms(reads)
+            for i, (wp, wl) in enumerate(zip(native.query_pml(reads),
+                                             wlen)):
+                if not (np.array_equal(plen[i, :len(wp)], wp) and
+                        np.array_equal(mslen[i, :len(wl)].cpu().numpy(),
+                                       wl)):
+                    raise AssertionError(f"{label}: read {i} != native "
+                                         f"engine")
+            checked = " == native"
+        print(f"{label:16s} D={m.depth} W={m.width} wide={m.wide} "
+              f"n={m.n} r={m.r} B={len(reads)}: K7 ({len(modes)} modes), "
+              f"K4 on K7 pointers{checked}, K8 == plain, exactly "
+              f"({int(res[0].sum())} FOUND)")
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +530,14 @@ PATH_KERNELS = {
     "M-c-report-only": ("ms_scan", "ms_extend", "binmax_values"),
     "M-c-d": ("ms_scan", "ms_extend"),
     "P-d-c": ("ms_scan",),
+    "L-P-c-report-only": ("layered_classify",),
+    "L-P-c": ("layered_scan",),
+    "L-M-c-report-only": ("layered_scan", "ms_extend", "binmax_values"),
+    "L-M-c-d": ("layered_scan", "ms_extend"),
+    "L-P-d-c": ("layered_scan",),
+    "m-P-c-report-only": ("layered_classify",),
+    "m-P-c": ("layered_scan",),
+    "a-P-c-report-only": ("pml_classify",),
     "exp_vmem_gather": ("gather_chase",),
 }
 
@@ -491,15 +589,15 @@ def _print_runs(stats):
               f"no other kernel")
 
 
-def _found_rates(report_path):
-    """(FOUND share of pos_* reads, of neg_* reads); fails outside >= 0.95
-    and <= 0.05."""
+def _found_rates(report_path, check=True):
+    """(FOUND share of pos_* reads, of neg_* reads); with check, fails
+    outside >= 0.95 and <= 0.05."""
     status = _read_report(report_path)
     pos = np.mean([status[r] == "FOUND" for r in status
                    if r.startswith("pos")])
     neg = np.mean([status[r] == "FOUND" for r in status
                    if r.startswith("neg")])
-    if pos < 0.95 or neg > 0.05:
+    if check and (pos < 0.95 or neg > 0.05):
         raise AssertionError(f"{os.path.basename(report_path)}: {pos:.3f} of "
                              f"positives and {neg:.3f} of negatives FOUND")
     return pos, neg
@@ -583,6 +681,7 @@ def ms_main_path_phase(device, reads, n_reads, n_check=2048,
     stats, vals = {}, {}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    hashes = {}    # run -> {output file: sha256}, held against 4c
     for label, extra, exts in (
             ("M-c-report-only", ["-M", "-c", "--report-only"], ()),
             ("M-c-d", ["-M", "-c", "-d"],
@@ -591,6 +690,7 @@ def ms_main_path_phase(device, reads, n_reads, n_check=2048,
              (".pseudo_lengths", ".doc_numbers"))):
         stats[label] = _timed_cli_run(device, label, base + extra, cpu_run)
         shutil.copy(ms_reads + ".report", ms_reads + f".{label}.report")
+        hashes[label] = _file_hashes(ms_reads, exts + (".report",))
         for ext in exts:   # read now: the next run rewrites .doc_numbers
             vals[label, ext] = _read_values(ms_reads + ext, chk_set)
             if len(vals[label, ext]) != n_reads:
@@ -629,7 +729,137 @@ def ms_main_path_phase(device, reads, n_reads, n_check=2048,
           f"{ms_found[0]:.4f} {ms_found[1]:.4f}, PML {pml_found[0]:.4f} "
           f"{pml_found[1]:.4f}; build {build_s:.1f} s; peak device memory "
           f"{peak / 1e6:.1f} MB")
-    return prefix, ms_reads, stats
+    return prefix, ms_reads, stats, hashes
+
+
+def _file_hashes(prefix, exts):
+    """{ext: sha256 hex} of the files prefix + ext."""
+    out = {}
+    for ext in exts:
+        h = hashlib.sha256()
+        with open(prefix + ext, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        out[ext] = h.hexdigest()
+    return out
+
+
+#: 4c's layered runs on 4b's index: (path, flags, output files, the 4b
+#: block-bits run whose files they must equal byte for byte)
+LAYERED_RUNS = (
+    ("L-P-c-report-only", ["-P", "-c", "--report-only"], (".report",),
+     "P-d-c"),
+    ("L-P-c", ["-P", "-c"], (".pseudo_lengths", ".report"), "P-d-c"),
+    ("L-M-c-report-only", ["-M", "-c", "--report-only"], (".report",),
+     "M-c-report-only"),
+    ("L-M-c-d", ["-M", "-c", "-d"],
+     (".pointers", ".lengths", ".doc_numbers", ".report"), "M-c-d"),
+    ("L-P-d-c", ["-P", "-d", "-c"],
+     (".pseudo_lengths", ".doc_numbers", ".report"), "P-d-c"),
+)
+
+
+def layered_main_path_phase(device, ms_prefix, ms_reads, hashes,
+                            cpu_run=False):
+    """4c, first half: 4b's index and reads with --engine layered, in every
+    run mode; each output file must equal the block-bits run's of 4b (both
+    engines are exact), which holds K7 / K8 on the card without JAX."""
+    phase("4c. the layered engine on 4b's index (--engine layered), "
+          "through the CLI")
+    base = ["run", "-r", ms_prefix, "-p", ms_reads, "-n", "--engine",
+            "layered"] + (["--device", "cpu"] if cpu_run else [])
+    stats = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for label, extra, exts, twin in LAYERED_RUNS:
+        stats[label] = _timed_cli_run(device, label, base + extra, cpu_run)
+        got = _file_hashes(ms_reads, exts)
+        bad = [ext for ext in exts if got[ext] != hashes[twin][ext]]
+        if bad:
+            raise AssertionError(f"{label}: {bad} differ from the "
+                                 f"block-bits run {twin}")
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    _print_runs(stats)
+    print(f"checks: every output file of the {len(LAYERED_RUNS)} layered "
+          f"runs is byte-identical to its block-bits run; peak device "
+          f"memory {peak / 1e6:.1f} MB")
+    return stats
+
+
+def digested_main_path_phase(device, reads, n_reads, n_check=2048,
+                             cpu_run=False):
+    """4c, second half: the 10-strain FASTA built with -m -P (promoted
+    minimizers: sigma > 8, the layered engine) and -a -P (DNA-letter
+    minimizers: block-bits), and phase 4's reads: `run -m -P -c
+    --report-only` (K8), `run -m -P -c` (K7) and `run -a -P -c
+    --report-only` (K2). Checks: the two -m reports identical, sampled
+    reads' .pseudo_lengths equal the native engine on their digested
+    bytes, >= 95% of positives and <= 5% of negatives FOUND in both
+    reports."""
+    phase(f"4c. digested main path: build -m -P and -a -P, {n_reads} "
+          f"reads, through the CLI")
+    from spumoni_tpu_torch import _host, cli
+    from spumoni_tpu_torch.engine.layered import depth_for
+
+    ref = os.path.join(WORK, "pangenome.fa")
+    builds = {}
+    for flag in ("-m", "-a"):
+        t0 = time.time()
+        cli.main(["build", "-r", ref, "-P", flag, "-o",
+                  os.path.join(WORK, f"idx{flag}")])
+        builds[flag] = time.time() - t0
+    m_prefix = os.path.join(WORK, "idx-m")
+    dense = _host.index_format.load_dense_index(m_prefix
+                                                + ".bin.thrbv.spumoni")
+    sigma = int((np.asarray(dense.cnt) > 0).sum())
+    print(f"build -m -P: {builds['-m']:.1f} s (sigma={sigma}, "
+          f"n={dense.n}, r={dense.r}, D={depth_for(dense.char_off)}); build -a -P: "
+          f"{builds['-a']:.1f} s")
+    m_reads = os.path.join(WORK, "reads_m.fa")
+    shutil.copy(reads, m_reads)
+    a_reads = os.path.join(WORK, "reads_a.fa")
+    shutil.copy(reads, a_reads)
+    dev = ["--device", "cpu"] if cpu_run else []
+    stats = {}
+    for label, args, rd in (
+            ("m-P-c-report-only", ["-r", m_prefix, "-m", "-c",
+                                   "--report-only"], m_reads),
+            ("m-P-c", ["-r", m_prefix, "-m", "-c"], m_reads),
+            ("a-P-c-report-only", ["-r", os.path.join(WORK, "idx-a"), "-a",
+                                   "-c", "--report-only"], a_reads)):
+        stats[label] = _timed_cli_run(device, label,
+                                      ["run", "-p", rd, "-P", *args, *dev],
+                                      cpu_run)
+        shutil.copy(rd + ".report", rd + f".{label}.report")
+    with open(m_reads + ".m-P-c-report-only.report", "rb") as f:
+        fused = f.read()
+    with open(m_reads + ".m-P-c.report", "rb") as f:
+        if f.read() != fused:
+            raise AssertionError("-m --report-only .report differs from "
+                                 "the -m value run's")
+    chk, chk_seqs = _sampled_reads(m_reads, n_reads, n_check)
+    vals = _read_values(m_reads + ".pseudo_lengths", set(chk))
+    if len(vals) != n_reads:
+        raise AssertionError(f"{len(vals)} value records, {n_reads} reads")
+    digested = [_host.minimizers.digest(s.upper(), True, False)
+                for s in chk_seqs]
+    want = _native_engine(m_prefix + ".bin.thrbv.spumoni").query_pml(
+        digested, threads=os.cpu_count() or 1)
+    for rid, w in zip(chk, want):
+        if not np.array_equal(vals[rid], w):
+            raise AssertionError(f"{rid}: -m .pseudo_lengths != native "
+                                 f"engine on its digested bytes")
+    rates = {label: _found_rates(rd + f".{label}.report")
+             for label, rd in (("m-P-c-report-only", m_reads),
+                               ("a-P-c-report-only", a_reads))}
+    _print_runs(stats)
+    print(f"checks: -m reports identical; {len(chk)} sampled reads' -m "
+          f".pseudo_lengths == native engine on the digested reads; FOUND "
+          f"(pos, neg): -m {rates['m-P-c-report-only'][0]:.4f} "
+          f"{rates['m-P-c-report-only'][1]:.4f}, -a "
+          f"{rates['a-P-c-report-only'][0]:.4f} "
+          f"{rates['a-P-c-report-only'][1]:.4f}")
+    return m_prefix, m_reads, stats
 
 
 # ---------------------------------------------------------------------------
@@ -711,7 +941,8 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
           f"r={index.meta.r}")
     ptrs = kernels.ms_scan(index, g["tab"], g["rev_d"], lens, "ms",
                            False)[0]
-    ms_len = kernels.ms_extend(index, g["fwd_d"], lens, ptrs)
+    ms_len = kernels.ms_extend(index.text, index.text_bound, g["fwd_d"],
+                               lens, ptrs)
     src = "spumoni_tpu_torch/csrc/blockbits_ms.cu"
     replaces = "spumoni_tpu/engine/scan_engine.py:184"
     modes = {label: _time_kernel(
@@ -730,7 +961,8 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     results += [
         _time_kernel("ms_extend", kernels.ms_extend,
                      kernels.ms_extend_reference,
-                     (index, g["fwd_d"], lens, ptrs), src,
+                     (index.text, index.text_bound, g["fwd_d"], lens, ptrs),
+                     src,
                      "spumoni_tpu/engine/scan_engine.py:1042"),
         _time_kernel("binmax_values", kernels.binmax_values,
                      kernels.binmax_values_reference,
@@ -747,6 +979,88 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
                         source="spumoni_tpu_torch/csrc/gather_chase.cu",
                         replaces="scripts/exp_vmem_gather.py:35", **res))
     return results, counts
+
+
+def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
+                         n_reads):
+    """5c: K7 in each of its modes and K8 against their plain versions at
+    B = n_reads: on 4b's index with the layered engine at L = 1,024 (K7 on
+    the MS + doc tables, K8 on the PML tables of 4c's report-only run), and
+    K8 and K7-pml on the -m index at the digested reads' bucket."""
+    phase(f"5c. K7 / K8 vs plain at the main-path shapes (B={n_reads})")
+    from spumoni_tpu_torch import _host, pipeline
+    from spumoni_tpu_torch.engine import kernels
+
+    src = "spumoni_tpu_torch/csrc/layered.cu"
+    k7 = "spumoni_tpu/engine/scan_engine.py:120"
+    k8_src = "spumoni_tpu/parallel/mesh.py:128"
+    engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
+                                  use_doc=True, engine="layered")
+    pk = next(_host.fastx_batch.iter_packed_batches(ms_reads, 1 << 40,
+                                                    upper=True))
+    (g,) = engine.stage(pk, max_lanes=n_reads)
+    index, args = engine.index, (engine.index, g["rev_d"], g["lens_d"])
+    m = index.meta
+    print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, layered "
+          f"index D={m.depth} W={m.width} r={m.r}, fields "
+          f"{index.fields.numel() * index.fields.element_size() / 1e6:.1f} "
+          f"MB")
+    modes = {label: _time_kernel(f"layered_scan {label}",
+                                 kernels.layered_scan,
+                                 kernels.layered_scan_reference,
+                                 (*args, mode, doc), src, k7)
+             for label, mode, doc in (("pml", "pml", False),
+                                      ("pml+doc", "pml", True),
+                                      ("ms", "ms", False),
+                                      ("ms+doc", "ms", True))}
+    results = [dict(modes["pml"], name="layered_scan",
+                    max_abs_err=max(r["max_abs_err"]
+                                    for r in modes.values()),
+                    modes={label: {k: r[k] for k in ("ms", "plain_ms",
+                                                     "max_abs_err")}
+                           for label, r in modes.items()})]
+    del engine, g, index, args
+    # K8 on the tables 4c's L-P-c-report-only run gives it
+    engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.spumoni", device,
+                                  engine="layered")
+    (g,) = engine.stage(pk, max_lanes=n_reads)
+    m = engine.index.meta
+    print(f"PML batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
+          f"layered index D={m.depth} W={m.width} r={m.r}")
+    k8 = {"10-strain": _time_kernel(
+        "layered_classify 10-strain", kernels.layered_classify,
+        kernels.layered_classify_reference,
+        (engine.index, g["rev_d"], g["lens_d"], 7, BIN_WIDTH), src, k8_src)}
+    del engine, g
+    engine = pipeline.make_engine(m_prefix + ".bin.thrbv.spumoni", device)
+    pk = next(_host.fastx_batch.iter_packed_batches(m_reads, 1 << 40,
+                                                    upper=True))
+    pk = _host.minimizers.digest_packed(pk, True, False)
+    g = max(engine.stage(pk, max_lanes=n_reads),
+            key=lambda grp: len(grp["idxs"]))
+    args = (engine.index, g["rev_d"], g["lens_d"])
+    m = engine.index.meta
+    print(f"-m batch: B={g['rev_d'].shape[0]} of {len(pk)} digested reads "
+          f"at L={g['rev_d'].shape[1]} (mean digested length "
+          f"{pk.total_bases / len(pk):.1f}), layered index D={m.depth} "
+          f"W={m.width} r={m.r}")
+    k7m = _time_kernel("layered_scan -m pml", kernels.layered_scan,
+                       kernels.layered_scan_reference, (*args, "pml", False),
+                       src, k7)
+    results[0]["modes"]["-m pml"] = {k: k7m[k] for k in ("ms", "plain_ms",
+                                                          "max_abs_err")}
+    results[0]["max_abs_err"] = max(results[0]["max_abs_err"],
+                                    k7m["max_abs_err"])
+    k8["-m"] = _time_kernel(
+        "layered_classify -m", kernels.layered_classify,
+        kernels.layered_classify_reference, (*args, 7, BIN_WIDTH), src,
+        k8_src)
+    results.append(dict(
+        k8["-m"], name="layered_classify",
+        max_abs_err=max(r["max_abs_err"] for r in k8.values()),
+        modes={label: {k: r[k] for k in ("ms", "plain_ms", "max_abs_err")}
+               for label, r in k8.items()}))
+    return results
 
 
 def main(argv=None) -> int:
@@ -766,12 +1080,18 @@ def main(argv=None) -> int:
     build_phase()
     small_phase(dev)
     small_ms_phase(dev)
+    small_layered_phase(dev)
     sync(dev)
     prefix, reads, stats = main_path_phase(dev, args.strains,
                                            n_reads=args.reads)
     sync(dev)
-    ms_prefix, ms_reads, ms_stats = ms_main_path_phase(dev, reads,
-                                                       args.reads)
+    ms_prefix, ms_reads, ms_stats, hashes = ms_main_path_phase(dev, reads,
+                                                               args.reads)
+    sync(dev)
+    lay_stats = layered_main_path_phase(dev, ms_prefix, ms_reads, hashes)
+    sync(dev)
+    m_prefix, m_reads, dig_stats = digested_main_path_phase(dev, reads,
+                                                            args.reads)
     sync(dev)
     results = timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
@@ -779,10 +1099,14 @@ def main(argv=None) -> int:
                                                args.reads)
     results += ms_results
     sync(dev)
+    results += layered_timing_phase(dev, ms_prefix, ms_reads, m_prefix,
+                                    m_reads, args.reads)
+    sync(dev)
     # each path's own counts; a kernel reports those of the paths it is on,
     # `launches` being its first path's
-    paths = {label: st["launches"] for label, st in {**stats,
-                                                     **ms_stats}.items()}
+    paths = {label: st["launches"]
+             for label, st in {**stats, **ms_stats, **lay_stats,
+                               **dig_stats}.items()}
     paths["exp_vmem_gather"] = chase_counts
     for r in results:
         own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]

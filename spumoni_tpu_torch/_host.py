@@ -2,7 +2,8 @@
 
 `spumoni_tpu/__init__.py` imports JAX unconditionally (to enable x64 mode),
 and a machine that runs this port need not have JAX installed. The host
-modules themselves — index construction, FASTA/FASTQ parsing, the native
+modules themselves — index construction, FASTA/FASTQ parsing, minimizer
+digestion, the native
 C++ library, the null database, classification and report writers — import
 only numpy. This module registers a synthetic parent package whose search
 path is the `spumoni_tpu/` directory, so those modules load as
@@ -41,6 +42,7 @@ utils = _load("utils")
 native = _load("native")
 fasta = _load("io.fasta")
 fastx_batch = _load("io.fastx_batch")
+minimizers = _load("io.minimizers")
 index_format = _load("index.format")
 null_db = _load("index.null_db")
 binmax = _load("classify.binmax")

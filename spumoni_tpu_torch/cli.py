@@ -107,7 +107,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         "their plain PyTorch versions")
     r.add_argument("--engine", choices=["auto", "layered", "occ", "bits"],
                    default="auto",
-                   help="index layout; the port has block-bits only")
+                   help="index layout: auto (block-bits where it holds "
+                        "the index and the mode, else layered), bits or "
+                        "layered; occ is not in the port yet")
     r.add_argument("--batch-bases", dest="batch_bases", type=int,
                    default=33_554_432, help="bases per streamed batch")
     r.add_argument("--tp-devices", dest="tp_devices", type=int, default=0,

@@ -27,6 +27,7 @@
 
 #include <cstdint>
 
+#include "binmax.cuh"
 #include "blockbits_pml.cuh"
 
 namespace {
@@ -79,37 +80,17 @@ pml_classify_kernel(const uint32_t* __restrict__ rows,
   long long len64 = lens[b];
   const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
   const uint8_t* rd = reads + b * L;
-  // bins in forward coordinates; the short tail merges into the previous
-  // bin (classify/binmax.py), and a bin closes when the right-to-left scan
-  // crosses into another bin
-  int nbins = len / bin_width;
-  nbins = nbins < 1 ? 1 : nbins;
+  spn::BinMax bins(len, bin_width, thr);
   long long pos = s.n - 1;
-  int length = 0, prev_bin = -1, cur_max = -1, n_above = 0, n_below = 0;
-  long long sum = 0;
+  int length = 0;
   for (int t = 0; t < len; ++t) {
     bool match;
     pos = spn::pml_step<P, PACK, WIDE>(rows, tab, s, pos, __ldg(rd + t),
                                        match);
     length = match ? length + 1 : 0;
-    int bin = (len - 1 - t) / bin_width;
-    bin = bin < nbins - 1 ? bin : nbins - 1;
-    if (prev_bin >= 0 && bin != prev_bin) {
-      if (cur_max >= thr) ++n_above; else ++n_below;
-      sum += cur_max;
-      cur_max = -1;
-    }
-    cur_max = length > cur_max ? length : cur_max;
-    prev_bin = bin;
+    bins.add(t, length);
   }
-  if (len > 0) {  // close the final open bin
-    if (cur_max >= thr) ++n_above; else ++n_below;
-    sum += cur_max;
-  }
-  found[b] = (n_above > n_below && len > 0) ? 1 : 0;
-  above[b] = n_above;
-  below[b] = n_below;
-  sum_maxes[b] = sum;
+  bins.finish(found + b, above + b, below + b, sum_maxes + b);
 }
 
 struct Args {

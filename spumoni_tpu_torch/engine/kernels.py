@@ -11,9 +11,15 @@ plain PyTorch versions.
   * `binmax_values` (K5): bin-max classification of a [B, L] value matrix.
   * `gather_chase` (K6): the dependent gather chase of the
     `scripts/exp_vmem_gather.py` microbenchmark.
+  * `layered_scan` (K7): the layered-engine scan (PML, PML+doc, MS,
+    MS+doc) over raw bytes, in forward order.
+  * `layered_classify` (K8): K7's PML scan with the bin-max classification
+    folded in, as K2 does for block-bits.
 
-K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`
-and K6 in `csrc/gather_chase.cu`, each behind a plain C interface. Each
+K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`,
+K6 in `csrc/gather_chase.cu` and K7/K8 in `csrc/layered.cu`, each behind a
+plain C interface (the bin-max carry of K2 and K8 in `csrc/binmax.cuh`).
+K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
 with ctypes.
@@ -37,16 +43,18 @@ import threading
 import torch
 
 from .blockbits import BlockBitsIndex, ms_probe, pml_probe
+from .layered import LayeredIndex, initial_state, layered_step
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
-_SOURCES = ("blockbits_pml.cu", "blockbits_pml.cuh", "blockbits_ms.cu",
-            "gather_chase.cu")
+_SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
+            "blockbits_ms.cu", "gather_chase.cu", "layered.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
-             "gather_chase": "gather_chase.cu"}
+             "gather_chase": "gather_chase.cu",
+             "layered": "layered.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 _TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -126,6 +134,13 @@ _SIGNATURES = {
                               _P, _P, _P]},
     "gather_chase": {
         "spn_gather_chase": [_P, _P, _I32, _I32, _I32, _P, _P]},
+    "layered": {
+        "spn_layered_scan": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32, _I64,
+                             _I64, _I64, _I64, _P, _P, _I64, _I64, _I32, _P,
+                             _P, _P],
+        "spn_layered_classify": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32,
+                                 _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
+                                 _P, _P, _P]},
 }
 
 
@@ -313,29 +328,34 @@ def _check_matrix_inputs(name, mats, lens):
     return dev.type
 
 
-def ms_extend(index: BlockBitsIndex, reads_fwd: torch.Tensor,
+def ms_extend(text: torch.Tensor, text_bound: int, reads_fwd: torch.Tensor,
               lens: torch.Tensor, ptrs: torch.Tensor) -> torch.Tensor:
-    """K4. reads_fwd: [B, L] uint8 raw read bytes in natural order; ptrs:
-    [B, L] forward MS pointers (index.meta.pos_dtype, from ms_scan). Returns
-    the [B, L] MS lengths in the pointer dtype (columns >= lens[b] are 0)."""
-    if index.text is None:
+    """K4. text: [ntext] uint8, read as 0 past its end up to text_bound
+    (the index's `text_bound`); reads_fwd: [B, L] uint8 raw read bytes in
+    natural order; ptrs: [B, L] forward MS pointers (int32 / int64, from
+    ms_scan or layered_scan). Returns the [B, L] MS lengths in the pointer
+    dtype (columns >= lens[b] are 0)."""
+    if text is None:
         raise ValueError("ms_extend: the index has no text (build -M)")
     kind = _check_matrix_inputs("ms_extend", (
         ("reads_fwd", reads_fwd, (torch.uint8,)),
-        ("ptrs", ptrs, (index.meta.pos_dtype,))), lens)
+        ("ptrs", ptrs, (torch.int32, torch.int64))), lens)
     if reads_fwd.shape != ptrs.shape:
         raise ValueError("ms_extend: reads_fwd and ptrs differ in shape")
-    if index.text.device != lens.device:
-        raise ValueError(f"text is on {index.text.device}, lens on "
-                         f"{lens.device}")
+    if text.device != lens.device:
+        raise ValueError(f"text is on {text.device}, lens on {lens.device}")
+    if text.dtype != torch.uint8 or text.dim() != 1 \
+            or not text.is_contiguous():
+        raise ValueError("ms_extend: text must be a contiguous 1-D uint8 "
+                         "tensor")
     if kind == "cpu":
-        return ms_extend_reference(index, reads_fwd, lens, ptrs)
+        return ms_extend_reference(text, text_bound, reads_fwd, lens, ptrs)
     out = torch.zeros_like(ptrs)
     if out.numel() == 0:
         return out
     dev = lens.device
     rc = library("blockbits_ms").spn_ms_extend(
-        index.text.data_ptr(), index.text.shape[0], index.text_bound,
+        text.data_ptr(), text.shape[0], int(text_bound),
         reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
         ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -419,8 +439,119 @@ def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
 
 gather_chase.launches = 0
 
+_LAYERED_MODES = {("pml", False): 0, ("pml", True): 1, ("ms", False): 2,
+                  ("ms", True): 3}
+
+
+def _check_layered(index: LayeredIndex, reads_rev: torch.Tensor,
+                   lens: torch.Tensor) -> str:
+    """Device, dtype, shape and contiguity checks of K7 / K8; returns the
+    device kind."""
+    dev = reads_rev.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("charmeta", index.charmeta), ("fields", index.fields),
+                    ("lens", lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, reads on {dev}")
+    if reads_rev.dtype != torch.uint8 or reads_rev.dim() != 2:
+        raise ValueError("reads_rev must be a [B, L] uint8 tensor")
+    if lens.dtype != torch.int64 or tuple(lens.shape) != (reads_rev.shape[0],):
+        raise ValueError("lens must be a [B] int64 tensor")
+    if not all(t.is_contiguous() for t in (reads_rev, lens, index.charmeta,
+                                           index.fields, *index.levels)):
+        raise ValueError("inputs must be contiguous")
+    return dev.type
+
+
+def _layered_head(index: LayeredIndex):
+    """[charmeta, levels, D, fields, rows, probe bound, W, wide, n]: the index
+    arguments of both entry points. `levels` is a host int64 array, the D
+    level pointers then their row counts, which the entry point copies
+    into the kernel's parameters."""
+    m = index.meta
+    levels = (ctypes.c_longlong * (2 * m.depth))(
+        *(lv.data_ptr() for lv in index.levels),
+        *(lv.shape[0] for lv in index.levels))
+    return [index.charmeta.data_ptr(), levels, m.depth,
+            index.fields.data_ptr(), index.fields.shape[0], m.probe_bound,
+            m.width, int(m.wide), m.n]
+
+
+def layered_scan(index: LayeredIndex, reads_rev: torch.Tensor,
+                 lens: torch.Tensor, mode: str = "pml",
+                 use_doc: bool = False):
+    """K7. reads_rev: [B, L] uint8 raw read bytes, each read REVERSED and
+    left-aligned; lens: [B] int64. Returns (vals, docs): [B, L] tensors of
+    index.meta.pos_dtype in FORWARD order (columns >= lens[b] are 0): PML
+    lengths, or MS pointers (signed, never clamped); docs the doc ids, or
+    None without use_doc."""
+    kind = _check_layered(index, reads_rev, lens)
+    code = _LAYERED_MODES.get((mode, bool(use_doc)))
+    if code is None:
+        raise ValueError(f"layered_scan: mode must be 'pml' or 'ms', not "
+                         f"{mode!r}")
+    m = index.meta
+    if mode == "ms" and not m.has_samples:
+        raise ValueError("layered_scan: MS needs an index with SA samples")
+    if use_doc and not m.has_doc:
+        raise ValueError("layered_scan: doc tracking needs an index with "
+                         "doc ids")
+    if kind == "cpu":
+        return layered_scan_reference(index, reads_rev, lens, mode, use_doc)
+    dev = reads_rev.device
+    vals = torch.zeros(reads_rev.shape, dtype=m.pos_dtype, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    if vals.numel() == 0:
+        return vals, docs
+    rc = library("layered").spn_layered_scan(
+        *_layered_head(index), m.last_run_sample, m.last_run_edoc,
+        m.first_run_sdoc, reads_rev.data_ptr(), lens.data_ptr(),
+        reads_rev.shape[0], reads_rev.shape[1], code, vals.data_ptr(),
+        0 if docs is None else docs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "layered_scan")
+    layered_scan.launches += 1
+    return vals, docs
+
+
+layered_scan.launches = 0
+
+
+def layered_classify(index: LayeredIndex, reads_rev: torch.Tensor,
+                     lens: torch.Tensor, max_value_thr: int,
+                     bin_width: int):
+    """K8. Same inputs as layered_scan; returns per-read (found [B] bool,
+    above [B] int32, below [B] int32, sum_maxes [B] int64) of the bin-max
+    classification of the PML lengths (classify/binmax.py semantics)."""
+    if bin_width <= 0:
+        raise ValueError("bin_width must be positive")
+    if _check_layered(index, reads_rev, lens) == "cpu":
+        return layered_classify_reference(index, reads_rev, lens,
+                                          max_value_thr, bin_width)
+    B = reads_rev.shape[0]
+    dev = reads_rev.device
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    above = torch.zeros(B, dtype=torch.int32, device=dev)
+    below = torch.zeros(B, dtype=torch.int32, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return found, above, below, summ
+    rc = library("layered").spn_layered_classify(
+        *_layered_head(index), reads_rev.data_ptr(), lens.data_ptr(), B,
+        reads_rev.shape[1], int(max_value_thr), int(bin_width),
+        found.data_ptr(),
+        above.data_ptr(), below.data_ptr(), summ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "layered_classify")
+    layered_classify.launches += 1
+    return found, above, below, summ
+
+
+layered_classify.launches = 0
+
 _WRAPPERS = (pml_scan, pml_classify, ms_scan, ms_extend, binmax_values,
-             gather_chase)
+             gather_chase, layered_scan, layered_classify)
 
 
 def reset_launch_counts() -> None:
@@ -469,16 +600,26 @@ def pml_classify_reference(index: BlockBitsIndex, tab: torch.Tensor,
                            reads_rev: torch.Tensor, lens: torch.Tensor,
                            max_value_thr: int, bin_width: int):
     """Plain PyTorch version of K2 (mesh.py::_fused_classify_core)."""
-    B, L = reads_rev.shape
-    dev = reads_rev.device
-    lens = lens.clamp(0, L)
+    lens = lens.clamp(0, reads_rev.shape[1])
+    return _binmax_fold(_scan_steps(index, tab, reads_rev, lens), lens,
+                        max_value_thr, bin_width)
+
+
+def _binmax_fold(steps, lens: torch.Tensor, max_value_thr: int,
+                 bin_width: int):
+    """The bin-max carry of K2 / K8 over a right-to-left scan's (t, value)
+    steps: a bin closes when the forward position len-1-t crosses into
+    another bin; nbins = max(len // bin_width, 1), the short tail merged
+    into the last bin. Returns (found, above, below, sum_maxes)."""
+    B = lens.shape[0]
+    dev = lens.device
     nbins = torch.clamp(lens // bin_width, min=1)
     neg1 = torch.full((B,), -1, dtype=torch.int64, device=dev)
     prev_b, cur_max = neg1.clone(), neg1.clone()
     above = torch.zeros(B, dtype=torch.int64, device=dev)
     below = torch.zeros_like(above)
     summ = torch.zeros_like(above)
-    for t, length in _scan_steps(index, tab, reads_rev, lens):
+    for t, value in steps:
         fwd = lens - 1 - t
         active = fwd >= 0
         b = torch.minimum(fwd // bin_width, nbins - 1)
@@ -487,7 +628,7 @@ def pml_classify_reference(index: BlockBitsIndex, tab: torch.Tensor,
         below += (closing & (cur_max < max_value_thr)).long()
         summ += torch.where(closing, cur_max, 0)
         cur_max = torch.where(closing, neg1, cur_max)
-        cur_max = torch.where(active, torch.maximum(cur_max, length), cur_max)
+        cur_max = torch.where(active, torch.maximum(cur_max, value), cur_max)
         prev_b = torch.where(active, b, prev_b)
     has = lens > 0
     above += (has & (cur_max >= max_value_thr)).long()
@@ -536,8 +677,8 @@ def ms_scan_reference(index: BlockBitsIndex, tab: torch.Tensor,
     return vals, docs
 
 
-def ms_extend_reference(index: BlockBitsIndex, reads_fwd: torch.Tensor,
-                        lens: torch.Tensor,
+def ms_extend_reference(text: torch.Tensor, text_bound: int,
+                        reads_fwd: torch.Tensor, lens: torch.Tensor,
                         ptrs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: extend_pointers_kernel's two-pointer
     loop (scan_engine.py:1041-1101). Each iteration either extends a lane's
@@ -545,11 +686,10 @@ def ms_extend_reference(index: BlockBitsIndex, reads_fwd: torch.Tensor,
     keeping max(l - 1, 0) characters (MS are 1-Lipschitz), so a lane takes
     at most 3 L iterations. A position mismatches when its pointer is
     negative (the reference's unsigned underflow) or the text position is
-    past index.text_bound, where text past its end reads as 0."""
+    past text_bound, where text past its end reads as 0."""
     B, L = reads_fwd.shape
     dev = reads_fwd.device
-    text = index.text
-    ntext, nt = int(text.shape[0]), index.text_bound
+    ntext, nt = int(text.shape[0]), int(text_bound)
     out = torch.zeros_like(ptrs)
     lanes = torch.arange(B, device=dev)
     i = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -571,6 +711,50 @@ def ms_extend_reference(index: BlockBitsIndex, reads_fwd: torch.Tensor,
         l = torch.where(active, torch.where(ok, l + 1,
                                             (l - 1).clamp(min=0)), l)
         i = torch.where(emit, i + 1, i)
+
+
+def _layered_steps(index: LayeredIndex, reads_rev: torch.Tensor,
+                   lens: torch.Tensor, mode: str, use_doc: bool):
+    """Yields (t, value, doc) after each step t < max(lens) of
+    layered_step from the recurrence seed; lanes past their own length keep
+    stepping on padding, as the JAX scan does."""
+    B = reads_rev.shape[0]
+    carry = initial_state(index, B, reads_rev.device)
+    steps = int(lens.max()) if B else 0
+    for t in range(steps):
+        carry = layered_step(index, carry, reads_rev[:, t], mode, use_doc)
+        yield t, carry[2] if mode == "ms" else carry[1], carry[3]
+
+
+def layered_scan_reference(index: LayeredIndex, reads_rev: torch.Tensor,
+                           lens: torch.Tensor, mode: str, use_doc: bool):
+    """Plain PyTorch version of K7 (query_batch_kernel_v2 + the flip to
+    forward order)."""
+    B, L = reads_rev.shape
+    dev = reads_rev.device
+    dt = index.meta.pos_dtype
+    lens = lens.clamp(0, L)
+    vals = torch.zeros((B, L), dtype=dt, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    lanes = torch.arange(B, device=dev)
+    for t, val, doc in _layered_steps(index, reads_rev, lens, mode, use_doc):
+        act = t < lens
+        col = (lens - 1 - t)[act]
+        vals[lanes[act], col] = val[act].to(dt)
+        if use_doc:
+            docs[lanes[act], col] = doc[act].to(dt)
+    return vals, docs
+
+
+def layered_classify_reference(index: LayeredIndex, reads_rev: torch.Tensor,
+                               lens: torch.Tensor, max_value_thr: int,
+                               bin_width: int):
+    """Plain PyTorch version of K8 (mesh.py::_fused_classify_core with the
+    layered step)."""
+    lens = lens.clamp(0, reads_rev.shape[1])
+    steps = ((t, val) for t, val, _ in _layered_steps(index, reads_rev, lens,
+                                                      "pml", False))
+    return _binmax_fold(steps, lens, max_value_thr, bin_width)
 
 
 def binmax_values_reference(vals: torch.Tensor, lens: torch.Tensor,

@@ -1,18 +1,23 @@
 """Host-side engine of the port: stages read batches onto the device and
-runs the block-bits kernels over them.
+runs the block-bits or layered kernels over them.
 
-Covers the block-bits surface of `spumoni_tpu/engine/scan_engine.py::
-ScanEngine`: `stage`, the growing staged alphabet, `classify_staged`,
-`query_staged`, and the list API `classify` / `query`, for PML (K1, K2),
-MS (K3 pointers, K4 lengths, K5 bin-max) and document tracking (K3).
+Covers the surface of `spumoni_tpu/engine/scan_engine.py::ScanEngine` for
+its block-bits and layered engines (`self.layered`): `stage`, the growing
+staged alphabet, `classify_staged`, `query_staged`, and the list API
+`classify` / `query`. Block-bits runs PML on K1 / K2, MS on K3 pointers, K4
+lengths and K5 bin-max, and document tracking on K3; the layered engine
+runs PML on K7 / K8, MS and document tracking on K7, then K4 and K5.
 
 Reads are bucketed by padded length (a power of two from PAD_TO up to
-CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED and
-rank-mapped into [B, L] uint8 rows by the native packer (8 bits per base:
-the 2- and 4-bit transfer packings of the JAX package existed for the TPU
-host link), and uploaded; MS runs also upload the raw forward rows for the
-extension. Reads longer than CHUNK go through the same kernels in one
-launch: the carry is per lane, so no chunk state is kept.
+CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED into
+[B, L] uint8 rows by the native packer (8 bits per base: the 2- and 4-bit
+transfer packings of the JAX package existed for the TPU host link), and
+uploaded; MS runs also upload the raw forward rows for the extension.
+Block-bits rows are rank-mapped through the staged alphabet; layered rows
+are raw bytes, since K7 / K8 read `charmeta[byte]` directly, so the staged
+alphabet's 255-symbol limit does not bind them. Reads longer than CHUNK go
+through the same kernels in one launch: the carry is per lane, so no chunk
+state is kept.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from .. import _host
 from . import kernels
 from .blockbits import BlockBitsIndex, CharTable
+from .layered import LayeredIndex
 
 #: raw-byte staging of the forward rows (the MS extension compares bytes)
 _IDENT_AMAP = np.arange(256, dtype=np.uint8)
@@ -32,21 +38,30 @@ class ScanEngine:
     PAD_TO = 128   # shortest bucket
     CHUNK = 4096   # longest power-of-two bucket; longer reads: multiples
 
-    def __init__(self, index: BlockBitsIndex, table: CharTable,
-                 mode: str = "pml", use_doc: bool = False):
+    def __init__(self, index, table: CharTable = None, mode: str = "pml",
+                 use_doc: bool = False):
+        """index: a BlockBitsIndex with its CharTable, or a LayeredIndex
+        (no table)."""
         if mode not in ("pml", "ms"):
             raise ValueError(f"mode must be 'pml' or 'ms', not {mode!r}")
-        if mode == "ms" and (index.jump_t is None or index.text is None):
+        self.layered = isinstance(index, LayeredIndex)
+        if self.layered:
+            has_ms, has_doc = index.meta.has_samples, index.meta.has_doc
+        else:
+            has_ms = index.jump_t is not None
+            has_doc = index.jump_d is not None
+        if mode == "ms" and not (has_ms and index.text is not None):
             raise ValueError("MS needs an index built with want_ms from a "
                              "dense index with SA samples and text (build -M)")
-        if use_doc and index.jump_d is None:
+        if use_doc and not has_doc:
             raise ValueError("doc tracking needs an index built with "
                              "want_doc (build -d)")
         self.index = index
         self.table = table
         self.mode = mode
         self.use_doc = use_doc
-        self.device = index.bblocks.device
+        self.device = index.charmeta.device if self.layered \
+            else index.bblocks.device
         self._stage_alpha = None   # cached, monotonically growing alphabet
         self._stage_amap = None    # its 256-byte LUT (255 = not covered)
         self._tabs: dict = {}      # alphabet -> table on self.device
@@ -97,7 +112,7 @@ class ScanEngine:
 
     def stage(self, packed, max_lanes: int = 65536) -> list:
         """Host prep + device upload for one PackedReads batch: bucketing,
-        reversed rank-mapped packing and the copy to the device. Runs in
+        reversed packing (_pack_rev) and the copy to the device. Runs in
         the prefetch thread while the device works on the previous batch.
         Returns the staged groups that classify_staged / query_staged
         consume."""
@@ -109,28 +124,21 @@ class ScanEngine:
                 f"or run without minimizer digestion")
         Lb = self._bucket_L(lens_all)
         offs, buf = packed.offs, packed.buf
-        self._ensure_alpha()
+        if not self.layered:
+            self._ensure_alpha()
         groups = []
         for L in np.unique(Lb):
             L = int(L)
             idxs = np.flatnonzero(Lb == L)
             for c0 in range(0, len(idxs), max_lanes):
                 sel = idxs[c0:c0 + max_lanes]
-                rev, miss, _ = _host.pack_rows_native(
-                    buf, offs[sel], offs[sel + 1], len(sel), L,
-                    self._stage_amap, True, 8)
-                if miss:   # a byte outside the alphabet: extend, repack
-                    self._extend_alpha(_host.present_chars(buf))
-                    rev, miss, _ = _host.pack_rows_native(
-                        buf, offs[sel], offs[sel + 1], len(sel), L,
-                        self._stage_amap, True, 8)
-                if miss:
-                    raise RuntimeError("staged alphabet misses a read byte")
                 lens = lens_all[sel].astype(np.int64)
                 g = {"idxs": sel, "L": L, "lens": lens,
-                     "tab": self._table(self._stage_alpha),
-                     "rev_d": torch.from_numpy(rev).to(self.device),
+                     "rev_d": torch.from_numpy(self._pack_rev(
+                         buf, offs[sel], offs[sel + 1], L)).to(self.device),
                      "lens_d": torch.from_numpy(lens).to(self.device)}
+                if not self.layered:
+                    g["tab"] = self._table(self._stage_alpha)
                 if self.mode == "ms":
                     # raw bytes: the identity LUT's 255 "miss" is moot
                     fwd, _, _ = _host.pack_rows_native(
@@ -140,25 +148,53 @@ class ScanEngine:
                 groups.append(g)
         return groups
 
+    def _pack_rev(self, buf, starts, ends, L: int) -> np.ndarray:
+        """[B, L] reversed rows: raw bytes for the layered engine,
+        staged-alphabet ranks (extended and repacked on a miss) for
+        block-bits."""
+        B = len(starts)
+        if self.layered:   # the identity LUT's 255 "miss" is moot
+            return _host.pack_rows_native(buf, starts, ends, B, L,
+                                          _IDENT_AMAP, True, 8)[0]
+        rev, miss, _ = _host.pack_rows_native(buf, starts, ends, B, L,
+                                              self._stage_amap, True, 8)
+        if miss:   # a byte outside the alphabet: extend, repack
+            self._extend_alpha(_host.present_chars(buf))
+            rev, miss, _ = _host.pack_rows_native(buf, starts, ends, B, L,
+                                                  self._stage_amap, True, 8)
+        if miss:
+            raise RuntimeError("staged alphabet misses a read byte")
+        return rev
+
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
 
+    def _scan(self, g, mode: str, use_doc: bool):
+        """(vals, docs) [B, L] on the device: K7 on the layered engine, K3
+        on block-bits (MS, or PML with doc tracking)."""
+        if self.layered:
+            return kernels.layered_scan(self.index, g["rev_d"], g["lens_d"],
+                                        mode, use_doc)
+        return kernels.ms_scan(self.index, g["tab"], g["rev_d"], g["lens_d"],
+                               mode, use_doc)
+
     def _ms_values(self, g, use_doc: bool):
-        """{'pointers', 'lengths'[, 'docs']} [B, L] on the device: K3,
-        then K4 on its pointers."""
-        ptrs, docs = kernels.ms_scan(self.index, g["tab"], g["rev_d"],
-                                     g["lens_d"], "ms", use_doc)
+        """{'pointers', 'lengths'[, 'docs']} [B, L] on the device: the
+        pointer scan (K7 or K3), then K4 on its pointers."""
+        ptrs, docs = self._scan(g, "ms", use_doc)
         mats = {"pointers": ptrs, "lengths": kernels.ms_extend(
-            self.index, g["fwd_d"], g["lens_d"], ptrs)}
+            self.index.text, self.index.text_bound, g["fwd_d"], g["lens_d"],
+            ptrs)}
         if use_doc:
             mats["docs"] = docs
         return mats
 
     def classify_staged(self, staged, bin_width: int, max_value_thr: int):
         """Per-read (found, above, below, sum_maxes) over staged groups, in
-        the batch's read order. PML: K2; MS: K3 -> K4 -> K5 (the port of
-        _classify_ms_dev). Only [B] summaries leave the device."""
+        the batch's read order. PML: K2, or K8 on the layered engine; MS:
+        K3 or K7 -> K4 -> K5 (the port of _classify_ms_dev). Only [B]
+        summaries leave the device."""
         if self.use_doc:
             raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
@@ -167,7 +203,11 @@ class ScanEngine:
                "below": np.zeros(n, dtype=np.int64),
                "sum_maxes": np.zeros(n, dtype=np.int64)}
         for g in staged:
-            if self.mode == "pml":
+            if self.mode == "pml" and self.layered:
+                res = kernels.layered_classify(self.index, g["rev_d"],
+                                               g["lens_d"], max_value_thr,
+                                               bin_width)
+            elif self.mode == "pml":
                 res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
                                            g["lens_d"], max_value_thr,
                                            bin_width)
@@ -181,8 +221,9 @@ class ScanEngine:
 
     def query_staged(self, staged) -> dict:
         """Per-read value arrays over staged groups, in the batch's read
-        order: 'lengths' (PML: K1, or K3 with doc tracking; MS: K4),
-        'pointers' (MS: K3) and 'docs' (doc tracking: K3)."""
+        order: 'lengths' (PML: K1, or K3 with doc tracking, or K7 on the
+        layered engine; MS: K4), 'pointers' (MS: K3 or K7) and 'docs' (doc
+        tracking: K3 or K7)."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
@@ -191,10 +232,8 @@ class ScanEngine:
         for g in staged:
             if self.mode == "ms":
                 mats = self._ms_values(g, self.use_doc)
-            elif self.use_doc:
-                lengths, docs = kernels.ms_scan(
-                    self.index, g["tab"], g["rev_d"], g["lens_d"], "pml",
-                    True)
+            elif self.use_doc or self.layered:
+                lengths, docs = self._scan(g, "pml", self.use_doc)
                 mats = {"lengths": lengths, "docs": docs}
             else:
                 mats = {"lengths": kernels.pml_scan(
@@ -218,8 +257,17 @@ class ScanEngine:
 
     def query(self, reads, max_lanes: int = 8192) -> dict:
         """Per-read value arrays (query_staged's fields) for a list of
-        byte-string reads."""
-        return self.query_staged(self.stage(_packed(reads), max_lanes))
+        byte-string reads; an empty read gets empty arrays (general-text
+        records may be empty)."""
+        keep = [i for i, rd in enumerate(reads) if len(rd)]
+        out = self.query_staged(self.stage(_packed([reads[i] for i in keep]),
+                                           max_lanes))
+        full = {}
+        for f, vals in out.items():
+            full[f] = [np.zeros(0, np.int64)] * len(reads)
+            for j, i in enumerate(keep):
+                full[f][i] = vals[j]
+        return full
 
 
 def _packed(reads):

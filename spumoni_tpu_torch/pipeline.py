@@ -1,14 +1,17 @@
-"""`run` for the port: streams a query file through the block-bits kernels
-and writes the reference's output files.
+"""`run` for the port: streams a query file through the block-bits or
+layered kernels and writes the reference's output files.
 
 Mirrors `spumoni_tpu/pipeline.py::run` on the staged fast path, for PML
-(-P) and MS (-M), with or without document tracking (-d): the fast start
-from the `.bbrows.npz` cache (PML without -d), the null-DB threshold, the
-prefetch thread that parses and stages batches, the writer thread, the
-durable read cursor with `--resume`, and `--ks-report` with its glibc
-rand() draws kept in global read order. Outputs (`.pseudo_lengths`,
-`.lengths`, `.pointers`, `.doc_numbers`, `.report`) are byte-identical to
-the JAX package's.
+(-P) and MS (-M), with or without document tracking (-d), on undigested
+(-n) and minimizer-digested (-m, -a) indexes, and general text (-g): the
+engine choice (block-bits where it holds the index and the mode, else
+layered; `--engine bits|layered` to force one), the fast start from the
+`.bbrows.npz` cache (block-bits PML without -d), the null-DB threshold,
+the prefetch thread that parses, digests and stages batches, the writer
+thread, the durable read cursor with `--resume`, and `--ks-report` with
+its glibc rand() draws kept in global read order. Outputs
+(`.pseudo_lengths`, `.lengths`, `.pointers`, `.doc_numbers`, `.report`)
+are byte-identical to the JAX package's.
 
 What this slice does not cover raises NotImplementedError naming its
 ROADMAP item; nothing falls back silently. `build` and `import-ref` are the
@@ -29,6 +32,7 @@ import torch
 
 from . import _host
 from .engine.blockbits import build_blockbits, eligible_any, load_cached
+from .engine.layered import build_layered
 from .engine.scan_engine import ScanEngine
 
 load_dense_index = _host.index_format.load_dense_index
@@ -50,9 +54,6 @@ class RunConfig(_host.RunConfig):
 
 def _check_supported(cfg: RunConfig) -> None:
     unsupported = (
-        (cfg.is_general_text, "-g general text is ROADMAP A7"),
-        (cfg.min_digest, "-m / -a minimizer digestion is ROADMAP A12"),
-        (cfg.engine == "layered", "--engine layered is ROADMAP A7"),
         (cfg.engine == "occ", "--engine occ is ROADMAP A11"),
         (cfg.tp_devices > 1, "--tp-devices > 1 (sharded index) is "
                              "ROADMAP A10"),
@@ -80,49 +81,69 @@ def select_device(name: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def _uses_blockbits(dense, mode: str, use_doc: bool, engine: str) -> bool:
+    """The JAX package's engine choice (spumoni_tpu/pipeline.py:587-610):
+    block-bits when forced, or with `auto` when it holds the index (at
+    most 8 BWT characters, n < 2^40) and the mode (SA samples for MS, doc
+    ids for -d, r < 2^30 for its int32 jump ids); else layered."""
+    if engine == "bits":
+        return True
+    return (engine == "auto" and eligible_any(dense)
+            and (mode == "pml" or dense.has_samples)
+            and (not use_doc or dense.has_doc)
+            and (mode == "pml" and not use_doc or dense.r < 2**30))
+
+
 def make_engine(index_path: str, device: torch.device, mode: str = "pml",
-                use_doc: bool = False) -> ScanEngine:
-    """The block-bits engine for the index at index_path. PML without doc
-    tracking starts from the rows cache when it is fresh and under
-    SPN_HBM_BUDGET_GB (default 12); otherwise the dense index is loaded and
-    the rows (and for MS / doc tracking the msrows, `.bbms.npz`) are built
-    or loaded from their caches, as spumoni_tpu/pipeline.py:587-607 does."""
+                use_doc: bool = False, engine: str = "auto",
+                fast_start: bool = True) -> ScanEngine:
+    """The engine for the index at index_path, chosen as the JAX package
+    chooses (`_uses_blockbits`). Block-bits PML without doc tracking (with
+    `auto` / `bits` and fast_start) starts from the rows cache when it is
+    fresh and under SPN_HBM_BUDGET_GB (default 12); otherwise the dense
+    index is loaded and the block-bits rows (and for MS / doc tracking the
+    msrows, `.bbms.npz`) are built or loaded from their caches, or the
+    layered tables are built."""
     fast = None
-    if mode == "pml" and not use_doc:
+    if fast_start and engine in ("auto", "bits") and mode == "pml" \
+            and not use_doc:
         budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
         fast = load_cached(index_path + ".bbrows.npz", index_path + ".npz",
                            max_bytes=budget)
+    table = None
     if fast is not None:
         index, table, n, r = fast
         log("run", "fast start: engine rows from cache "
                    "(dense index load skipped)")
     else:
         dense = load_dense_index(index_path)
-        if not eligible_any(dense):
-            raise NotImplementedError(
-                "not in the port yet: an index with more than 8 BWT "
-                "characters or n >= 2^40 needs the layered engine "
-                "(ROADMAP A7)")
-        if (mode == "ms" or use_doc) and dense.r >= 2**30:
-            raise NotImplementedError(
-                "not in the port yet: MS / doc tracking with r >= 2^30 runs "
-                "needs the layered engine (ROADMAP A7)")
         if mode == "ms" and dense.text is None:
             raise ValueError("-M needs an index built with -M (SA samples "
                              "and text)")
-        want_ms, want_doc = mode == "ms", use_doc
-        index, table = build_blockbits(
-            dense, cache_path=index_path + ".bbrows.npz",
-            src_path=index_path + ".npz", want_ms=want_ms,
-            want_doc=want_doc,
-            ms_cache_path=(index_path + ".bbms.npz")
-            if want_ms or want_doc else None)
         n, r = dense.n, dense.r
+        if _uses_blockbits(dense, mode, use_doc, engine):
+            if not eligible_any(dense):
+                raise ValueError("block-bits engine needs sigma <= 8 and "
+                                 "positions under 2^40 (use --engine "
+                                 "layered)")
+            want_ms, want_doc = mode == "ms", use_doc
+            index, table = build_blockbits(
+                dense, cache_path=index_path + ".bbrows.npz",
+                src_path=index_path + ".npz", want_ms=want_ms,
+                want_doc=want_doc,
+                ms_cache_path=(index_path + ".bbms.npz")
+                if want_ms or want_doc else None)
+        else:
+            index = build_layered(dense)
     index = index.to(device)
     nbytes = sum(b.numel() * b.element_size() for b in index.buffers())
+    m = index.meta
+    layout = (f"layered, D={m.depth}, W={m.width}, wide={m.wide}"
+              if table is None else
+              f"block-bits, P={m.P}, pack={m.pack}, wide={m.wide}, "
+              f"msrows={index.msrows is not None}")
     log("run", f"index resident on {device}: {nbytes / 1e6:.1f} MB "
-               f"(n={n}, r={r}, P={index.meta.P}, pack={index.meta.pack}, "
-               f"wide={index.meta.wide}, msrows={index.msrows is not None})")
+               f"(n={n}, r={r}, {layout})")
     return ScanEngine(index, table, mode=mode, use_doc=use_doc)
 
 
@@ -132,10 +153,16 @@ def run(cfg: RunConfig) -> int:
     cfg.validate()
     _check_supported(cfg)
     device = select_device(cfg.device)
-    base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
+    if cfg.is_general_text:
+        base = cfg.ref_file
+    else:
+        base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
     ms = cfg.mode == "ms"
     engine = make_engine(base + (".thrbv.ms" if ms else ".thrbv.spumoni"),
-                         device, cfg.mode, cfg.use_doc)
+                         device, cfg.mode, cfg.use_doc, cfg.engine,
+                         fast_start=not cfg.is_general_text)
+    if cfg.is_general_text:
+        return _run_general_text(cfg, engine)
 
     null_db = _host.null_db.EmpNullDatabase.load(
         base + (".msnulldb" if ms else ".pmlnulldb"))
@@ -239,6 +266,12 @@ def run(cfg: RunConfig) -> int:
         except Exception as e:  # re-raised by run() after the join
             wstate["err"] = e
 
+    def digested(pk):
+        if not cfg.min_digest:
+            return pk
+        return _host.minimizers.digest_packed(
+            pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
+
     def staged_batches():
         fb = _host.fastx_batch
         seen = 0        # records seen (the cursor counts in these units)
@@ -249,6 +282,9 @@ def run(cfg: RunConfig) -> int:
             npk = len(pk)
             csum = None
             if ks_pending is not None:
+                # one draw per KS window of the DIGESTED read
+                # (spumoni_tpu/pipeline.py:1040-1050)
+                pk = digested(pk)
                 nw = _host.kstest.n_windows_batch(pk.lens, cfg.bin_size)
                 csum = np.zeros(npk + 1, dtype=np.int64)
                 np.cumsum(nw, out=csum[1:])
@@ -267,6 +303,8 @@ def run(cfg: RunConfig) -> int:
             if a:
                 pk = fb.PackedReads(pk.ids[a:], pk.buf[pk.offs[a]:].copy(),
                                     (pk.offs[a:] - pk.offs[a]).copy())
+            if ks_pending is None:
+                pk = digested(pk)
             yield pk.ids, engine.stage(pk, max_lanes), pk.total_bases
 
     t0 = time.time()
@@ -299,6 +337,54 @@ def run(cfg: RunConfig) -> int:
     dt = time.time() - t0
     if os.path.exists(cursor_path):
         os.remove(cursor_path)
+    log("run", f"processed {num_reads} reads ({total_bases} bases) in "
+               f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
+    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)
+    return num_reads
+
+
+def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
+    """General-text querying (spumoni_tpu/pipeline.py:1141-1201): reads
+    separated by \\x01 (compute_ms_pml.cpp:1219-1297), streamed in batches
+    through engine.query; writes `.pseudo_lengths`, or `.lengths` and
+    `.pointers`, and no report; keeps the durable cursor and --resume."""
+    out_prefix = cfg.pattern_file
+    paths = {"lengths": out_prefix + (".lengths" if cfg.mode == "ms"
+                                      else ".pseudo_lengths")}
+    if cfg.mode == "ms":
+        paths["pointers"] = out_prefix + ".pointers"
+    cursor_path = out_prefix + ".cursor"
+    skip = 0
+    if cfg.resume and os.path.exists(cursor_path):
+        with open(cursor_path) as f:
+            skip = int(f.read().strip() or 0)
+        log("run", f"resuming after {skip} completed reads")
+    fa = _host.fasta
+    records = (item for i, item in enumerate(
+        fa.iter_general_reads(cfg.pattern_file)) if i >= skip)
+    num_reads = skip
+    t0 = time.time()
+    total_bases = 0
+    files = {k: open(v, "ab" if skip else "wb") for k, v in paths.items()}
+    try:
+        for batch in _host._prefetched(fa.batch_iter(records,
+                                                     cfg.batch_bases)):
+            out = engine.query([rd for _, rd in batch])
+            for i, (rid, rd) in enumerate(batch):
+                for k, f in files.items():   # lengths, then pointers
+                    _host.report.write_values_record(f, rid, out[k][i])
+                num_reads += 1
+                total_bases += len(rd)
+            for f in files.values():
+                f.flush()
+            with open(cursor_path, "w") as f:
+                f.write(str(num_reads))
+    finally:
+        for f in files.values():
+            f.close()
+    if os.path.exists(cursor_path):
+        os.remove(cursor_path)
+    dt = time.time() - t0
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
     LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)

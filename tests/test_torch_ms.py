@@ -188,7 +188,8 @@ def test_ms_extend_reference_equals_jax_staged_lengths(msdoc, wide):
     ptrs, _ = kernels.ms_scan_reference(
         index, table.table_for_alphabet(alpha), torch.from_numpy(rev),
         lens_t, "ms", False)
-    got = kernels.ms_extend_reference(index, torch.from_numpy(fwd), lens_t,
+    got = kernels.ms_extend_reference(index.text, index.text_bound,
+                                      torch.from_numpy(fwd), lens_t,
                                       ptrs).numpy()
     _, wlen = native.query_ms(reads)
     anomalous = 0

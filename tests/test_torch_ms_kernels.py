@@ -68,7 +68,8 @@ def test_cpu_tensors_take_the_plain_paths():
     tab, rev, fwd, lens = _stage(table, reads, 512)
     kernels.reset_launch_counts()
     ptrs, docs = kernels.ms_scan(index, tab, rev, lens, "ms", True)
-    ms_len = kernels.ms_extend(index, fwd, lens, ptrs)
+    ms_len = kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                               ptrs)
     plen, pdocs = kernels.ms_scan(index, tab, rev, lens, "pml", True)
     found, above, below, summ = kernels.binmax_values(ms_len, lens, 9, 150)
     wptr, wlen, wdoc = native.query_ms(reads, with_docs=True)
@@ -101,7 +102,8 @@ def test_wrappers_raise_for_non_cpu_tensors(wrapper):
     call = {
         "ms_scan": lambda: kernels.ms_scan(index, tab, rev, lens, "ms",
                                            False),
-        "ms_extend": lambda: kernels.ms_extend(index, fwd, lens, ptrs),
+        "ms_extend": lambda: kernels.ms_extend(index.text, index.text_bound,
+                                               fwd, lens, ptrs),
         "binmax_values": lambda: kernels.binmax_values(ptrs, lens, 9, 150),
         "gather_chase": lambda: kernels.gather_chase(
             torch.zeros((4, 4), dtype=torch.int32, device="meta"),
@@ -127,9 +129,11 @@ def test_wrappers_check_their_inputs(bad):
             kernels.ms_scan(bare, btab.table_for_alphabet((0, 65)), rev,
                             lens, "ms", False)
         elif bad == "ptr_dtype":
-            kernels.ms_extend(index, fwd, lens, ptrs.long())
+            kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                              ptrs.to(torch.int16))
         elif bad == "shape":
-            kernels.ms_extend(index, fwd[:, :64].contiguous(), lens, ptrs)
+            kernels.ms_extend(index.text, index.text_bound,
+                              fwd[:, :64].contiguous(), lens, ptrs)
         elif bad == "device_mix":
             kernels.binmax_values(ptrs, lens.to("meta"), 9, 150)
         else:
@@ -163,10 +167,10 @@ def test_ms_kernels_equal_plain_versions_on_gpu(layout):
         if use_doc:
             assert torch.equal(got[1], want[1]), (mode, use_doc)
     ptrs = kernels.ms_scan(index, tab, rev, lens, "ms", False)[0]
-    got = kernels.ms_extend(index, fwd, lens, ptrs)
+    got = kernels.ms_extend(index.text, index.text_bound, fwd, lens, ptrs)
     torch.cuda.synchronize()
-    assert torch.equal(got, kernels.ms_extend_reference(index, fwd, lens,
-                                                        ptrs))
+    assert torch.equal(got, kernels.ms_extend_reference(
+        index.text, index.text_bound, fwd, lens, ptrs))
     _, wlen = native.query_ms(reads)
     vals = got.cpu().numpy()
     for i, w in enumerate(wlen):

@@ -1,7 +1,9 @@
 """End-to-end parity of the port's `run` (device='cpu': the plain PyTorch
 versions) with the JAX package's `run` (JAX CPU backend): byte-identical
 output files on the tests/test_pipeline.py fixtures and the golden corpus,
-for PML (-P) and MS (-M), with and without document tracking (-d).
+for PML (-P) and MS (-M), with and without document tracking (-d). The
+layered engine's runs, digested indexes and general text are in
+tests/test_torch_layered_pipeline.py.
 """
 
 import os
@@ -127,6 +129,22 @@ def test_golden_pml_outputs(tmp_path):
         assert got == open(os.path.join(GOLDEN, name), "rb").read(), name
 
 
+@pytest.mark.parametrize("engine", ["bits", "layered"])
+def test_golden_ms_outputs(tmp_path, engine):
+    """The MS half of the golden corpus: `run -M -n` on either engine
+    writes the pinned .lengths and .pointers."""
+    wd = _generate(str(tmp_path))
+    for name in ("reads.fa.lengths", "reads.fa.pointers"):
+        os.remove(os.path.join(wd, name))
+    tpl.run(tpl.RunConfig(ref_file=os.path.join(wd, "idx"),
+                          pattern_file=os.path.join(wd, "reads.fa"),
+                          ms_requested=True, min_digest=False, engine=engine,
+                          device="cpu"))
+    for name in ("reads.fa.lengths", "reads.fa.pointers"):
+        got = open(os.path.join(wd, name), "rb").read()
+        assert got == open(os.path.join(GOLDEN, name), "rb").read(), name
+
+
 @pytest.fixture(scope="module")
 def msdoc(tmp_path_factory):
     """A three-document index built with -M -P -d from a file list, and
@@ -223,8 +241,6 @@ def test_ms_doc_resume_continues_the_files(msdoc, run_id):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(min_digest=True, use_dna_letters=True), "A12"),
-    (dict(engine="layered"), "A7"),
     (dict(engine="occ"), "A11"),
     (dict(tp_devices=2, write_report=True, report_only=True), "A10"),
     (dict(process_count=2), "A9"),
