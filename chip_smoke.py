@@ -7,8 +7,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
   2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
      `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
-     `layered_scan` and K8 `layered_classify` from spumoni_tpu_torch/csrc
-     for sm_90a, one nvcc per source, in parallel;
+     `layered_scan`, K8 `layered_classify`, K9 `occ_scan` and K10
+     `occ_classify` from spumoni_tpu_torch/csrc for sm_90a, one nvcc per
+     source, in parallel;
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
@@ -19,6 +20,13 @@ Phases, each of which fails the script (exit != 0) on any fault:
      `layered_classify` and K4 on K7's pointers vs plain versions on small
      layered indexes: DNA of depth 2 and 3, two documents, general text
      (26 letters), -m digested text; DNA cases also vs the native engine;
+  3d. K9 `occ_scan` (pml, pml+doc, ms, ms+doc), K10 `occ_classify` and K4
+     on K9's pointers vs plain versions on small occ-block indexes: DNA
+     with N at P = 128 and P = 16, two documents (with a read longer than
+     4,096), a 14-letter text (sigma 15, the layout's bound), each in every
+     row layout 4d builds (PML only, with SA samples, with doc ids, with
+     both); reads with bytes absent from the index and past its largest
+     character (W, Y); DNA cases also vs the native engine;
   4. the main path through the CLI at a real size: a synthetic stand-in for
      a 10-strain bacterial pangenome (10 x 4.6 Mbp at 1% divergence from one
      seeded base, reverse complements added: n ~ 92 M), 65,536 reads of
@@ -38,6 +46,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
      phase-4 FASTA, `run -m -P -c --report-only` (K8), `run -m -P -c` (K7;
      sampled reads equal the native engine on their digested bytes) and
      `run -a -P -c --report-only` (K2); FOUND rates checked as in 4;
+  4d. the occ-block engine: 4b's runs and `-P -c [--report-only]` with
+     `--engine occ` on 4b's index (n ~ 92 M, past the JAX package's 2^24
+     bound), every output file byte-identical to the block-bits run's;
   5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
      on the main-path index;
   5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the MS
@@ -45,14 +56,19 @@ Phases, each of which fails the script (exit != 0) on any fault:
      shape (R = 9,728, W = 128, L = 64);
   5c. K7 (pml, pml+doc, ms, ms+doc) and K8 vs plain at the same shape on
      4b's index with the layered engine, and K7-pml and K8 on the -m index
-     at the digested reads' bucket (L = 256).
+     at the digested reads' bucket (L = 256);
+  5d. K9 (pml, pml+doc, ms, ms+doc) and K10 vs plain at the same shape on
+     4b's index with the occ-block engine, each mode on the rows its 4d run
+     builds.
 
-Every CLI run of 4, 4b and 4c, and the gather-chase script of 5b, is a
-path of its own: the launch counts are set to 0 just before it and read just after,
-and it must launch each kernel PATH_KERNELS gives it and no other. The line
-before the last is the per-kernel JSON summary, with the launches of each
-kernel's paths; the last line is {"ok": true, "device": {...}}. Nothing of
-JAX is imported.
+Every CLI run of 4, 4b, 4c and 4d, and the gather-chase script of 5b, is
+a path of its own: the launch counts are set to 0 just before it and read
+just after, and it must launch each kernel PATH_KERNELS gives it and no
+other. The line before the last is the per-kernel JSON summary: each
+kernel's launches on its paths, its time and its plain version's, and its
+bound, the least time the card could take for the same work (`_bound`);
+the last line is {"ok": true, "device": {...}}. Nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -194,34 +210,17 @@ def _small_reads(seed, text, num, max_len):
                     text[-150:].tobytes()]
 
 
-def _small_batch(table, reads, device, L=1024):
-    """(tab, [B, L] reversed rank-mapped rows, [B, L] forward raw rows,
-    lens) on `device`, as the engine stages them."""
-    alpha = tuple(sorted({0} | set(b"ACGTN") | set(table.index_chars)
-                         | set(b"".join(reads))))
-    amap = table.rank_map(alpha)
-    rev = np.zeros((len(reads), L), np.uint8)
-    fwd = np.zeros((len(reads), L), np.uint8)
-    for i, rd in enumerate(reads):
-        a = np.frombuffer(rd, np.uint8)
-        rev[i, :len(a)] = amap[a[::-1]]
-        fwd[i, :len(a)] = a
-    lens = torch.tensor([len(r) for r in reads], dtype=torch.int64)
-    return (table.table_for_alphabet(alpha).to(device),
-            torch.from_numpy(rev).to(device),
-            torch.from_numpy(fwd).to(device), lens.to(device))
-
-
 def small_phase(device, n=20000, num_reads=300):
     phase("3. kernels vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
 
     for ci, (label, build_kw, alphabet, repeat) in enumerate(SMALL_CASES):
         text, index, table, native = _small_index(100 + ci, n, alphabet,
                                                   repeat, build_kw)
         reads = _small_reads(200 + ci, text, num_reads, 1024)
         index = index.to(device)
-        tab, rev, _, lens = _small_batch(table, reads, device)
+        tab, rev, _, lens = ranked_rows(table, reads, 1024, device)
         got = kernels.pml_scan(index, tab, rev, lens)
         sync(device)
         want = kernels.pml_scan_reference(index, tab, rev, lens)
@@ -255,6 +254,7 @@ def _max_err(got, want) -> int:
 def small_ms_phase(device, n=20000, num_reads=300):
     phase("3b. K3-K6 vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
     from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
 
     for ci, (label, build_kw, alphabet, repeat) in enumerate(SMALL_CASES):
@@ -262,7 +262,7 @@ def small_ms_phase(device, n=20000, num_reads=300):
                                                   repeat, build_kw, ms=True)
         reads = _small_reads(400 + ci, text, num_reads, 1024)
         index = index.to(device)
-        tab, rev, fwd, lens = _small_batch(table, reads, device)
+        tab, rev, fwd, lens = ranked_rows(table, reads, 1024, device)
         wptr, wlen, wdoc = native.query_ms(reads, with_docs=True)
         plen, pdoc = native.query_pml(reads, with_docs=True)
         natives = {("ms", True): (wptr, wdoc), ("pml", True): (plen, pdoc)}
@@ -386,6 +386,119 @@ def small_layered_phase(device, num_reads=300):
         print(f"{label:16s} D={m.depth} W={m.width} wide={m.wide} "
               f"n={m.n} r={m.r} B={len(reads)}: K7 ({len(modes)} modes), "
               f"K4 on K7 pointers{checked}, K8 == plain, exactly "
+              f"({int(res[0].sum())} FOUND)")
+
+
+OCC_CASES = [
+    # label, text length, alphabet, P, documents, a read longer than 4,096
+    ("dna-n-P128", 20000, b"ACGTN", 128, False, False),
+    ("dna-n-P16", 20000, b"ACGTN", 16, False, False),
+    ("two-docs-long", 20000, b"ACGT", 128, True, True),
+    ("sigma15", 20000, b"ACDEFGHIKLMNPQ", 128, False, False),
+]
+
+
+#: occ-block row layouts (SA samples, doc ids): each run of 4d builds only
+#: the tables it reads, so the main path gives K9 / K10 all four
+OCC_LAYOUTS = {(False, False): "pml rows", (True, False): "ms rows",
+               (False, True): "doc rows", (True, True): "ms+doc rows"}
+
+
+def small_occ_phase(device, num_reads=300):
+    """3d: K9 in each mode a row layout serves, K10, and K4 on K9's pointers
+    against their plain versions on small occ-block indexes (P = 128 and 16,
+    two documents with a read longer than 4,096, sigma 15), in each row
+    layout the main path builds (PML only, with SA samples, with doc ids,
+    with both), on reads with N, bytes absent from the index and bytes past
+    its largest character, and DNA cases against the native engine."""
+    phase("3d. K9 / K10 (and K4 on K9's pointers) vs plain versions on small "
+          "occ-block indexes")
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
+    from spumoni_tpu_torch.engine.occblock import seeded_occ
+
+    for ci, (label, n, alphabet, P, docs, long_read) in enumerate(OCC_CASES):
+        text, index, table, native = seeded_occ(800 + ci, n, alphabet, docs,
+                                                P)
+        reads = _small_reads(900 + ci, text, num_reads, 1024)
+        reads.append(text[300:340].tobytes() + b"W" + text[900:990].tobytes()
+                     + b"YY")
+        if alphabet != b"ACGT":   # the text's own alphabet
+            rng = np.random.default_rng(1000 + ci)
+            reads += [rng.choice(np.unique(text), m).tobytes()
+                      for m in rng.integers(1, 1024, size=num_reads // 4)]
+        if long_read:
+            reads.append(text[:4500].tobytes() + b"N"
+                         + text[5000:5700].tobytes())
+        tab, rev, fwd, lens = ranked_rows(table, reads,
+                                          8192 if long_read else 1024,
+                                          device)
+        layouts = [(True, docs)] + [lay for lay in OCC_LAYOUTS
+                                    if lay != (True, docs)
+                                    and (docs or not lay[1])]
+        got, done = {}, []
+        for samples, doc_rows in layouts:
+            if (samples, doc_rows) != (True, docs):
+                index = seeded_occ(800 + ci, n, alphabet, docs, P,
+                                   samples=samples, doc_rows=doc_rows)[1]
+            index = index.to(device)
+            modes = [("pml", False)] + ([("ms", False)] if samples else []) \
+                + ([("pml", True)] if doc_rows else []) \
+                + ([("ms", True)] if samples and doc_rows else [])
+            for mode, use_doc in modes:
+                out = kernels.occ_scan(index, tab, rev, lens, mode, use_doc)
+                sync(device)
+                want = kernels.occ_scan_reference(index, tab, rev, lens, mode,
+                                                  use_doc)
+                if _max_err(out, want):
+                    raise AssertionError(
+                        f"{label} {OCC_LAYOUTS[samples, doc_rows]}: occ_scan "
+                        f"{mode} doc={use_doc} != occ_scan_reference")
+                got.setdefault((mode, use_doc), out)
+            res = kernels.occ_classify(index, tab, rev, lens, 7, BIN_WIDTH)
+            sync(device)
+            if _max_err(res, kernels.occ_classify_reference(
+                    index, tab, rev, lens, 7, BIN_WIDTH)):
+                raise AssertionError(f"{label} {OCC_LAYOUTS[samples, doc_rows]}"
+                                     f": occ_classify != plain")
+            done.append(f"{OCC_LAYOUTS[samples, doc_rows]} W={index.meta.width}"
+                        f" ({len(modes)})")
+        # K4 on the pointers (the same in every layout), then the full
+        # layout's outputs (the first of each mode) vs native
+        ptrs = got["ms", False][0]
+        mslen = kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                                  ptrs)
+        sync(device)
+        if _max_err(mslen, kernels.ms_extend_reference(
+                index.text, index.text_bound, fwd, lens, ptrs)):
+            raise AssertionError(f"{label}: ms_extend on K9 pointers != "
+                                 f"plain")
+        checked = ""
+        if alphabet.startswith(b"ACGT"):
+            # reads without bytes past the largest index character, on
+            # which the engines agree (ROADMAP section C)
+            top = max(table.index_chars)
+            keep = [i for i, rd in enumerate(reads) if max(rd) <= top]
+            sub = [reads[i] for i in keep]
+            ms_w = native.query_ms(sub, with_docs=docs)
+            pml_w = native.query_pml(sub, with_docs=docs)
+            want = {"ptr": ms_w[0], "len": ms_w[1],
+                    "pml": pml_w[0] if docs else pml_w}
+            mats = {"pml": got["pml", False][0], "ptr": ptrs, "len": mslen}
+            if docs:
+                want.update(pdoc=pml_w[1], mdoc=ms_w[2])
+                mats.update(pdoc=got["pml", True][1], mdoc=got["ms", True][1])
+            for k, mat in mats.items():
+                mat = mat.cpu().numpy()
+                for j, i in enumerate(keep):
+                    if not np.array_equal(mat[i, :len(want[k][j])],
+                                          want[k][j]):
+                        raise AssertionError(f"{label}: read {i} {k} != "
+                                             f"native engine")
+            checked = f", == native ({len(keep)} reads)"
+        print(f"{label:16s} P={P} n={index.meta.n} B={len(reads)} "
+              f"L={rev.shape[1]}: K9 (modes) and K10 on {', '.join(done)}, "
+              f"K4 on K9 pointers == plain, exactly{checked} "
               f"({int(res[0].sum())} FOUND)")
 
 
@@ -538,6 +651,11 @@ PATH_KERNELS = {
     "m-P-c-report-only": ("layered_classify",),
     "m-P-c": ("layered_scan",),
     "a-P-c-report-only": ("pml_classify",),
+    "O-P-c-report-only": ("occ_classify",),
+    "O-P-c": ("occ_scan",),
+    "O-M-c-report-only": ("occ_scan", "ms_extend", "binmax_values"),
+    "O-M-c-d": ("occ_scan", "ms_extend"),
+    "O-P-d-c": ("occ_scan",),
     "exp_vmem_gather": ("gather_chase",),
 }
 
@@ -759,6 +877,11 @@ LAYERED_RUNS = (
 )
 
 
+#: 4d's occ-block runs on 4b's index, in the same form
+OCC_RUNS = tuple(("O" + label[1:], flags, exts, twin)
+                 for label, flags, exts, twin in LAYERED_RUNS)
+
+
 def layered_main_path_phase(device, ms_prefix, ms_reads, hashes,
                             cpu_run=False):
     """4c, first half: 4b's index and reads with --engine layered, in every
@@ -766,12 +889,30 @@ def layered_main_path_phase(device, ms_prefix, ms_reads, hashes,
     engines are exact), which holds K7 / K8 on the card without JAX."""
     phase("4c. the layered engine on 4b's index (--engine layered), "
           "through the CLI")
+    return _twin_runs(device, "layered", LAYERED_RUNS, ms_prefix, ms_reads,
+                      hashes, cpu_run)
+
+
+def occ_main_path_phase(device, ms_prefix, ms_reads, hashes, cpu_run=False):
+    """4d: 4b's index and reads with --engine occ in every run mode, each
+    output file equal to the block-bits run's of 4b: K10, K9, K9 -> K4 ->
+    K5, K9 -> K4 and K9 on the card, at n ~ 92 M (past the JAX package's
+    occ bound n <= 2^24)."""
+    phase("4d. the occ-block engine on 4b's index (--engine occ), through "
+          "the CLI")
+    return _twin_runs(device, "occ", OCC_RUNS, ms_prefix, ms_reads, hashes,
+                      cpu_run)
+
+
+def _twin_runs(device, engine, runs, ms_prefix, ms_reads, hashes, cpu_run):
+    """Runs each (path, flags, output files, 4b twin) of `runs` with
+    --engine `engine`; fails unless every output file equals the twin's."""
     base = ["run", "-r", ms_prefix, "-p", ms_reads, "-n", "--engine",
-            "layered"] + (["--device", "cpu"] if cpu_run else [])
+            engine] + (["--device", "cpu"] if cpu_run else [])
     stats = {}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for label, extra, exts, twin in LAYERED_RUNS:
+    for label, extra, exts, twin in runs:
         stats[label] = _timed_cli_run(device, label, base + extra, cpu_run)
         got = _file_hashes(ms_reads, exts)
         bad = [ext for ext in exts if got[ext] != hashes[twin][ext]]
@@ -780,9 +921,9 @@ def layered_main_path_phase(device, ms_prefix, ms_reads, hashes,
                                  f"block-bits run {twin}")
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     _print_runs(stats)
-    print(f"checks: every output file of the {len(LAYERED_RUNS)} layered "
-          f"runs is byte-identical to its block-bits run; peak device "
-          f"memory {peak / 1e6:.1f} MB")
+    print(f"checks: every output file of the {len(runs)} {engine} runs is "
+          f"byte-identical to its block-bits run; peak device memory "
+          f"{peak / 1e6:.1f} MB")
     return stats
 
 
@@ -866,6 +1007,48 @@ def digested_main_path_phase(device, reads, n_reads, n_check=2048,
 # 5. kernel vs plain timing at the main-path shape
 # ---------------------------------------------------------------------------
 
+#: the least time the card could take for a kernel's work (`_bound`), from
+#: the published peak rates of one H100 SXM at 700 W: HBM
+#: bytes per second, and the CUDA-core float32 rate, which stands for the
+#: integer operations these kernels do (the table has no int32 row)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+SECTOR = 32      # bytes: the least one dependent row read fetches
+#: integer operations per scan step, a low count from each step's source
+STEP_OPS = {"pml_scan": 20, "pml_classify": 24, "ms_scan": 30,
+            "ms_extend": 10, "binmax_values": 3, "gather_chase": 4,
+            "layered_scan": 40, "layered_classify": 44, "occ_scan": 40,
+            "occ_classify": 44}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _scan_work(name, index_tensors, reads, lens, tab=None, dependent=1):
+    """(input bytes, operations) of a scan over this run's reads: each
+    read byte and the lens and table once, and of the index what the steps
+    must read (one sector per dependent row read, at most the whole
+    index); operations STEP_OPS[name] per step. _time_kernel adds the
+    outputs, each written once."""
+    steps = int(lens.clamp(0, reads.shape[1]).sum())
+    nbytes = (steps + _nbytes(lens, tab)
+              + min(_nbytes(*index_tensors), steps * SECTOR * dependent))
+    return nbytes, steps * STEP_OPS[name]
+
+
+def _bound(nbytes, ops) -> dict:
+    """bound_ms: the larger of bytes over the HBM rate and operations over
+    the core rate; bound_by: which. library_ms is None: no single PyTorch
+    call computes any of these functions."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
 def _time_ms(fn, reps):
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -877,33 +1060,45 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps, out
 
 
+def _staged(engine, reads_path, n_reads):
+    """The phase-4 reads staged by `engine` as one group of n_reads."""
+    from spumoni_tpu_torch import _host
+
+    pk = next(_host.fastx_batch.iter_packed_batches(reads_path, 1 << 40,
+                                                    upper=True))
+    (g,) = engine.stage(pk, max_lanes=n_reads)
+    return g
+
+
 def timing_phase(device, prefix, reads, n_reads):
     phase(f"5. kernel vs plain at the main-path shape (B={n_reads})")
-    from spumoni_tpu_torch import _host, pipeline
+    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
 
     engine = pipeline.make_engine(prefix + ".fa.thrbv.spumoni", device)
-    pk = next(_host.fastx_batch.iter_packed_batches(reads, 1 << 40,
-                                                    upper=True))
-    (g,) = engine.stage(pk, max_lanes=n_reads)
+    g = _staged(engine, reads, n_reads)
     args = (engine.index, g["tab"], g["rev_d"], g["lens_d"])
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
           f"index P={engine.index.meta.P} pack={engine.index.meta.pack} "
           f"rows {engine.index.bblocks.numel() * 4 / 1e6:.1f} MB")
     src = "spumoni_tpu_torch/csrc/blockbits_pml.cu"
+    rows = (engine.index.bblocks,)
     return [
         _time_kernel("pml_scan", kernels.pml_scan,
                      kernels.pml_scan_reference, args, src,
-                     "spumoni_tpu/engine/scan_engine.py:145"),
+                     "spumoni_tpu/engine/scan_engine.py:145",
+                     _scan_work("pml_scan", rows, *args[2:], args[1])),
         _time_kernel("pml_classify", kernels.pml_classify,
                      kernels.pml_classify_reference, (*args, 7, BIN_WIDTH),
-                     src, "spumoni_tpu/parallel/mesh.py:128")]
+                     src, "spumoni_tpu/parallel/mesh.py:128",
+                     _scan_work("pml_classify", rows, *args[2:], args[1]))]
 
 
-def _time_kernel(name, kern, plain, args, source, replaces):
+def _time_kernel(name, kern, plain, args, source, replaces, work):
     """CUDA-event ms per call of a kernel wrapper and of its plain version,
     in turns (plain, kernel warm-up + 5 timed calls, plain); fails unless
-    the outputs are equal (tolerance 0: integer outputs)."""
+    the outputs are equal (tolerance 0: integer outputs). work = (input
+    bytes, operations) for the bound, to which the outputs are added."""
     plain_ms1, want = _time_ms(lambda: plain(*args), 1)
     kern(*args)
     ms, got = _time_ms(lambda: kern(*args), 5)
@@ -912,11 +1107,26 @@ def _time_kernel(name, kern, plain, args, source, replaces):
     if err:
         raise AssertionError(f"{name}: kernel != plain (max |err| {err})")
     plain_ms = (plain_ms1 + plain_ms2) / 2
+    outs = got if isinstance(got, (tuple, list)) else (got,)
+    bound = _bound(work[0] + _nbytes(*outs), work[1])
     print(f"{name}: kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
-          f"({plain_ms1:.3f}, {plain_ms2:.3f}); max |err| 0 (tolerance 0: "
-          f"integer outputs)")
+          f"({plain_ms1:.3f}, {plain_ms2:.3f}); bound {bound['bound_ms']:.4f}"
+          f" ms ({bound['bound_by']}); max |err| 0 (tolerance 0: integer "
+          f"outputs)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+
+
+def _with_modes(name, timed):
+    """One kernel's line from its timings by mode ({label: result}): the
+    first mode's numbers, the largest |err|, and every mode's ms, plain_ms,
+    bound_ms and max_abs_err under `modes`."""
+    first = next(iter(timed.values()))
+    return dict(first, name=name,
+                max_abs_err=max(r["max_abs_err"] for r in timed.values()),
+                modes={label: {k: r[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "max_abs_err")}
+                       for label, r in timed.items()})
 
 
 def ms_timing_phase(device, ms_prefix, reads, n_reads):
@@ -926,15 +1136,13 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     script's entry point at its own shape, run as the path
     'exp_vmem_gather'. Returns (results, that path's launch counts)."""
     phase(f"5b. K3-K6 vs plain at the main-path shape (B={n_reads})")
-    from spumoni_tpu_torch import _host, pipeline
+    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
 
     engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
                                   use_doc=True)   # jump_d for the doc modes
-    pk = next(_host.fastx_batch.iter_packed_batches(reads, 1 << 40,
-                                                    upper=True))
-    (g,) = engine.stage(pk, max_lanes=n_reads)
+    g = _staged(engine, reads, n_reads)
     index, lens = engine.index, g["lens_d"]
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, index "
           f"P={index.meta.P} pack={index.meta.pack} wide={index.meta.wide} "
@@ -945,29 +1153,38 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
                                lens, ptrs)
     src = "spumoni_tpu_torch/csrc/blockbits_ms.cu"
     replaces = "spumoni_tpu/engine/scan_engine.py:184"
+    # the tables each mode reads: samples (jump_t) for ms, doc ids (jump_d)
+    # with doc tracking; the row and the msrow every step
+    tables = {"ms": (index.jump_t,), "ms+doc": (index.jump_t, index.jump_d),
+              "pml+doc": (index.jump_d,)}
     modes = {label: _time_kernel(
                  f"ms_scan {label}", kernels.ms_scan,
                  kernels.ms_scan_reference,
                  (index, g["tab"], g["rev_d"], lens, mode, doc), src,
-                 replaces)
+                 replaces,
+                 _scan_work("ms_scan", (index.bblocks, index.msrows,
+                                        *tables[label]),
+                            g["rev_d"], lens, g["tab"], dependent=2))
              for label, mode, doc in (("ms", "ms", False),
                                       ("ms+doc", "ms", True),
                                       ("pml+doc", "pml", True))}
-    results = [dict(modes["ms"], name="ms_scan",
-                    max_abs_err=max(m["max_abs_err"] for m in modes.values()),
-                    modes={label: {k: m[k] for k in ("ms", "plain_ms",
-                                                     "max_abs_err")}
-                           for label, m in modes.items()})]
+    steps = int(lens.sum())
+    ext_work = (min(_nbytes(index.text), steps * SECTOR) + steps
+                + steps * ptrs.element_size() + _nbytes(lens),
+                steps * STEP_OPS["ms_extend"])
+    results = [_with_modes("ms_scan", modes)]
     results += [
         _time_kernel("ms_extend", kernels.ms_extend,
                      kernels.ms_extend_reference,
                      (index.text, index.text_bound, g["fwd_d"], lens, ptrs),
-                     src,
-                     "spumoni_tpu/engine/scan_engine.py:1042"),
+                     src, "spumoni_tpu/engine/scan_engine.py:1042",
+                     ext_work),
         _time_kernel("binmax_values", kernels.binmax_values,
                      kernels.binmax_values_reference,
                      (ms_len, lens, 7, BIN_WIDTH), src,
-                     "spumoni_tpu/engine/scan_engine.py:1110")]
+                     "spumoni_tpu/engine/scan_engine.py:1110",
+                     (steps * ms_len.element_size() + _nbytes(lens),
+                      steps * STEP_OPS["binmax_values"]))]
     # K6 through the script's own entry point, as a path of its own
     kernels.reset_launch_counts()
     res = chase.main([])
@@ -975,9 +1192,12 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     _check_launches("exp_vmem_gather", counts)
     if res["max_abs_err"]:
         raise AssertionError("gather_chase != gather_chase_reference")
+    cells = chase.R * chase.W   # table, idx0 and the output: int32 each
     results.append(dict(name="gather_chase", route="cuda",
                         source="spumoni_tpu_torch/csrc/gather_chase.cu",
-                        replaces="scripts/exp_vmem_gather.py:35", **res))
+                        replaces="scripts/exp_vmem_gather.py:35", **res,
+                        **_bound(3 * 4 * cells,
+                                 cells * chase.L * STEP_OPS["gather_chase"])))
     return results, counts
 
 
@@ -994,11 +1214,15 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
     src = "spumoni_tpu_torch/csrc/layered.cu"
     k7 = "spumoni_tpu/engine/scan_engine.py:120"
     k8_src = "spumoni_tpu/parallel/mesh.py:128"
+
+    def work(name, index, g):
+        return _scan_work(name, (index.charmeta, *index.levels,
+                                 index.fields), g["rev_d"], g["lens_d"],
+                          dependent=index.meta.depth + 1)
+
     engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
                                   use_doc=True, engine="layered")
-    pk = next(_host.fastx_batch.iter_packed_batches(ms_reads, 1 << 40,
-                                                    upper=True))
-    (g,) = engine.stage(pk, max_lanes=n_reads)
+    g = _staged(engine, ms_reads, n_reads)
     index, args = engine.index, (engine.index, g["rev_d"], g["lens_d"])
     m = index.meta
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, layered "
@@ -1008,29 +1232,25 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
     modes = {label: _time_kernel(f"layered_scan {label}",
                                  kernels.layered_scan,
                                  kernels.layered_scan_reference,
-                                 (*args, mode, doc), src, k7)
+                                 (*args, mode, doc), src, k7,
+                                 work("layered_scan", index, g))
              for label, mode, doc in (("pml", "pml", False),
                                       ("pml+doc", "pml", True),
                                       ("ms", "ms", False),
                                       ("ms+doc", "ms", True))}
-    results = [dict(modes["pml"], name="layered_scan",
-                    max_abs_err=max(r["max_abs_err"]
-                                    for r in modes.values()),
-                    modes={label: {k: r[k] for k in ("ms", "plain_ms",
-                                                     "max_abs_err")}
-                           for label, r in modes.items()})]
     del engine, g, index, args
     # K8 on the tables 4c's L-P-c-report-only run gives it
     engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.spumoni", device,
                                   engine="layered")
-    (g,) = engine.stage(pk, max_lanes=n_reads)
+    g = _staged(engine, ms_reads, n_reads)
     m = engine.index.meta
     print(f"PML batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
           f"layered index D={m.depth} W={m.width} r={m.r}")
     k8 = {"10-strain": _time_kernel(
         "layered_classify 10-strain", kernels.layered_classify,
         kernels.layered_classify_reference,
-        (engine.index, g["rev_d"], g["lens_d"], 7, BIN_WIDTH), src, k8_src)}
+        (engine.index, g["rev_d"], g["lens_d"], 7, BIN_WIDTH), src, k8_src,
+        work("layered_classify", engine.index, g))}
     del engine, g
     engine = pipeline.make_engine(m_prefix + ".bin.thrbv.spumoni", device)
     pk = next(_host.fastx_batch.iter_packed_batches(m_reads, 1 << 40,
@@ -1044,23 +1264,80 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
           f"at L={g['rev_d'].shape[1]} (mean digested length "
           f"{pk.total_bases / len(pk):.1f}), layered index D={m.depth} "
           f"W={m.width} r={m.r}")
-    k7m = _time_kernel("layered_scan -m pml", kernels.layered_scan,
-                       kernels.layered_scan_reference, (*args, "pml", False),
-                       src, k7)
-    results[0]["modes"]["-m pml"] = {k: k7m[k] for k in ("ms", "plain_ms",
-                                                          "max_abs_err")}
-    results[0]["max_abs_err"] = max(results[0]["max_abs_err"],
-                                    k7m["max_abs_err"])
+    modes["-m pml"] = _time_kernel(
+        "layered_scan -m pml", kernels.layered_scan,
+        kernels.layered_scan_reference, (*args, "pml", False), src, k7,
+        work("layered_scan", engine.index, g))
     k8["-m"] = _time_kernel(
         "layered_classify -m", kernels.layered_classify,
         kernels.layered_classify_reference, (*args, 7, BIN_WIDTH), src,
-        k8_src)
-    results.append(dict(
-        k8["-m"], name="layered_classify",
-        max_abs_err=max(r["max_abs_err"] for r in k8.values()),
-        modes={label: {k: r[k] for k in ("ms", "plain_ms", "max_abs_err")}
-               for label, r in k8.items()}))
-    return results
+        k8_src, work("layered_classify", engine.index, g))
+    return [_with_modes("layered_scan", modes),
+            _with_modes("layered_classify", {"-m": k8["-m"],
+                                             "10-strain": k8["10-strain"]})]
+
+
+def _occ_columns(index, mode, use_doc):
+    """The row columns K9 / K10 read in a mode, as views (so _nbytes counts
+    only them): checkpoints, chars and thresholds, the samples for ms, the
+    doc ids with use_doc."""
+    m = index.meta
+    cols = [index.blocks[:, :m.T0 + m.P]]
+    if mode == "ms":
+        cols.append(index.blocks[:, m.S0:m.S0 + 2 * m.P])
+    if use_doc:
+        cols.append(index.blocks[:, m.D0:m.D0 + 2 * m.P])
+    return tuple(cols)
+
+
+#: 5d's K9 modes: (label, index file, mode, doc ids), each on the rows its
+#: 4d run builds (OCC_LAYOUTS)
+OCC_TIMED = (("pml", ".fa.thrbv.spumoni", "pml", False),
+             ("pml+doc", ".fa.thrbv.spumoni", "pml", True),
+             ("ms", ".fa.thrbv.ms", "ms", False),
+             ("ms+doc", ".fa.thrbv.ms", "ms", True))
+
+
+def occ_timing_phase(device, ms_prefix, ms_reads, n_reads):
+    """5d: K9 in each of its modes and K10 against their plain versions at
+    B = n_reads, L = 1,024 on 4b's index with the occ-block engine, each
+    mode on the rows of the 4d run that uses it: K9-pml and K10 on the PML
+    rows of `-P -c` (W = T0 + P), pml+doc on the doc rows of `-P -d -c`
+    (T0 + 3P), ms on the sample rows of `-M -c --report-only` (T0 + 3P),
+    ms+doc on the rows of `-M -c -d` (T0 + 5P)."""
+    phase(f"5d. K9 / K10 vs plain at the main-path shape (B={n_reads})")
+    from spumoni_tpu_torch import pipeline
+    from spumoni_tpu_torch.engine import kernels
+
+    src = "spumoni_tpu_torch/csrc/occblock.cu"
+    timed = {}
+    for label, path, mode, use_doc in OCC_TIMED:
+        engine = pipeline.make_engine(ms_prefix + path, device, mode,
+                                      use_doc=use_doc, engine="occ")
+        g = _staged(engine, ms_reads, n_reads)
+        index = engine.index
+        args = (index, g["tab"], g["rev_d"], g["lens_d"])
+        m = index.meta
+        cols = _occ_columns(index, mode, use_doc)
+        if sum(c.shape[1] for c in cols) != m.width:
+            raise AssertionError(f"occ_scan {label}: rows of width {m.width} "
+                                 f"hold tables the mode does not read")
+        print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
+              f"occ-block index P={m.P} W={m.width}, rows "
+              f"{_nbytes(index.blocks) / 1e6:.1f} MB")
+        timed[label] = _time_kernel(
+            f"occ_scan {label}", kernels.occ_scan,
+            kernels.occ_scan_reference, (*args, mode, use_doc), src,
+            "spumoni_tpu/engine/scan_engine.py:220",
+            _scan_work("occ_scan", cols, *args[2:], args[1]))
+        if label == "pml":
+            k10 = _time_kernel(
+                "occ_classify", kernels.occ_classify,
+                kernels.occ_classify_reference, (*args, 7, BIN_WIDTH), src,
+                "spumoni_tpu/parallel/mesh.py:128",
+                _scan_work("occ_classify", cols, *args[2:], args[1]))
+        del engine, g, index, args, cols
+    return [_with_modes("occ_scan", timed), k10]
 
 
 def main(argv=None) -> int:
@@ -1081,6 +1358,7 @@ def main(argv=None) -> int:
     small_phase(dev)
     small_ms_phase(dev)
     small_layered_phase(dev)
+    small_occ_phase(dev)
     sync(dev)
     prefix, reads, stats = main_path_phase(dev, args.strains,
                                            n_reads=args.reads)
@@ -1093,6 +1371,8 @@ def main(argv=None) -> int:
     m_prefix, m_reads, dig_stats = digested_main_path_phase(dev, reads,
                                                             args.reads)
     sync(dev)
+    occ_stats = occ_main_path_phase(dev, ms_prefix, ms_reads, hashes)
+    sync(dev)
     results = timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
     ms_results, chase_counts = ms_timing_phase(dev, ms_prefix, ms_reads,
@@ -1102,11 +1382,13 @@ def main(argv=None) -> int:
     results += layered_timing_phase(dev, ms_prefix, ms_reads, m_prefix,
                                     m_reads, args.reads)
     sync(dev)
+    results += occ_timing_phase(dev, ms_prefix, ms_reads, args.reads)
+    sync(dev)
     # each path's own counts; a kernel reports those of the paths it is on,
     # `launches` being its first path's
     paths = {label: st["launches"]
              for label, st in {**stats, **ms_stats, **lay_stats,
-                               **dig_stats}.items()}
+                               **dig_stats, **occ_stats}.items()}
     paths["exp_vmem_gather"] = chase_counts
     for r in results:
         own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]

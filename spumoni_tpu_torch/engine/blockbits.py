@@ -580,6 +580,36 @@ class CharTable:
         return amap
 
 
+def alphabet_seed(table: CharTable) -> set:
+    """The bytes every staged alphabet holds before any read is seen: byte
+    0, ACGTN and the index's characters (ScanEngine._ensure_alpha)."""
+    return {0} | set(b"ACGTN") | set(int(c) for c in table.index_chars)
+
+
+def staged_alphabet(table: CharTable, reads) -> tuple:
+    """The alphabet ScanEngine stages `reads` with: alphabet_seed and the
+    reads' bytes, sorted (rank = position)."""
+    return tuple(sorted(alphabet_seed(table) | set(b"".join(reads))))
+
+
+def ranked_rows(table: CharTable, reads, L: int, device="cpu") -> tuple:
+    """(tab, [B, L] reversed rank-mapped rows, [B, L] forward raw rows,
+    [B] int64 lens) on `device`, as ScanEngine stages a list of reads for
+    a block-bits or occ-block index (small kernel checks in the tests and
+    chip_smoke.py)."""
+    alpha = staged_alphabet(table, reads)
+    amap = table.rank_map(alpha)
+    rev = np.zeros((len(reads), L), np.uint8)
+    fwd = np.zeros((len(reads), L), np.uint8)
+    for i, rd in enumerate(reads):
+        a = np.frombuffer(rd, np.uint8)
+        rev[i, :len(a)] = amap[a[::-1]]
+        fwd[i, :len(a)] = a
+    lens = np.asarray([len(r) for r in reads], np.int64)
+    return (table.table_for_alphabet(alpha).to(device),
+            *(torch.from_numpy(x).to(device) for x in (rev, fwd, lens)))
+
+
 def _assemble(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
               msrows: Optional[np.ndarray] = None, want_ms: bool = False,
               want_doc: bool = False):

@@ -1,4 +1,4 @@
-"""Build, binding and wrappers of the block-bits CUDA kernels, with their
+"""Build, binding and wrappers of the port's CUDA kernels, with their
 plain PyTorch versions.
 
   * `pml_scan` (K1): PML lengths of every read, in forward order.
@@ -15,10 +15,15 @@ plain PyTorch versions.
     MS+doc) over raw bytes, in forward order.
   * `layered_classify` (K8): K7's PML scan with the bin-max classification
     folded in, as K2 does for block-bits.
+  * `occ_scan` (K9): the occ-block scan (PML, PML+doc, MS, MS+doc) over
+    query-rank codes, in forward order, one-step lag resolved.
+  * `occ_classify` (K10): K9's PML scan with the bin-max classification
+    folded in.
 
 K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`,
-K6 in `csrc/gather_chase.cu` and K7/K8 in `csrc/layered.cu`, each behind a
-plain C interface (the bin-max carry of K2 and K8 in `csrc/binmax.cuh`).
+K6 in `csrc/gather_chase.cu`, K7/K8 in `csrc/layered.cu` and K9/K10 in
+`csrc/occblock.cu`, each behind a plain C interface (the bin-max carry of
+K2, K8 and K10 in `csrc/binmax.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -44,17 +49,20 @@ import torch
 
 from .blockbits import BlockBitsIndex, ms_probe, pml_probe
 from .layered import LayeredIndex, initial_state, layered_step
+from .occblock import OccIndex, occ_initial_state, occ_step
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
-            "blockbits_ms.cu", "gather_chase.cu", "layered.cu")
+            "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
+            "occblock.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
              "gather_chase": "gather_chase.cu",
-             "layered": "layered.cu"}
+             "layered": "layered.cu",
+             "occblock": "occblock.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 _TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -141,6 +149,13 @@ _SIGNATURES = {
         "spn_layered_classify": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32,
                                  _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
                                  _P, _P, _P]},
+    "occblock": {
+        "spn_occ_scan": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _P, _I32, _P, _P, _I64, _I64,
+                         _I32, _P, _P, _P],
+        "spn_occ_classify": [_P, _I64, _I32, _I32, _I32, _I32, _P, _I32,
+                             _P, _P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,
+                             _P]},
 }
 
 
@@ -156,13 +171,14 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _check_inputs(index: BlockBitsIndex, tab: torch.Tensor,
+def _check_inputs(rows: torch.Tensor, tab: torch.Tensor,
                   reads_rev: torch.Tensor, lens: torch.Tensor):
-    """Device, dtype, shape and contiguity checks shared by both wrappers;
-    returns the device kind: 'cpu' or 'cuda'."""
+    """Device, dtype, shape and contiguity checks of the wrappers that take
+    rank-mapped rows and a CharTable table; `rows` is the index's row
+    tensor (a BlockBitsIndex's bblocks, an OccIndex's blocks). Returns the
+    device kind: 'cpu' or 'cuda'."""
     dev = reads_rev.device
-    for name, t in (("bblocks", index.bblocks), ("tab", tab),
-                    ("lens", lens)):
+    for name, t in (("index rows", rows), ("tab", tab), ("lens", lens)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, reads on {dev}")
     if dev.type not in ("cpu", "cuda"):
@@ -175,7 +191,7 @@ def _check_inputs(index: BlockBitsIndex, tab: torch.Tensor,
             or not 0 < tab.shape[0] <= 256:
         raise ValueError("tab must be an [sq <= 256, 5] int64 tensor")
     if not (reads_rev.is_contiguous() and lens.is_contiguous()
-            and tab.is_contiguous() and index.bblocks.is_contiguous()):
+            and tab.is_contiguous() and rows.is_contiguous()):
         raise ValueError("inputs must be contiguous")
     return dev.type
 
@@ -206,7 +222,7 @@ def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
     """K1. reads_rev: [B, L] uint8 query-rank codes, each read REVERSED and
     left-aligned; lens: [B] int64. Returns [B, L] int32 PML lengths in
     FORWARD order (columns >= lens[b] are 0)."""
-    if _check_inputs(index, tab, reads_rev, lens) == "cpu":
+    if _check_inputs(index.bblocks, tab, reads_rev, lens) == "cpu":
         return pml_scan_reference(index, tab, reads_rev, lens)
     out = torch.zeros(reads_rev.shape, dtype=torch.int32,
                       device=reads_rev.device)
@@ -231,7 +247,7 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
     classification (classify/binmax.py semantics)."""
     if bin_width <= 0:
         raise ValueError("bin_width must be positive")
-    if _check_inputs(index, tab, reads_rev, lens) == "cpu":
+    if _check_inputs(index.bblocks, tab, reads_rev, lens) == "cpu":
         return pml_classify_reference(index, tab, reads_rev, lens,
                                       max_value_thr, bin_width)
     B = reads_rev.shape[0]
@@ -265,7 +281,7 @@ def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
     index.meta.pos_dtype in FORWARD order (columns >= lens[b] are 0):
     MS pointers jump_t[jidx] - d, or PML lengths; docs = jump_d[jidx], or
     None without use_doc."""
-    kind = _check_inputs(index, tab, reads_rev, lens)
+    kind = _check_inputs(index.bblocks, tab, reads_rev, lens)
     code = _MS_MODES.get((mode, bool(use_doc)))
     if code is None:
         raise ValueError(f"ms_scan: mode={mode!r}, use_doc={use_doc} (plain "
@@ -439,8 +455,22 @@ def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
 
 gather_chase.launches = 0
 
-_LAYERED_MODES = {("pml", False): 0, ("pml", True): 1, ("ms", False): 2,
-                  ("ms", True): 3}
+#: the Mode enum of layered.cu and occblock.cu
+_SCAN_MODES = {("pml", False): 0, ("pml", True): 1, ("ms", False): 2,
+               ("ms", True): 3}
+
+
+def _scan_mode(name: str, meta, mode: str, use_doc: bool) -> int:
+    """The mode code of K7 / K9, after checking that the index (its meta's
+    has_samples / has_doc) holds what the mode reads."""
+    code = _SCAN_MODES.get((mode, bool(use_doc)))
+    if code is None:
+        raise ValueError(f"{name}: mode must be 'pml' or 'ms', not {mode!r}")
+    if mode == "ms" and not meta.has_samples:
+        raise ValueError(f"{name}: MS needs an index with SA samples")
+    if use_doc and not meta.has_doc:
+        raise ValueError(f"{name}: doc tracking needs an index with doc ids")
+    return code
 
 
 def _check_layered(index: LayeredIndex, reads_rev: torch.Tensor,
@@ -487,16 +517,8 @@ def layered_scan(index: LayeredIndex, reads_rev: torch.Tensor,
     lengths, or MS pointers (signed, never clamped); docs the doc ids, or
     None without use_doc."""
     kind = _check_layered(index, reads_rev, lens)
-    code = _LAYERED_MODES.get((mode, bool(use_doc)))
-    if code is None:
-        raise ValueError(f"layered_scan: mode must be 'pml' or 'ms', not "
-                         f"{mode!r}")
+    code = _scan_mode("layered_scan", index.meta, mode, use_doc)
     m = index.meta
-    if mode == "ms" and not m.has_samples:
-        raise ValueError("layered_scan: MS needs an index with SA samples")
-    if use_doc and not m.has_doc:
-        raise ValueError("layered_scan: doc tracking needs an index with "
-                         "doc ids")
     if kind == "cpu":
         return layered_scan_reference(index, reads_rev, lens, mode, use_doc)
     dev = reads_rev.device
@@ -550,8 +572,80 @@ def layered_classify(index: LayeredIndex, reads_rev: torch.Tensor,
 
 layered_classify.launches = 0
 
+
+def _occ_head(index: OccIndex):
+    """[blocks, nb, P, W, T0]: the index arguments of both entry points."""
+    m = index.meta
+    return [index.blocks.data_ptr(), m.nb, m.P, m.width, m.T0]
+
+
+def occ_scan(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
+             lens: torch.Tensor, mode: str = "pml", use_doc: bool = False):
+    """K9. reads_rev: [B, L] uint8 query-rank codes (tab's alphabet), each
+    read REVERSED and left-aligned; lens: [B] int64. Returns (vals, docs):
+    [B, L] int32 in FORWARD order (columns >= lens[b] are 0): PML lengths,
+    or MS pointers (signed, never clamped); docs the doc ids, or None
+    without use_doc. The one-step lag of MS samples and doc ids is
+    resolved: column j holds the value of read position j."""
+    kind = _check_inputs(index.blocks, tab, reads_rev, lens)
+    code = _scan_mode("occ_scan", index.meta, mode, use_doc)
+    m = index.meta
+    if kind == "cpu":
+        return occ_scan_reference(index, tab, reads_rev, lens, mode, use_doc)
+    dev = reads_rev.device
+    vals = torch.zeros(reads_rev.shape, dtype=torch.int32, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    if vals.numel() == 0:
+        return vals, docs
+    rc = library("occblock").spn_occ_scan(
+        *_occ_head(index), m.S0, m.D0, m.n,
+        m.last_run_sample, m.last_run_edoc, m.first_run_sdoc,
+        tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
+        reads_rev.shape[0], reads_rev.shape[1], code, vals.data_ptr(),
+        0 if docs is None else docs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "occ_scan")
+    occ_scan.launches += 1
+    return vals, docs
+
+
+occ_scan.launches = 0
+
+
+def occ_classify(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
+                 lens: torch.Tensor, max_value_thr: int, bin_width: int):
+    """K10. Same inputs as occ_scan; returns per-read (found [B] bool,
+    above [B] int32, below [B] int32, sum_maxes [B] int64) of the bin-max
+    classification of the PML lengths (classify/binmax.py semantics)."""
+    if bin_width <= 0:
+        raise ValueError("bin_width must be positive")
+    if _check_inputs(index.blocks, tab, reads_rev, lens) == "cpu":
+        return occ_classify_reference(index, tab, reads_rev, lens,
+                                      max_value_thr, bin_width)
+    B = reads_rev.shape[0]
+    dev = reads_rev.device
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    above = torch.zeros(B, dtype=torch.int32, device=dev)
+    below = torch.zeros(B, dtype=torch.int32, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return found, above, below, summ
+    rc = library("occblock").spn_occ_classify(
+        *_occ_head(index), index.meta.n,
+        tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
+        B, reads_rev.shape[1], int(max_value_thr), int(bin_width),
+        found.data_ptr(), above.data_ptr(), below.data_ptr(),
+        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "occ_classify")
+    occ_classify.launches += 1
+    return found, above, below, summ
+
+
+occ_classify.launches = 0
+
 _WRAPPERS = (pml_scan, pml_classify, ms_scan, ms_extend, binmax_values,
-             gather_chase, layered_scan, layered_classify)
+             gather_chase, layered_scan, layered_classify, occ_scan,
+             occ_classify)
 
 
 def reset_launch_counts() -> None:
@@ -754,6 +848,60 @@ def layered_classify_reference(index: LayeredIndex, reads_rev: torch.Tensor,
     lens = lens.clamp(0, reads_rev.shape[1])
     steps = ((t, val) for t, val, _ in _layered_steps(index, reads_rev, lens,
                                                       "pml", False))
+    return _binmax_fold(steps, lens, max_value_thr, bin_width)
+
+
+def _occ_steps(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
+               lens: torch.Tensor, mode: str, use_doc: bool, extra: int):
+    """Yields (t, value, doc) after each step t < max(lens) + extra of
+    occ_step from the seed; a step past the [B, L] rows reads rank 0 (the
+    JAX sentinel column), and lanes past their own length keep stepping on
+    padding, as the JAX scan does."""
+    B, L = reads_rev.shape
+    carry = occ_initial_state(index, B, reads_rev.device)
+    pad = torch.zeros(B, dtype=reads_rev.dtype, device=reads_rev.device)
+    steps = int(lens.max()) if B else 0
+    for t in range(steps + extra):
+        qc = reads_rev[:, t] if t < L else pad
+        carry, (val, doc) = occ_step(index, tab, carry, qc, mode, use_doc)
+        yield t, val, doc
+
+
+def occ_scan_reference(index: OccIndex, tab: torch.Tensor,
+                       reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
+                       use_doc: bool):
+    """Plain PyTorch version of K9 (query_batch_kernel_v3 with its
+    sentinel step and realignment, then the flip to forward order): an MS
+    sample or doc id emitted at step t belongs to read position t - 1."""
+    B, L = reads_rev.shape
+    dev = reads_rev.device
+    lens = lens.clamp(0, L)
+    vals = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    lanes = torch.arange(B, device=dev)
+    lag_v = int(mode == "ms")
+    extra = int(mode == "ms" or use_doc)
+
+    def put(out, i, x):
+        act = (i >= 0) & (i < lens)
+        out[lanes[act], (lens - 1 - i)[act]] = x[act].to(torch.int32)
+
+    for t, val, doc in _occ_steps(index, tab, reads_rev, lens, mode, use_doc,
+                                  extra):
+        put(vals, t - lag_v, val)
+        if use_doc:
+            put(docs, t - 1, doc)
+    return vals, docs
+
+
+def occ_classify_reference(index: OccIndex, tab: torch.Tensor,
+                           reads_rev: torch.Tensor, lens: torch.Tensor,
+                           max_value_thr: int, bin_width: int):
+    """Plain PyTorch version of K10 (mesh.py::_fused_classify_core with
+    the occ step; PML lengths do not lag)."""
+    lens = lens.clamp(0, reads_rev.shape[1])
+    steps = ((t, val) for t, val, _ in _occ_steps(index, tab, reads_rev, lens,
+                                                  "pml", False, 0))
     return _binmax_fold(steps, lens, max_value_thr, bin_width)
 
 

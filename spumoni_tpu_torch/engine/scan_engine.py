@@ -1,23 +1,26 @@
 """Host-side engine of the port: stages read batches onto the device and
-runs the block-bits or layered kernels over them.
+runs the block-bits, layered or occ-block kernels over them.
 
 Covers the surface of `spumoni_tpu/engine/scan_engine.py::ScanEngine` for
-its block-bits and layered engines (`self.layered`): `stage`, the growing
-staged alphabet, `classify_staged`, `query_staged`, and the list API
-`classify` / `query`. Block-bits runs PML on K1 / K2, MS on K3 pointers, K4
-lengths and K5 bin-max, and document tracking on K3; the layered engine
-runs PML on K7 / K8, MS and document tracking on K7, then K4 and K5.
+its block-bits, layered (`self.layered`) and occ-block (`self.occ`)
+engines: `stage`, the growing staged alphabet, `classify_staged`,
+`query_staged`, and the list API `classify` / `query`. Block-bits runs PML
+on K1 / K2, MS on K3 pointers, K4 lengths and K5 bin-max, and document
+tracking on K3; the layered engine runs PML on K7 / K8, MS and document
+tracking on K7, then K4 and K5; the occ-block engine the same on K9 / K10
+(the JAX package's v3 path, scan_engine.py:1861-1931).
 
 Reads are bucketed by padded length (a power of two from PAD_TO up to
 CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED into
 [B, L] uint8 rows by the native packer (8 bits per base: the 2- and 4-bit
 transfer packings of the JAX package existed for the TPU host link), and
 uploaded; MS runs also upload the raw forward rows for the extension.
-Block-bits rows are rank-mapped through the staged alphabet; layered rows
-are raw bytes, since K7 / K8 read `charmeta[byte]` directly, so the staged
-alphabet's 255-symbol limit does not bind them. Reads longer than CHUNK go
-through the same kernels in one launch: the carry is per lane, so no chunk
-state is kept.
+Block-bits and occ-block rows are rank-mapped through the staged alphabet;
+layered rows are raw bytes, since K7 / K8 read `charmeta[byte]` directly,
+so the staged alphabet's 255-symbol limit does not bind them. Reads longer
+than CHUNK go through the same kernels in one launch: the carry is per
+lane, so no chunk state is kept (the occ-block scan resolves its one-step
+lag per lane too).
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ import torch
 
 from .. import _host
 from . import kernels
-from .blockbits import BlockBitsIndex, CharTable
+from .blockbits import BlockBitsIndex, CharTable, alphabet_seed
 from .layered import LayeredIndex
+from .occblock import OccIndex
 
 #: raw-byte staging of the forward rows (the MS extension compares bytes)
 _IDENT_AMAP = np.arange(256, dtype=np.uint8)
@@ -40,12 +44,13 @@ class ScanEngine:
 
     def __init__(self, index, table: CharTable = None, mode: str = "pml",
                  use_doc: bool = False):
-        """index: a BlockBitsIndex with its CharTable, or a LayeredIndex
-        (no table)."""
+        """index: a BlockBitsIndex or an OccIndex with its CharTable, or a
+        LayeredIndex (no table)."""
         if mode not in ("pml", "ms"):
             raise ValueError(f"mode must be 'pml' or 'ms', not {mode!r}")
         self.layered = isinstance(index, LayeredIndex)
-        if self.layered:
+        self.occ = isinstance(index, OccIndex)
+        if self.layered or self.occ:
             has_ms, has_doc = index.meta.has_samples, index.meta.has_doc
         else:
             has_ms = index.jump_t is not None
@@ -60,8 +65,8 @@ class ScanEngine:
         self.table = table
         self.mode = mode
         self.use_doc = use_doc
-        self.device = index.charmeta.device if self.layered \
-            else index.bblocks.device
+        self.device = (index.charmeta if self.layered else index.blocks
+                       if self.occ else index.bblocks).device
         self._stage_alpha = None   # cached, monotonically growing alphabet
         self._stage_amap = None    # its 256-byte LUT (255 = not covered)
         self._tabs: dict = {}      # alphabet -> table on self.device
@@ -73,9 +78,7 @@ class ScanEngine:
 
     def _ensure_alpha(self):
         if self._stage_alpha is None:
-            seed = ({0} | set(b"ACGTN")
-                    | set(int(c) for c in self.table.index_chars))
-            self._stage_alpha = tuple(sorted(seed))
+            self._stage_alpha = tuple(sorted(alphabet_seed(self.table)))
             self._stage_amap = self._build_amap255(self._stage_alpha)
 
     def _extend_alpha(self, present):
@@ -171,17 +174,21 @@ class ScanEngine:
     # ------------------------------------------------------------------
 
     def _scan(self, g, mode: str, use_doc: bool):
-        """(vals, docs) [B, L] on the device: K7 on the layered engine, K3
-        on block-bits (MS, or PML with doc tracking)."""
+        """(vals, docs) [B, L] on the device: K7 on the layered engine, K9
+        on the occ-block engine, K3 on block-bits (MS, or PML with doc
+        tracking)."""
         if self.layered:
             return kernels.layered_scan(self.index, g["rev_d"], g["lens_d"],
                                         mode, use_doc)
+        if self.occ:
+            return kernels.occ_scan(self.index, g["tab"], g["rev_d"],
+                                    g["lens_d"], mode, use_doc)
         return kernels.ms_scan(self.index, g["tab"], g["rev_d"], g["lens_d"],
                                mode, use_doc)
 
     def _ms_values(self, g, use_doc: bool):
         """{'pointers', 'lengths'[, 'docs']} [B, L] on the device: the
-        pointer scan (K7 or K3), then K4 on its pointers."""
+        pointer scan (K7, K9 or K3), then K4 on its pointers."""
         ptrs, docs = self._scan(g, "ms", use_doc)
         mats = {"pointers": ptrs, "lengths": kernels.ms_extend(
             self.index.text, self.index.text_bound, g["fwd_d"], g["lens_d"],
@@ -192,9 +199,9 @@ class ScanEngine:
 
     def classify_staged(self, staged, bin_width: int, max_value_thr: int):
         """Per-read (found, above, below, sum_maxes) over staged groups, in
-        the batch's read order. PML: K2, or K8 on the layered engine; MS:
-        K3 or K7 -> K4 -> K5 (the port of _classify_ms_dev). Only [B]
-        summaries leave the device."""
+        the batch's read order. PML: K2, K8 on the layered engine or K10 on
+        the occ-block engine; MS: K3, K7 or K9 -> K4 -> K5 (the port of
+        _classify_ms_dev). Only [B] summaries leave the device."""
         if self.use_doc:
             raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
@@ -207,6 +214,10 @@ class ScanEngine:
                 res = kernels.layered_classify(self.index, g["rev_d"],
                                                g["lens_d"], max_value_thr,
                                                bin_width)
+            elif self.mode == "pml" and self.occ:
+                res = kernels.occ_classify(self.index, g["tab"], g["rev_d"],
+                                           g["lens_d"], max_value_thr,
+                                           bin_width)
             elif self.mode == "pml":
                 res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
                                            g["lens_d"], max_value_thr,
@@ -221,9 +232,9 @@ class ScanEngine:
 
     def query_staged(self, staged) -> dict:
         """Per-read value arrays over staged groups, in the batch's read
-        order: 'lengths' (PML: K1, or K3 with doc tracking, or K7 on the
-        layered engine; MS: K4), 'pointers' (MS: K3 or K7) and 'docs' (doc
-        tracking: K3 or K7)."""
+        order: 'lengths' (PML: K1, or K3 with doc tracking, K7 on the
+        layered engine, K9 on the occ-block engine; MS: K4), 'pointers' (MS:
+        K3, K7 or K9) and 'docs' (doc tracking: K3, K7 or K9)."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
@@ -232,7 +243,7 @@ class ScanEngine:
         for g in staged:
             if self.mode == "ms":
                 mats = self._ms_values(g, self.use_doc)
-            elif self.use_doc or self.layered:
+            elif self.use_doc or self.layered or self.occ:
                 lengths, docs = self._scan(g, "pml", self.use_doc)
                 mats = {"lengths": lengths, "docs": docs}
             else:

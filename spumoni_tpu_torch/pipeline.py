@@ -1,11 +1,11 @@
-"""`run` for the port: streams a query file through the block-bits or
-layered kernels and writes the reference's output files.
+"""`run` for the port: streams a query file through the block-bits,
+layered or occ-block kernels and writes the reference's output files.
 
 Mirrors `spumoni_tpu/pipeline.py::run` on the staged fast path, for PML
 (-P) and MS (-M), with or without document tracking (-d), on undigested
 (-n) and minimizer-digested (-m, -a) indexes, and general text (-g): the
 engine choice (block-bits where it holds the index and the mode, else
-layered; `--engine bits|layered` to force one), the fast start from the
+layered; `--engine bits|layered|occ` to force one), the fast start from the
 `.bbrows.npz` cache (block-bits PML without -d), the null-DB threshold,
 the prefetch thread that parses, digests and stages batches, the writer
 thread, the durable read cursor with `--resume`, and `--ks-report` with
@@ -33,6 +33,7 @@ import torch
 from . import _host
 from .engine.blockbits import build_blockbits, eligible_any, load_cached
 from .engine.layered import build_layered
+from .engine import occblock
 from .engine.scan_engine import ScanEngine
 
 load_dense_index = _host.index_format.load_dense_index
@@ -54,7 +55,6 @@ class RunConfig(_host.RunConfig):
 
 def _check_supported(cfg: RunConfig) -> None:
     unsupported = (
-        (cfg.engine == "occ", "--engine occ is ROADMAP A11"),
         (cfg.tp_devices > 1, "--tp-devices > 1 (sharded index) is "
                              "ROADMAP A10"),
         (cfg.process_count > 1, "multi-process runs are ROADMAP A9"),
@@ -98,12 +98,12 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                 use_doc: bool = False, engine: str = "auto",
                 fast_start: bool = True) -> ScanEngine:
     """The engine for the index at index_path, chosen as the JAX package
-    chooses (`_uses_blockbits`). Block-bits PML without doc tracking (with
-    `auto` / `bits` and fast_start) starts from the rows cache when it is
-    fresh and under SPN_HBM_BUDGET_GB (default 12); otherwise the dense
-    index is loaded and the block-bits rows (and for MS / doc tracking the
-    msrows, `.bbms.npz`) are built or loaded from their caches, or the
-    layered tables are built."""
+    chooses (`_uses_blockbits`; `occ` only when asked for). Block-bits PML
+    without doc tracking (with `auto` / `bits` and fast_start) starts from
+    the rows cache when it is fresh and under SPN_HBM_BUDGET_GB (default
+    12); otherwise the dense index is loaded and the block-bits rows (and
+    for MS / doc tracking the msrows, `.bbms.npz`) are built or loaded from
+    their caches, or the layered or occ-block tables are built."""
     fast = None
     if fast_start and engine in ("auto", "bits") and mode == "pml" \
             and not use_doc:
@@ -121,7 +121,17 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
             raise ValueError("-M needs an index built with -M (SA samples "
                              "and text)")
         n, r = dense.n, dense.r
-        if _uses_blockbits(dense, mode, use_doc, engine):
+        if engine == "occ":
+            if not occblock.eligible(dense):
+                raise ValueError("occ engine needs sigma <= 15 and n < 2^31 "
+                                 "(use engine=layered)")
+            # the JAX package builds every table the index has; the port
+            # only what the run reads (samples and text for -M, doc ids for
+            # -d): the outputs are the same
+            index, table = occblock.build_occblock(
+                dense, want_samples=mode == "ms", want_doc=use_doc,
+                want_text=mode == "ms")
+        elif _uses_blockbits(dense, mode, use_doc, engine):
             if not eligible_any(dense):
                 raise ValueError("block-bits engine needs sigma <= 8 and "
                                  "positions under 2^40 (use --engine "
@@ -138,10 +148,13 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
     index = index.to(device)
     nbytes = sum(b.numel() * b.element_size() for b in index.buffers())
     m = index.meta
-    layout = (f"layered, D={m.depth}, W={m.width}, wide={m.wide}"
-              if table is None else
-              f"block-bits, P={m.P}, pack={m.pack}, wide={m.wide}, "
-              f"msrows={index.msrows is not None}")
+    if table is None:
+        layout = f"layered, D={m.depth}, W={m.width}, wide={m.wide}"
+    elif isinstance(index, occblock.OccIndex):
+        layout = f"occ-block, P={m.P}, W={m.width}"
+    else:
+        layout = (f"block-bits, P={m.P}, pack={m.pack}, wide={m.wide}, "
+                  f"msrows={index.msrows is not None}")
     log("run", f"index resident on {device}: {nbytes / 1e6:.1f} MB "
                f"(n={n}, r={r}, {layout})")
     return ScanEngine(index, table, mode=mode, use_doc=use_doc)

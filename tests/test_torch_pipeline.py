@@ -241,7 +241,6 @@ def test_ms_doc_resume_continues_the_files(msdoc, run_id):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="occ"), "A11"),
     (dict(tp_devices=2, write_report=True, report_only=True), "A10"),
     (dict(process_count=2), "A9"),
 ])
