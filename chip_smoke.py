@@ -7,9 +7,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
   2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
      `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
-     `layered_scan`, K8 `layered_classify`, K9 `occ_scan` and K10
-     `occ_classify` from spumoni_tpu_torch/csrc for sm_90a, one nvcc per
-     source, in parallel;
+     `layered_scan`, K8 `layered_classify`, K9 `occ_scan`, K10
+     `occ_classify`, K11 `unpack2` and K12 `unpack4` from
+     spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in parallel;
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
@@ -27,7 +27,16 @@ Phases, each of which fails the script (exit != 0) on any fault:
      row layout 4d builds (PML only, with SA samples, with doc ids, with
      both); reads with bytes absent from the index and past its largest
      character (W, Y); DNA cases also vs the native engine;
-  4. the main path through the CLI at a real size: a synthetic stand-in for
+  3e. K11 `unpack2` and K12 `unpack4` (with and without its byte table) vs
+     plain versions on seeded packed rows (exceptions, a row of 8,192);
+     then a small -M -P index through the CLI: `run -P -c`, `run -M -c
+     --report-only` and `run -M -c` over reads that stage at 2 bits with
+     exceptions (N and IUPAC bytes), at 4 bits (more non-ACGT bytes than
+     the exception list holds: MS forward rows at 4 bits too) and a read
+     holding 0xFF (forward rows at 8 bits), every output file equal to a
+     --device cpu run's, and the MS lengths equal to the native engine's;
+  4. the main path through the CLI at a real size (reads staged at 2
+     bits and decoded by K11 in every run but -m's, which stage at 8): a synthetic stand-in for
      a 10-strain bacterial pangenome (10 x 4.6 Mbp at 1% divergence from one
      seeded base, reverse complements added: n ~ 92 M), 65,536 reads of
      1,024 bp (half mutated substrings at 8% error, half random);
@@ -59,10 +68,16 @@ Phases, each of which fails the script (exit != 0) on any fault:
      at the digested reads' bucket (L = 256);
   5d. K9 (pml, pml+doc, ms, ms+doc) and K10 vs plain at the same shape on
      4b's index with the occ-block engine, each mode on the rows its 4d run
-     builds.
+     builds;
+  5e. K11 and K12 vs plain at the main-path shape (B = 65,536, L = 1,024)
+     on phase 4's reads: K11 on their 2-bit rows as staged (no
+     exceptions) and with 1 in 128 bytes set to N, K12 on their 4-bit rows
+     without and with the alphabet's byte table, and `lut[codes]` beside
+     the table mode; then the host time to stage the batch at 8 bits and
+     at 2 bits with K11, in turns.
 
-Every CLI run of 4, 4b, 4c and 4d, and the gather-chase script of 5b, is
-a path of its own: the launch counts are set to 0 just before it and read
+Every CLI run of 3e, 4, 4b, 4c and 4d, and the gather-chase script of 5b,
+is a path of its own: the launch counts are set to 0 just before it and read
 just after, and it must launch each kernel PATH_KERNELS gives it and no
 other. The line before the last is the per-kernel JSON summary: each
 kernel's launches on its paths, its time and its plain version's, and its
@@ -164,8 +179,9 @@ def _small_index(seed, n, alphabet, repeat, build_kw, ms=False):
     """A seeded text, its block-bits index and the native engine over the
     same tables; ms=True adds SA samples, the text and two documents (the
     MS + doc index)."""
-    from spumoni_tpu_torch import _host
     from spumoni_tpu_torch.engine.blockbits import build_blockbits
+    from spumoni_tpu_torch.index import format as fmt
+    from spumoni_tpu_torch.native import NativeQueryEngine, build_raw_index
 
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(alphabet, np.uint8)
@@ -175,19 +191,19 @@ def _small_index(seed, n, alphabet, repeat, build_kw, ms=False):
                                np.tile(unit, 3)])
     else:
         text = rng.choice(alpha, size=n)
-    raw = _host.build_raw_index(text)
+    raw = build_raw_index(text)
     docs = {}
     if ms:
-        ds, de = _host.index_format.build_doc_arrays(
+        ds, de = fmt.build_doc_arrays(
             raw, [len(text) // 2, len(text) - len(text) // 2])
         docs = dict(start_doc=ds, end_doc=de, text=text)
-        dense = _host.index_format.build_dense_index(
+        dense = fmt.build_dense_index(
             raw, text=text, with_samples=True, doc_start=ds, doc_end=de)
     else:
-        dense = _host.index_format.build_dense_index(raw)
-    native = _host.NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
-                                     raw.thresholds, raw.samples_start,
-                                     raw.samples_last, **docs)
+        dense = fmt.build_dense_index(raw)
+    native = NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
+                               raw.thresholds, raw.samples_start,
+                               raw.samples_last, **docs)
     index, table = build_blockbits(dense, want_ms=ms, want_doc=ms,
                                    **build_kw)
     return text, index, table, native
@@ -502,6 +518,113 @@ def small_occ_phase(device, num_reads=300):
               f"({int(res[0].sum())} FOUND)")
 
 
+#: 3e's CLI runs on its small index: (path, flags, output files)
+STAGING_RUNS = (
+    ("S-P-c", ["-P", "-c"], (".pseudo_lengths", ".report")),
+    ("S-M-c-report-only", ["-M", "-c", "--report-only"], (".report",)),
+    ("S-M-c", ["-M", "-c"], (".pointers", ".lengths", ".report")),
+)
+
+
+def _staging_reads(path, text, seed=1300):
+    """Writes reads of three buckets as FASTA: L = 256 with 1 in 100 bytes
+    N or IUPAC (2 bits with exceptions), L = 512 with 1 in 8 (more than
+    the exception list holds: 4 bits), L = 128 of ACGT and one read
+    starting with 0xFF (its group's forward rows at 8 bits). The IUPAC
+    bytes sort before T, so no read holds a byte past the index's largest
+    character (ROADMAP section C). Returns the reads."""
+    rng = np.random.default_rng(seed)
+    iupac = np.frombuffer(b"NRKMS", np.uint8)
+
+    def sub(m, share=0.0):
+        st = int(rng.integers(0, len(text) - m))
+        a = text[st:st + m].copy()
+        hit = rng.random(m) < share
+        a[hit] = rng.choice(iupac, int(hit.sum()))
+        return a.tobytes()
+
+    reads = ([sub(int(m), 0.01) for m in rng.integers(129, 257, size=60)]
+             + [sub(int(m), 0.125) for m in rng.integers(257, 513, size=60)]
+             + [sub(int(m)) for m in rng.integers(64, 129, size=20)]
+             + [b"\xff" + sub(100)])
+    with open(path, "wb") as f:
+        f.write(b"".join(b">s%d\n%s\n" % (i, rd)
+                         for i, rd in enumerate(reads)))
+    return reads
+
+
+def staging_phase(device, n=30000, cpu_run=False):
+    """3e: K11 / K12 vs plain on seeded packed rows, then STAGING_RUNS on a
+    small -M -P index through the CLI, each run's files equal to a
+    --device cpu run's (skipped when the run is on the CPU already), and
+    the MS lengths equal to the native engine's."""
+    phase("3e. K11 / K12 vs plain versions, and 2- / 4- / 8-bit staging "
+          "through the CLI")
+    from spumoni_tpu_torch import cli
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.scan_engine import _alpha_table
+
+    table = _alpha_table((0, 1, 65, 67, 71, 78, 84, 255))
+    for seed, (B, L, k) in enumerate(((7, 128, 0), (33, 256, 40),
+                                      (5, 8192, 300), (1000, 1024, 5000))):
+        p2, p4, exc, lens = (torch.from_numpy(a).to(device) for a in
+                             kernels.seeded_packed(1400 + seed, B, L, k))
+        exc = exc if k else None
+        errs = []
+        for values in ((1, 2, 4, 7), (65, 67, 71, 84)):
+            got = kernels.unpack2(p2, values, exc, lens)
+            sync(device)
+            errs.append(_max_err(got, kernels.unpack2_reference(
+                p2, values, exc, lens)))
+        for tab in (None, table):
+            got = kernels.unpack4(p4, lens, tab)
+            sync(device)
+            errs.append(_max_err(got, kernels.unpack4_reference(p4, lens,
+                                                                tab)))
+        if any(errs):
+            raise AssertionError(f"B={B} L={L} k={k}: K11 / K12 != plain "
+                                 f"(max |err| {errs})")
+        print(f"B={B} L={L} exceptions={k}: K11 (2 tables) == plain, K12 "
+              f"(plain, byte table) == plain; max |err| 0")
+
+    work = os.path.join(WORK, "staging")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(1310)
+    text = rng.choice(ACGT, n)
+    ref = os.path.join(work, "small.fa")
+    with open(ref, "wb") as f:
+        f.write(b">small\n" + text.tobytes() + b"\n")
+    prefix = os.path.join(work, "stg")
+    cli.main(["build", "-r", ref, "-M", "-P", "-n", "-o", prefix])
+    reads_path = os.path.join(work, "reads.fa")
+    reads = _staging_reads(reads_path, text)
+    base = ["run", "-r", prefix, "-p", reads_path, "-n"]
+    stats = {}
+    for label, flags, exts in STAGING_RUNS:
+        stats[label] = _timed_cli_run(device, label, base + flags + (
+            ["--device", "cpu"] if cpu_run else []), cpu_run)
+        got = _file_hashes(reads_path, exts)
+        if not cpu_run:
+            cli.main(base + flags + ["--device", "cpu"])
+            want = _file_hashes(reads_path, exts)
+            bad = [ext for ext in exts if got[ext] != want[ext]]
+            if bad:
+                raise AssertionError(f"{label}: {bad} differ from the "
+                                     f"--device cpu run's")
+    vals = _read_values(reads_path + ".lengths")
+    want = _native_engine(prefix + ".fa.thrbv.ms").query_ms(reads)[1]
+    for i, w in enumerate(want):
+        if not np.array_equal(vals[f"s{i}"], w):
+            raise AssertionError(f"s{i}: MS lengths != native engine")
+    _print_runs(stats)
+    print(f"checks: {len(STAGING_RUNS)} runs' files == --device cpu runs' "
+          f"(staged at 2 bits with exceptions, at 4 bits, and with the 0xFF "
+          f"read's forward rows at 8 bits); {len(reads)} reads' MS lengths "
+          f"== native engine")
+    return stats
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path at a real size
 # ---------------------------------------------------------------------------
@@ -561,9 +684,9 @@ def _read_values(path, ids=None):
 
 def _sampled_reads(reads, n_reads, n_check):
     """n_check read ids drawn with seed 1, and their sequences."""
-    from spumoni_tpu_torch import _host
+    from spumoni_tpu_torch.io.fasta import read_fastx
 
-    seqs = {rec.name: rec.seq for rec in _host.fasta.read_fastx(reads)}
+    seqs = {rec.name: rec.seq for rec in read_fastx(reads)}
     ids = list(seqs)
     sample = np.random.default_rng(1).choice(
         n_reads, size=min(n_check, n_reads), replace=False)
@@ -581,14 +704,14 @@ def _native_engine(index_path):
     """The native CPU engine over a dense index, with its SA samples, doc
     arrays and text where the index has them (the JAX package's CPU
     engine set-up, run-major order restored)."""
-    from spumoni_tpu_torch import _host
+    from spumoni_tpu_torch import pipeline as pl
+    from spumoni_tpu_torch.native import NativeQueryEngine
 
-    pl = _host._pipeline
-    dense = _host.index_format.load_dense_index(index_path)
+    dense = pl.load_dense_index(index_path)
     zeros = np.zeros(dense.r, dtype=np.int64)
     ss = pl._unorder_samples(dense, "c_ssamp")
     es = pl._unorder_samples(dense, "c_esamp")
-    return _host.NativeQueryEngine(
+    return NativeQueryEngine(
         dense.n, dense.run_heads, dense.run_starts,
         pl._unorder(dense, "c_thr"), zeros if ss is None else ss,
         zeros if es is None else es, start_doc=pl._unorder(dense, "c_sdoc"),
@@ -638,24 +761,30 @@ class _KernelTimer:
 #: path -> the kernels it launches; a path must launch each of them, and no
 #: other (a CPU run launches none)
 PATH_KERNELS = {
-    "P-c": ("pml_scan",),
-    "P-c-report-only": ("pml_classify",),
-    "M-c-report-only": ("ms_scan", "ms_extend", "binmax_values"),
-    "M-c-d": ("ms_scan", "ms_extend"),
-    "P-d-c": ("ms_scan",),
-    "L-P-c-report-only": ("layered_classify",),
-    "L-P-c": ("layered_scan",),
-    "L-M-c-report-only": ("layered_scan", "ms_extend", "binmax_values"),
-    "L-M-c-d": ("layered_scan", "ms_extend"),
-    "L-P-d-c": ("layered_scan",),
-    "m-P-c-report-only": ("layered_classify",),
+    "P-c": ("pml_scan", "unpack2"),
+    "P-c-report-only": ("pml_classify", "unpack2"),
+    "M-c-report-only": ("ms_scan", "ms_extend", "binmax_values", "unpack2"),
+    "M-c-d": ("ms_scan", "ms_extend", "unpack2"),
+    "P-d-c": ("ms_scan", "unpack2"),
+    "L-P-c-report-only": ("layered_classify", "unpack2"),
+    "L-P-c": ("layered_scan", "unpack2"),
+    "L-M-c-report-only": ("layered_scan", "ms_extend", "binmax_values",
+                          "unpack2"),
+    "L-M-c-d": ("layered_scan", "ms_extend", "unpack2"),
+    "L-P-d-c": ("layered_scan", "unpack2"),
+    "m-P-c-report-only": ("layered_classify",),   # -m rows stage at 8 bits
     "m-P-c": ("layered_scan",),
-    "a-P-c-report-only": ("pml_classify",),
-    "O-P-c-report-only": ("occ_classify",),
-    "O-P-c": ("occ_scan",),
-    "O-M-c-report-only": ("occ_scan", "ms_extend", "binmax_values"),
-    "O-M-c-d": ("occ_scan", "ms_extend"),
-    "O-P-d-c": ("occ_scan",),
+    "a-P-c-report-only": ("pml_classify", "unpack2"),
+    "O-P-c-report-only": ("occ_classify", "unpack2"),
+    "O-P-c": ("occ_scan", "unpack2"),
+    "O-M-c-report-only": ("occ_scan", "ms_extend", "binmax_values",
+                          "unpack2"),
+    "O-M-c-d": ("occ_scan", "ms_extend", "unpack2"),
+    "O-P-d-c": ("occ_scan", "unpack2"),
+    "S-P-c": ("pml_scan", "unpack2", "unpack4"),
+    "S-M-c-report-only": ("ms_scan", "ms_extend", "binmax_values", "unpack2",
+                          "unpack4"),
+    "S-M-c": ("ms_scan", "ms_extend", "unpack2", "unpack4"),
     "exp_vmem_gather": ("gather_chase",),
 }
 
@@ -939,8 +1068,10 @@ def digested_main_path_phase(device, reads, n_reads, n_check=2048,
     reports."""
     phase(f"4c. digested main path: build -m -P and -a -P, {n_reads} "
           f"reads, through the CLI")
-    from spumoni_tpu_torch import _host, cli
+    from spumoni_tpu_torch import cli
     from spumoni_tpu_torch.engine.layered import depth_for
+    from spumoni_tpu_torch.index.format import load_dense_index
+    from spumoni_tpu_torch.io.minimizers import digest
 
     ref = os.path.join(WORK, "pangenome.fa")
     builds = {}
@@ -950,8 +1081,7 @@ def digested_main_path_phase(device, reads, n_reads, n_check=2048,
                   os.path.join(WORK, f"idx{flag}")])
         builds[flag] = time.time() - t0
     m_prefix = os.path.join(WORK, "idx-m")
-    dense = _host.index_format.load_dense_index(m_prefix
-                                                + ".bin.thrbv.spumoni")
+    dense = load_dense_index(m_prefix + ".bin.thrbv.spumoni")
     sigma = int((np.asarray(dense.cnt) > 0).sum())
     print(f"build -m -P: {builds['-m']:.1f} s (sigma={sigma}, "
           f"n={dense.n}, r={dense.r}, D={depth_for(dense.char_off)}); build -a -P: "
@@ -982,8 +1112,7 @@ def digested_main_path_phase(device, reads, n_reads, n_check=2048,
     vals = _read_values(m_reads + ".pseudo_lengths", set(chk))
     if len(vals) != n_reads:
         raise AssertionError(f"{len(vals)} value records, {n_reads} reads")
-    digested = [_host.minimizers.digest(s.upper(), True, False)
-                for s in chk_seqs]
+    digested = [digest(s.upper(), True, False) for s in chk_seqs]
     want = _native_engine(m_prefix + ".bin.thrbv.spumoni").query_pml(
         digested, threads=os.cpu_count() or 1)
     for rid, w in zip(chk, want):
@@ -1018,7 +1147,9 @@ SECTOR = 32      # bytes: the least one dependent row read fetches
 STEP_OPS = {"pml_scan": 20, "pml_classify": 24, "ms_scan": 30,
             "ms_extend": 10, "binmax_values": 3, "gather_chase": 4,
             "layered_scan": 40, "layered_classify": 44, "occ_scan": 40,
-            "occ_classify": 44}
+            "occ_classify": 44,
+            # per output byte: shift, mask, length test, select, merge
+            "unpack2": 5, "unpack4": 5}
 
 
 def _nbytes(*tensors) -> int:
@@ -1061,12 +1192,21 @@ def _time_ms(fn, reps):
 
 
 def _staged(engine, reads_path, n_reads):
-    """The phase-4 reads staged by `engine` as one group of n_reads."""
-    from spumoni_tpu_torch import _host
+    """The phase-4 reads staged by `engine` as one group of n_reads, its
+    rows decoded (_decoded)."""
+    from spumoni_tpu_torch.io.fastx_batch import iter_packed_batches
 
-    pk = next(_host.fastx_batch.iter_packed_batches(reads_path, 1 << 40,
-                                                    upper=True))
+    pk = next(iter_packed_batches(reads_path, 1 << 40, upper=True))
     (g,) = engine.stage(pk, max_lanes=n_reads)
+    return _decoded(engine, g)
+
+
+def _decoded(engine, g):
+    """A staged group with its rows decoded on the device by K11 / K12, as
+    the engine decodes them before a scan: 'rev_d', and 'fwd_d' for MS."""
+    g = dict(g, rev_d=engine._rev_d(g))
+    if "fwd_p" in g:
+        g["fwd_d"] = engine._fwd_d(g)
     return g
 
 
@@ -1125,7 +1265,8 @@ def _with_modes(name, timed):
     return dict(first, name=name,
                 max_abs_err=max(r["max_abs_err"] for r in timed.values()),
                 modes={label: {k: r[k] for k in ("ms", "plain_ms",
-                                                 "bound_ms", "max_abs_err")}
+                                                 "bound_ms", "library_ms",
+                                                 "max_abs_err")}
                        for label, r in timed.items()})
 
 
@@ -1208,8 +1349,10 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
     the MS + doc tables, K8 on the PML tables of 4c's report-only run), and
     K8 and K7-pml on the -m index at the digested reads' bucket."""
     phase(f"5c. K7 / K8 vs plain at the main-path shapes (B={n_reads})")
-    from spumoni_tpu_torch import _host, pipeline
+    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.io.fastx_batch import iter_packed_batches
+    from spumoni_tpu_torch.io.minimizers import digest_packed
 
     src = "spumoni_tpu_torch/csrc/layered.cu"
     k7 = "spumoni_tpu/engine/scan_engine.py:120"
@@ -1253,11 +1396,10 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
         work("layered_classify", engine.index, g))}
     del engine, g
     engine = pipeline.make_engine(m_prefix + ".bin.thrbv.spumoni", device)
-    pk = next(_host.fastx_batch.iter_packed_batches(m_reads, 1 << 40,
-                                                    upper=True))
-    pk = _host.minimizers.digest_packed(pk, True, False)
-    g = max(engine.stage(pk, max_lanes=n_reads),
-            key=lambda grp: len(grp["idxs"]))
+    pk = digest_packed(next(iter_packed_batches(m_reads, 1 << 40,
+                                                upper=True)), True, False)
+    g = _decoded(engine, max(engine.stage(pk, max_lanes=n_reads),
+                             key=lambda grp: len(grp["idxs"])))
     args = (engine.index, g["rev_d"], g["lens_d"])
     m = engine.index.meta
     print(f"-m batch: B={g['rev_d'].shape[0]} of {len(pk)} digested reads "
@@ -1340,6 +1482,108 @@ def occ_timing_phase(device, ms_prefix, ms_reads, n_reads):
     return [_with_modes("occ_scan", timed), k10]
 
 
+def staging_timing_phase(device, prefix, reads, n_reads):
+    """5e: K11 and K12 against their plain versions at B = n_reads, L =
+    1,024 on phase 4's reads: K11 on their 2-bit rows as the main path
+    stages them (no exceptions) and on the same reads with 1 in 128 bytes
+    set to N (their exceptions written over the cells); K12 on the same
+    reads packed at 4 bits in staged-alphabet ranks, through the
+    alphabet's byte table (the MS forward rows' decode) and plain, with
+    the time of `lut[codes]` (the one PyTorch call that computes the
+    table's decode, _decode_alpha) beside the table mode."""
+    phase(f"5e. K11 / K12 vs plain at the main-path shape (B={n_reads})")
+    from spumoni_tpu_torch import pipeline
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.scan_engine import _alpha_table
+    from spumoni_tpu_torch.io.fastx_batch import (PackedReads,
+                                                  iter_packed_batches)
+    from spumoni_tpu_torch.native import pack_rows_native
+
+    engine = pipeline.make_engine(prefix + ".fa.thrbv.spumoni", device)
+    pk = next(iter_packed_batches(reads, 1 << 40, upper=True))
+    buf = pk.buf.copy()
+    buf[np.random.default_rng(1500).random(len(buf)) < 1 / 128] = ord("N")
+    groups = {label: engine.stage(packed, max_lanes=n_reads)
+              for label, packed in (("as staged", pk), (
+                  "1/128 N", PackedReads(pk.ids, buf, pk.offs)))}
+    if any(len(gs) != 1 or gs[0]["bits"] != 2 for gs in groups.values()):
+        raise AssertionError("phase 4's reads did not stage as one group "
+                             "at 2 bits")
+    src = "spumoni_tpu_torch/csrc/staging.cu"
+    k11 = {}
+    for label, (g,) in groups.items():
+        B, L = len(g["idxs"]), g["L"]
+        nexc = 0 if g["exc_d"] is None else g["exc_d"].shape[0]
+        print(f"K11 {label}: B={B} L={L}, {nexc} exceptions")
+        k11[label] = _time_kernel(
+            f"unpack2 {label}", kernels.unpack2, kernels.unpack2_reference,
+            (g["rev_p"], g["ranks2"], g["exc_d"], g["lens_d"]), src,
+            "spumoni_tpu/engine/scan_engine.py:1189",
+            (_nbytes(g["rev_p"], g["exc_d"], g["lens_d"]),
+             B * L * STEP_OPS["unpack2"]))
+    g = groups["as staged"][0]
+    sel, lens = g["idxs"], g["lens_d"]
+    p4 = torch.from_numpy(pack_rows_native(
+        pk.buf, pk.offs[sel], pk.offs[sel + 1], len(sel), g["L"],
+        engine._stage_amap, False, 4)[0]).to(device)
+    table = _alpha_table(g["alpha"])
+    work4 = (_nbytes(p4, lens), p4.numel() * 2 * STEP_OPS["unpack4"])
+    k12 = {"byte table": _time_kernel(
+               "unpack4 byte table", kernels.unpack4,
+               kernels.unpack4_reference, (p4, lens, table), src,
+               "spumoni_tpu/engine/scan_engine.py:1178", work4),
+           "plain": _time_kernel(
+               "unpack4", kernels.unpack4, kernels.unpack4_reference,
+               (p4, lens), src, "spumoni_tpu/engine/scan_engine.py:1169",
+               work4)}
+    codes = kernels.unpack4(p4, lens).long()
+    lut = torch.tensor(table, dtype=torch.uint8, device=device)
+    _time_ms(lambda: lut[codes], 1)   # warm-up
+    lib_ms, out = _time_ms(lambda: lut[codes], 5)
+    if not torch.equal(out, kernels.unpack4(p4, lens, table)):
+        raise AssertionError("lut[codes] != unpack4 with the byte table")
+    k12["byte table"]["library_ms"] = lib_ms
+    print(f"lut[codes] (int64 codes, [{codes.shape[0]}, {codes.shape[1]}]):"
+          f" {lib_ms:.3f} ms/call")
+    _staging_ab(device, engine, pk, g)
+    return [_with_modes("unpack2", k11), _with_modes("unpack4", k12)]
+
+
+def _staging_ab(device, engine, pk, g):
+    """Host-clock ms to stage group g's reversed rows onto the device, in
+    turns: 8 bits (pack, upload: the port's staging before K11) and 2 bits
+    (pack, upload, K11), each ending in a synchronise; fails unless both
+    give the same rows."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.native import pack_rows_native
+
+    sel, L, lens = g["idxs"], g["L"], g["lens_d"]
+    starts, ends = pk.offs[sel], pk.offs[sel + 1]
+
+    def at8():
+        rows = pack_rows_native(pk.buf, starts, ends, len(sel), L,
+                                engine._stage_amap, True, 8)[0]
+        return torch.from_numpy(rows).to(device)
+
+    def at2():
+        _, rows, exc = engine._pack_rev(pk.buf, starts, ends, L)
+        return kernels.unpack2(
+            torch.from_numpy(rows).to(device), g["ranks2"],
+            None if exc is None else torch.from_numpy(exc).to(device), lens)
+
+    times, rows = {8: [], 2: []}, {}
+    for bits in (8, 2, 2, 8):
+        t0 = time.perf_counter()
+        rows[bits] = (at8 if bits == 8 else at2)()
+        sync(device)
+        times[bits].append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(rows[8], rows[2]):
+        raise AssertionError("2-bit staging + K11 != 8-bit staging")
+    print(f"staging the batch (host clock, pack + upload [+ K11], in turns "
+          f"8, 2, 2, 8): 8 bits {times[8][0]:.3f} / {times[8][1]:.3f} ms, "
+          f"2 bits {times[2][0]:.3f} / {times[2][1]:.3f} ms; equal rows")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--strains", type=int, default=10,
@@ -1359,6 +1603,8 @@ def main(argv=None) -> int:
     small_ms_phase(dev)
     small_layered_phase(dev)
     small_occ_phase(dev)
+    sync(dev)
+    stg_stats = staging_phase(dev)
     sync(dev)
     prefix, reads, stats = main_path_phase(dev, args.strains,
                                            n_reads=args.reads)
@@ -1384,11 +1630,14 @@ def main(argv=None) -> int:
     sync(dev)
     results += occ_timing_phase(dev, ms_prefix, ms_reads, args.reads)
     sync(dev)
+    results += staging_timing_phase(dev, prefix, reads, args.reads)
+    sync(dev)
     # each path's own counts; a kernel reports those of the paths it is on,
     # `launches` being its first path's
     paths = {label: st["launches"]
-             for label, st in {**stats, **ms_stats, **lay_stats,
-                               **dig_stats, **occ_stats}.items()}
+             for label, st in {**stg_stats, **stats, **ms_stats,
+                               **lay_stats, **dig_stats,
+                               **occ_stats}.items()}
     paths["exp_vmem_gather"] = chase_counts
     for r in results:
         own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]

@@ -1,17 +1,18 @@
 """spumoni_tpu_torch — the PyTorch/CUDA port of spumoni_tpu for NVIDIA Hopper.
 
-The port runs the PML classification path (`build -P -n`, `run -P [-c]`)
-on one GPU. Its device work is two hand-written CUDA kernels over the
-block-bits index layout (engine v4 of the JAX package):
+The port runs `build`, `import-ref` and `run` (PML and MS, classification,
+document tracking, `-m` / `-a` digestion, general text) on one GPU. Its
+device work is hand-written CUDA kernels (`engine/kernels.py`, sources in
+`csrc/`) over the block-bits, layered and occ-block index layouts, and the
+decode of the 2- and 4-bit packed read rows that staging uploads.
 
-  * `pml_scan` — one thread per read walks the backward PML recurrence and
-    writes the read's PML lengths in forward order;
-  * `pml_classify` — the same walk with the bin-max classification folded
-    into the per-thread carry; only per-read verdict summaries are written.
-
-Index construction, FASTA/FASTQ parsing, the null database and the report
-writers are the JAX package's host modules, loaded without JAX
-(`spumoni_tpu_torch._host`). Nothing in this package imports JAX.
+Index construction, FASTA/FASTQ parsing, minimizer digestion, the native
+C++ binding, the null database and the report writers are the port's own
+copies of the JAX package's host modules (`native`, `io/`, `index/`,
+`classify/`, the build half of `pipeline`), under the same names. The
+native library is compiled from the repository's `native/` source into
+this package's `_build/`. Nothing in this package imports JAX or the JAX
+package.
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,8 @@ import argparse
 import os
 import sys
 
-from . import _host
+from .pipeline import (BuildConfig, RunConfig, build, import_reference_build,
+                       run)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -132,7 +133,7 @@ def main(argv=None) -> int:
     if args.command == "build":
         if args.is_general_text:
             kwargs["use_minimizers"] = False
-        _host.build(_host.BuildConfig(**kwargs))
+        build(BuildConfig(**kwargs))
         return 0
     if args.command == "import-ref":
         if not args.ms_index and not args.pml_index:
@@ -141,11 +142,8 @@ def main(argv=None) -> int:
         for ext in (".fa", ".bin"):
             if out.endswith(ext):
                 out = out[:-len(ext)]
-        _host.import_reference_build(
-            _host.BuildConfig(output_prefix=out, **kwargs))
+        import_reference_build(BuildConfig(output_prefix=out, **kwargs))
         return 0
-    from .pipeline import RunConfig, run
-
     if args.is_general_text:
         kwargs["min_digest"] = False
     nproc = int(os.environ.get("SPUMONI_NUM_PROCESSES", "1"))

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import _host
+from ..utils import present_chars
 
 MAX_SIGMA = 15   # query-rank code of a character absent from the index
 MAX_SIGMA4 = 8   # pack=4: 8 cp slots
@@ -302,7 +302,7 @@ def _build_rows(idx, n: int, P: int, pack: int, wide: bool) -> np.ndarray:
         # last block, where no rank is taken.
         rmap[TERM_BYTE] = TERM_CODE
         term_pos = int(run_starts[np.nonzero(run_heads == TERM_BYTE)[0][0]])
-        if not set(_host.present_chars(run_heads).tolist()) <= (
+        if not set(present_chars(run_heads).tolist()) <= (
                 set(code_chars.tolist()) | {TERM_BYTE}):
             raise ValueError("BWT holds a character outside the code set")
         pad_code = 3 if len(code_chars) < 4 else term_code

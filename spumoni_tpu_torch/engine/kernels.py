@@ -19,11 +19,15 @@ plain PyTorch versions.
     query-rank codes, in forward order, one-step lag resolved.
   * `occ_classify` (K10): K9's PML scan with the bin-max classification
     folded in.
+  * `unpack2` (K11): the decode of 2-bit staged read rows through a
+    4-entry value table, with the exceptions written over their cells.
+  * `unpack4` (K12): the decode of 4-bit staged read rows, optionally
+    through a 16-entry byte table (rank -> raw byte).
 
 K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`,
-K6 in `csrc/gather_chase.cu`, K7/K8 in `csrc/layered.cu` and K9/K10 in
-`csrc/occblock.cu`, each behind a plain C interface (the bin-max carry of
-K2, K8 and K10 in `csrc/binmax.cuh`).
+K6 in `csrc/gather_chase.cu`, K7/K8 in `csrc/layered.cu`, K9/K10 in
+`csrc/occblock.cu` and K11/K12 in `csrc/staging.cu`, each behind a plain C
+interface (the bin-max carry of K2, K8 and K10 in `csrc/binmax.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -45,6 +49,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 from .blockbits import BlockBitsIndex, ms_probe, pml_probe
@@ -56,13 +61,14 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
             "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
-            "occblock.cu")
+            "occblock.cu", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
              "gather_chase": "gather_chase.cu",
              "layered": "layered.cu",
-             "occblock": "occblock.cu"}
+             "occblock": "occblock.cu",
+             "staging": "staging.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 _TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,6 +130,7 @@ def build() -> dict:
 
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U32, _U64 = ctypes.c_uint, ctypes.c_ulonglong
 #: library -> {entry point: argtypes}; every entry point returns an int
 _SIGNATURES = {
     "blockbits_pml": {
@@ -156,6 +163,9 @@ _SIGNATURES = {
         "spn_occ_classify": [_P, _I64, _I32, _I32, _I32, _I32, _P, _I32,
                              _P, _P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,
                              _P]},
+    "staging": {
+        "spn_unpack2": [_P, _P, _I64, _I64, _U32, _P, _I64, _P, _P],
+        "spn_unpack4": [_P, _P, _I64, _I64, _U64, _U64, _P, _P]},
 }
 
 
@@ -643,9 +653,103 @@ def occ_classify(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
 
 occ_classify.launches = 0
 
+
+def _check_packed(name: str, packed: torch.Tensor, lens: torch.Tensor) -> str:
+    """Device, dtype, shape and contiguity checks of K11 / K12; returns the
+    device kind."""
+    dev = packed.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise ValueError(f"{name}: packed must be a [B, W] uint8 tensor")
+    if lens.device != dev:
+        raise ValueError(f"lens is on {lens.device}, packed on {dev}")
+    if lens.dtype != torch.int64 or tuple(lens.shape) != (packed.shape[0],):
+        raise ValueError(f"{name}: lens must be a [B] int64 tensor")
+    if not (packed.is_contiguous() and lens.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return dev.type
+
+
+def _byte_table(name: str, values, size: int) -> tuple:
+    values = tuple(int(v) for v in values)
+    if len(values) != size or not all(0 <= v < 256 for v in values):
+        raise ValueError(f"{name}: the table must hold {size} byte values")
+    return values
+
+
+def _table_word(values) -> int:
+    """Byte i of the result is values[i]: the kernels' table arguments."""
+    return sum(v << (8 * i) for i, v in enumerate(values))
+
+
+def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor):
+    """K11. packed: [B, Q] uint8 of 2-bit codes, four per byte with the low
+    bits first (native.pack_rows_native with bits=2); values: the 4-entry
+    table code -> byte (the ranks of A, C, G, T, or their raw bytes); exc:
+    None or a [k, 3] int32 tensor of (row, col, byte) exceptions in any
+    order (triples outside [B, 4Q] are dropped); lens: [B] int64. Returns
+    the [B, 4Q] uint8 rows: values[code], the exceptions over their cells,
+    and 0 at every column >= lens[b]."""
+    kind = _check_packed("unpack2", packed, lens)
+    values = _byte_table("unpack2", values, 4)
+    if exc is not None:
+        if exc.device != packed.device:
+            raise ValueError(f"exc is on {exc.device}, packed on "
+                             f"{packed.device}")
+        if exc.dtype != torch.int32 or exc.dim() != 2 or exc.shape[1] != 3 \
+                or not exc.is_contiguous():
+            raise ValueError("unpack2: exc must be a contiguous [k, 3] int32 "
+                             "tensor")
+    if kind == "cpu":
+        return unpack2_reference(packed, values, exc, lens)
+    B, Q = packed.shape
+    out = torch.empty((B, 4 * Q), dtype=torch.uint8, device=packed.device)
+    if out.numel() == 0:
+        return out
+    k = 0 if exc is None else exc.shape[0]
+    rc = library("staging").spn_unpack2(
+        packed.data_ptr(), lens.data_ptr(), B, Q, _table_word(values),
+        exc.data_ptr() if k else 0, k, out.data_ptr(),
+        torch.cuda.current_stream(packed.device).cuda_stream)
+    _raise_on(rc, "unpack2")
+    unpack2.launches += 1
+    return out
+
+
+unpack2.launches = 0
+
+
+def unpack4(packed: torch.Tensor, lens: torch.Tensor, table=None):
+    """K12. packed: [B, H] uint8 of nibbles, the low nibble first
+    (native.pack_rows_native with bits=4); lens: [B] int64; table: None
+    (the nibbles themselves) or 16 bytes, nibble -> byte (an alphabet's
+    rank -> raw byte: _decode_alpha). Returns the [B, 2H] uint8 rows, 0 at
+    every column >= lens[b]."""
+    kind = _check_packed("unpack4", packed, lens)
+    if table is not None:
+        table = _byte_table("unpack4", table, 16)
+    if kind == "cpu":
+        return unpack4_reference(packed, lens, table)
+    B, H = packed.shape
+    out = torch.empty((B, 2 * H), dtype=torch.uint8, device=packed.device)
+    if out.numel() == 0:
+        return out
+    table = tuple(range(16)) if table is None else table
+    rc = library("staging").spn_unpack4(
+        packed.data_ptr(), lens.data_ptr(), B, H, _table_word(table[:8]),
+        _table_word(table[8:]), out.data_ptr(),
+        torch.cuda.current_stream(packed.device).cuda_stream)
+    _raise_on(rc, "unpack4")
+    unpack4.launches += 1
+    return out
+
+
+unpack4.launches = 0
+
 _WRAPPERS = (pml_scan, pml_classify, ms_scan, ms_extend, binmax_values,
              gather_chase, layered_scan, layered_classify, occ_scan,
-             occ_classify)
+             occ_classify, unpack2, unpack4)
 
 
 def reset_launch_counts() -> None:
@@ -944,3 +1048,59 @@ def gather_chase_reference(table: torch.Tensor, idx0: torch.Tensor,
         a = torch.where(a > 2**31 - 1, a - 2**32, a)   # abs(INT_MIN) wraps
         idx = torch.fmod(a, rows)                      # lax.rem: truncated
     return idx.to(torch.int32)
+
+
+def _zero_past(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    cols = torch.arange(rows.shape[1], device=rows.device)
+    return rows.masked_fill(cols[None, :] >= lens[:, None], 0)
+
+
+def unpack2_reference(packed: torch.Tensor, values, exc,
+                      lens: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11 (_unpack2, with 0 past each row's
+    length): codes through the table, 0 past lens, then the exceptions."""
+    B, Q = packed.shape
+    dev = packed.device
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+    codes = ((packed[:, :, None] >> shifts) & 3).reshape(B, 4 * Q)
+    table = torch.tensor(values, dtype=torch.uint8, device=dev)
+    out = _zero_past(table[codes.long()], lens)
+    if exc is not None and exc.shape[0]:
+        e = exc.long()
+        ok = ((e[:, 0] >= 0) & (e[:, 0] < B) & (e[:, 1] >= 0)
+              & (e[:, 1] < 4 * Q))
+        out[e[ok, 0], e[ok, 1]] = e[ok, 2].to(torch.uint8)
+    return out
+
+
+def unpack4_reference(packed: torch.Tensor, lens: torch.Tensor,
+                      table=None) -> torch.Tensor:
+    """Plain PyTorch version of K12 (_unpack4, then _decode_alpha with a
+    table, with 0 past each row's length)."""
+    B, H = packed.shape
+    nib = torch.stack([packed & 15, packed >> 4], dim=2).reshape(B, 2 * H)
+    if table is not None:
+        nib = torch.tensor(table, dtype=torch.uint8,
+                           device=packed.device)[nib.long()]
+    return _zero_past(nib, lens)
+
+
+def seeded_packed(seed: int, B: int, L: int, k: int):
+    """Seeded [B, L/4] 2-bit and [B, L/2] 4-bit packed rows (uint8), k
+    exception triples [k, 3] int32 on distinct in-read cells in shuffled
+    order (the native packer's order varies too), and [B] int64 lengths,
+    the first row full: K11 / K12's checks in the tests and chip_smoke.py,
+    as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, L + 1, size=B).astype(np.int64)
+    lens[0] = L
+    packed2 = rng.integers(0, 256, size=(B, L // 4), dtype=np.uint8)
+    packed4 = rng.integers(0, 256, size=(B, L // 2), dtype=np.uint8)
+    cells = set()
+    while len(cells) < k:
+        r = int(rng.integers(B))
+        cells.add((r, int(rng.integers(lens[r]))))
+    exc = np.array([(r, c, int(rng.integers(0, 256)))
+                    for r, c in sorted(cells)], np.int32).reshape(-1, 3)
+    rng.shuffle(exc)
+    return packed2, packed4, exc, lens

@@ -240,22 +240,22 @@ def seeded_layered(seed: int, n: int, alphabet=b"ACGT", docs: bool = False,
     the same tables) for n seeded bytes of `alphabet` (bytes or uint8
     array); the text is -m digested with digest=True and split into two
     documents with docs=True."""
-    from .. import _host
+    from ..index import format as fmt
+    from ..io.minimizers import digest_promotion
+    from ..native import NativeQueryEngine, build_raw_index
 
     rng = np.random.default_rng(seed)
     text = rng.choice(np.frombuffer(bytes(alphabet), np.uint8), n)
     if digest:
-        text = np.frombuffer(_host.minimizers.digest_promotion(
-            text.tobytes()), np.uint8)
-    raw = _host.build_raw_index(text)
-    fmt = _host.index_format
+        text = np.frombuffer(digest_promotion(text.tobytes()), np.uint8)
+    raw = build_raw_index(text)
     ds = de = None
     if docs:
         ds, de = fmt.build_doc_arrays(raw, [len(text) // 2,
                                             len(text) - len(text) // 2])
     dense = fmt.build_dense_index(raw, text=text, with_samples=True,
                                   doc_start=ds, doc_end=de)
-    native = _host.NativeQueryEngine(
+    native = NativeQueryEngine(
         raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
         raw.samples_start, raw.samples_last, start_doc=ds, end_doc=de,
         text=text)

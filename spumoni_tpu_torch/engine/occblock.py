@@ -266,19 +266,19 @@ def seeded_occ(seed: int, n: int, alphabet=b"ACGT", docs: bool = False,
     the text is split into two documents with docs=True. The rows hold SA
     samples unless samples=False, and doc ids when doc_rows (default: docs),
     so one seed gives each row layout a run can ask for."""
-    from .. import _host
+    from ..index import format as fmt
+    from ..native import NativeQueryEngine, build_raw_index
 
     rng = np.random.default_rng(seed)
     text = rng.choice(np.frombuffer(bytes(alphabet), np.uint8), n)
-    raw = _host.build_raw_index(text)
-    fmt = _host.index_format
+    raw = build_raw_index(text)
     ds = de = None
     if docs:
         ds, de = fmt.build_doc_arrays(raw, [len(text) // 2,
                                             len(text) - len(text) // 2])
     dense = fmt.build_dense_index(raw, text=text, with_samples=True,
                                   doc_start=ds, doc_end=de)
-    native = _host.NativeQueryEngine(
+    native = NativeQueryEngine(
         raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
         raw.samples_start, raw.samples_last, start_doc=ds, end_doc=de,
         text=text)

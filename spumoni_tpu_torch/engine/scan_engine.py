@@ -11,31 +11,49 @@ tracking on K7, then K4 and K5; the occ-block engine the same on K9 / K10
 (the JAX package's v3 path, scan_engine.py:1861-1931).
 
 Reads are bucketed by padded length (a power of two from PAD_TO up to
-CHUNK, then multiples of CHUNK, as in the JAX package), packed REVERSED into
-[B, L] uint8 rows by the native packer (8 bits per base: the 2- and 4-bit
-transfer packings of the JAX package existed for the TPU host link), and
-uploaded; MS runs also upload the raw forward rows for the extension.
-Block-bits and occ-block rows are rank-mapped through the staged alphabet;
-layered rows are raw bytes, since K7 / K8 read `charmeta[byte]` directly,
-so the staged alphabet's 255-symbol limit does not bind them. Reads longer
-than CHUNK go through the same kernels in one launch: the carry is per
-lane, so no chunk state is kept (the occ-block scan resolves its one-step
-lag per lane too).
+CHUNK, then multiples of CHUNK, as in the JAX package) and packed REVERSED
+into rows by the native packer, at the bits the JAX package's staged path
+picks (scan_engine.py:1700-1763): 2 bits per base (A, C, G, T codes, every
+other byte a sparse (row, col, value) exception) when the exception list
+fits, else 4 bits (a staged alphabet of at most 16 symbols) or 8. The
+packed rows are uploaded, and K11 (`unpack2`) or K12 (`unpack4`) decodes
+them on the device into the [B, L] uint8 rows the scans read, 0 past each
+read, the same bytes the 8-bit rows hold. MS runs also upload the forward
+rows as raw bytes for the extension: at 2 bits with the identity values,
+or at 4 bits as ranks that K12 maps back to bytes through the group's
+alphabet. Block-bits and occ-block rows are rank-mapped through the staged
+alphabet; layered rows are raw bytes, since K7 / K8 read `charmeta[byte]`
+directly, so the staged alphabet's 255-symbol limit does not bind them;
+they go at 2 bits with the identity values or at 8. A raw row holding byte
+255 goes at 8 bits: the packer's identity map reports that byte as a miss
+and lists no exceptions for it (ROADMAP section C). Reads longer than CHUNK
+go through the same kernels in one launch: the carry is per lane, so no
+chunk state is kept (the occ-block scan resolves its one-step lag per lane
+too).
 """
-
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import _host
+from ..io.fastx_batch import PackedReads
+from ..native import pack_rows_native
+from ..utils import present_chars
 from . import kernels
 from .blockbits import BlockBitsIndex, CharTable, alphabet_seed
 from .layered import LayeredIndex
 from .occblock import OccIndex
 
-#: raw-byte staging of the forward rows (the MS extension compares bytes)
+#: raw-byte staging (layered rows, the MS extension's forward rows)
 _IDENT_AMAP = np.arange(256, dtype=np.uint8)
+#: the bytes of the 2-bit codes 0-3, and the packer's map to them (255: the
+#: byte is an exception)
+_ACGT = tuple(b"ACGT")
+_AMAP2_ACGT = np.full(256, 255, np.uint8)
+_AMAP2_ACGT[list(_ACGT)] = np.arange(4, dtype=np.uint8)
+#: the longest row staged at 2 bits: exception columns are int32 in the
+#: native packer
+_MAX_EXC_COL = 2**31 - 1
 
 
 class ScanEngine:
@@ -115,10 +133,11 @@ class ScanEngine:
 
     def stage(self, packed, max_lanes: int = 65536) -> list:
         """Host prep + device upload for one PackedReads batch: bucketing,
-        reversed packing (_pack_rev) and the copy to the device. Runs in
-        the prefetch thread while the device works on the previous batch.
-        Returns the staged groups that classify_staged / query_staged
-        consume."""
+        packing at 2, 4 or 8 bits (_pack_rev, _pack_raw) and the copy to
+        the device. Runs in the prefetch thread while the device works on
+        the previous batch. Returns the staged groups that classify_staged /
+        query_staged consume; each carries its bits, its 2-bit values
+        (`ranks2`) and its alphabet, which later batches may extend."""
         lens_all = np.asarray(packed.lens)
         if (lens_all == 0).any():
             i = int(np.flatnonzero(lens_all == 0)[0])
@@ -135,64 +154,113 @@ class ScanEngine:
             idxs = np.flatnonzero(Lb == L)
             for c0 in range(0, len(idxs), max_lanes):
                 sel = idxs[c0:c0 + max_lanes]
+                starts, ends = offs[sel], offs[sel + 1]
                 lens = lens_all[sel].astype(np.int64)
-                g = {"idxs": sel, "L": L, "lens": lens,
-                     "rev_d": torch.from_numpy(self._pack_rev(
-                         buf, offs[sel], offs[sel + 1], L)).to(self.device),
-                     "lens_d": torch.from_numpy(lens).to(self.device)}
+                if self.layered:
+                    bits, rows, exc = _pack_raw(buf, starts, ends, L, True, 2)
+                    ranks2, alpha = _ACGT, None
+                else:
+                    bits, rows, exc = self._pack_rev(buf, starts, ends, L)
+                    alpha = self._stage_alpha
+                    ranks2 = tuple(int(self._stage_amap[c]) for c in _ACGT)
+                g = {"idxs": sel, "L": L, "lens": lens, "bits": bits,
+                     "ranks2": ranks2, "alpha": alpha,
+                     "rev_p": self._put(rows), "exc_d": self._put(exc),
+                     "lens_d": self._put(lens)}
                 if not self.layered:
-                    g["tab"] = self._table(self._stage_alpha)
+                    g["tab"] = self._table(alpha)
                 if self.mode == "ms":
-                    # raw bytes: the identity LUT's 255 "miss" is moot
-                    fwd, _, _ = _host.pack_rows_native(
-                        buf, offs[sel], offs[sel + 1], len(sel), L,
-                        _IDENT_AMAP, False, 8)
-                    g["fwd_d"] = torch.from_numpy(fwd).to(self.device)
+                    if bits == 4:   # ranks, mapped back to bytes by K12
+                        fbits, fwd, fexc = 4, pack_rows_native(
+                            buf, starts, ends, len(sel), L, self._stage_amap,
+                            False, 4)[0], None
+                    else:
+                        fbits, fwd, fexc = _pack_raw(buf, starts, ends, L,
+                                                     False, bits)
+                    g.update(fwd_bits=fbits, fwd_p=self._put(fwd),
+                             fexc_d=self._put(fexc))
                 groups.append(g)
         return groups
 
-    def _pack_rev(self, buf, starts, ends, L: int) -> np.ndarray:
-        """[B, L] reversed rows: raw bytes for the layered engine,
-        staged-alphabet ranks (extended and repacked on a miss) for
-        block-bits."""
+    def _put(self, a):
+        """A host array on self.device; None (no exceptions) stays None."""
+        return None if a is None else torch.from_numpy(a).to(self.device)
+
+    def _pack_rev(self, buf, starts, ends, L: int):
+        """(bits, packed reversed rows, exceptions) in staged-alphabet ranks,
+        by the JAX package's rule (scan_engine.py:1702-1727): 2 bits first;
+        a byte outside the staged alphabet extends it and packs again; when
+        the exception list overflows (cap = max(1024, B * L / 64)), 4 bits
+        for an alphabet of at most 16 symbols, else 8. exceptions is a
+        [k, 3] int32 array at 2 bits when k > 0, else None."""
         B = len(starts)
-        if self.layered:   # the identity LUT's 255 "miss" is moot
-            return _host.pack_rows_native(buf, starts, ends, B, L,
-                                          _IDENT_AMAP, True, 8)[0]
-        rev, miss, _ = _host.pack_rows_native(buf, starts, ends, B, L,
-                                              self._stage_amap, True, 8)
-        if miss:   # a byte outside the alphabet: extend, repack
-            self._extend_alpha(_host.present_chars(buf))
-            rev, miss, _ = _host.pack_rows_native(buf, starts, ends, B, L,
-                                                  self._stage_amap, True, 8)
-        if miss:
-            raise RuntimeError("staged alphabet misses a read byte")
-        return rev
+        bits = 2 if L <= _MAX_EXC_COL else 4
+        extended = False
+        while True:
+            if bits == 4 and len(self._stage_alpha) > 16:
+                bits = 8
+            rows, miss, exc = pack_rows_native(buf, starts, ends, B, L,
+                                               self._stage_amap, True, bits,
+                                               _AMAP2_ACGT)
+            if miss:   # a byte outside the alphabet: extend, repack
+                if extended:
+                    raise RuntimeError("staged alphabet misses a read byte")
+                self._extend_alpha(present_chars(buf))
+                extended = True
+                continue
+            if bits == 2 and exc is None:   # the exception list overflowed
+                bits = 4
+                continue
+            return bits, rows, exc if exc is not None and len(exc) else None
 
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
 
-    def _scan(self, g, mode: str, use_doc: bool):
-        """(vals, docs) [B, L] on the device: K7 on the layered engine, K9
-        on the occ-block engine, K3 on block-bits (MS, or PML with doc
-        tracking)."""
-        if self.layered:
-            return kernels.layered_scan(self.index, g["rev_d"], g["lens_d"],
-                                        mode, use_doc)
-        if self.occ:
-            return kernels.occ_scan(self.index, g["tab"], g["rev_d"],
-                                    g["lens_d"], mode, use_doc)
-        return kernels.ms_scan(self.index, g["tab"], g["rev_d"], g["lens_d"],
-                               mode, use_doc)
+    def _rev_d(self, g) -> torch.Tensor:
+        """[B, L] uint8 reversed rows of a staged group on the device: K11
+        decodes 2-bit rows through the group's ranks2 and exceptions, K12
+        4-bit rows; 8-bit rows are used as uploaded."""
+        if g["bits"] == 2:
+            return kernels.unpack2(g["rev_p"], g["ranks2"], g["exc_d"],
+                                   g["lens_d"])
+        if g["bits"] == 4:
+            return kernels.unpack4(g["rev_p"], g["lens_d"])
+        return g["rev_p"]
 
-    def _ms_values(self, g, use_doc: bool):
+    def _fwd_d(self, g) -> torch.Tensor:
+        """[B, L] uint8 raw forward rows (the MS extension's input) on the
+        device: K11 with the identity values, K12 through the group's
+        alphabet (rank -> byte), or the 8-bit rows as uploaded."""
+        if g["fwd_bits"] == 2:
+            return kernels.unpack2(g["fwd_p"], _ACGT, g["fexc_d"],
+                                   g["lens_d"])
+        if g["fwd_bits"] == 4:
+            return kernels.unpack4(g["fwd_p"], g["lens_d"],
+                                   _alpha_table(g["alpha"]))
+        return g["fwd_p"]
+
+    def _scan(self, g, rev, mode: str, use_doc: bool):
+        """(vals, docs) [B, L] on the device for the group's decoded rows
+        `rev`: K7 on the layered engine, K9 on the occ-block engine, K3 on
+        block-bits (MS, or PML with doc tracking)."""
+        if self.layered:
+            return kernels.layered_scan(self.index, rev, g["lens_d"], mode,
+                                        use_doc)
+        if self.occ:
+            return kernels.occ_scan(self.index, g["tab"], rev, g["lens_d"],
+                                    mode, use_doc)
+        return kernels.ms_scan(self.index, g["tab"], rev, g["lens_d"], mode,
+                               use_doc)
+
+    def _ms_values(self, g, rev, use_doc: bool):
         """{'pointers', 'lengths'[, 'docs']} [B, L] on the device: the
-        pointer scan (K7, K9 or K3), then K4 on its pointers."""
-        ptrs, docs = self._scan(g, "ms", use_doc)
+        pointer scan (K7, K9 or K3), then K4 on its pointers and the
+        decoded forward rows."""
+        ptrs, docs = self._scan(g, rev, "ms", use_doc)
         mats = {"pointers": ptrs, "lengths": kernels.ms_extend(
-            self.index.text, self.index.text_bound, g["fwd_d"], g["lens_d"],
-            ptrs)}
+            self.index.text, self.index.text_bound, self._fwd_d(g),
+            g["lens_d"], ptrs)}
         if use_doc:
             mats["docs"] = docs
         return mats
@@ -210,21 +278,21 @@ class ScanEngine:
                "below": np.zeros(n, dtype=np.int64),
                "sum_maxes": np.zeros(n, dtype=np.int64)}
         for g in staged:
+            rev = self._rev_d(g)
             if self.mode == "pml" and self.layered:
-                res = kernels.layered_classify(self.index, g["rev_d"],
-                                               g["lens_d"], max_value_thr,
-                                               bin_width)
+                res = kernels.layered_classify(self.index, rev, g["lens_d"],
+                                               max_value_thr, bin_width)
             elif self.mode == "pml" and self.occ:
-                res = kernels.occ_classify(self.index, g["tab"], g["rev_d"],
+                res = kernels.occ_classify(self.index, g["tab"], rev,
                                            g["lens_d"], max_value_thr,
                                            bin_width)
             elif self.mode == "pml":
-                res = kernels.pml_classify(self.index, g["tab"], g["rev_d"],
+                res = kernels.pml_classify(self.index, g["tab"], rev,
                                            g["lens_d"], max_value_thr,
                                            bin_width)
             else:
                 res = kernels.binmax_values(
-                    self._ms_values(g, False)["lengths"], g["lens_d"],
+                    self._ms_values(g, rev, False)["lengths"], g["lens_d"],
                     max_value_thr, bin_width)
             for key, v in zip(("found", "above", "below", "sum_maxes"), res):
                 out[key][g["idxs"]] = v.cpu().numpy()
@@ -241,14 +309,15 @@ class ScanEngine:
             fields.append("docs")
         out = {f: [None] * n for f in fields}
         for g in staged:
+            rev = self._rev_d(g)
             if self.mode == "ms":
-                mats = self._ms_values(g, self.use_doc)
+                mats = self._ms_values(g, rev, self.use_doc)
             elif self.use_doc or self.layered or self.occ:
-                lengths, docs = self._scan(g, "pml", self.use_doc)
+                lengths, docs = self._scan(g, rev, "pml", self.use_doc)
                 mats = {"lengths": lengths, "docs": docs}
             else:
                 mats = {"lengths": kernels.pml_scan(
-                    self.index, g["tab"], g["rev_d"], g["lens_d"])}
+                    self.index, g["tab"], rev, g["lens_d"])}
             for f in fields:
                 vals = mats[f].cpu().numpy()
                 for j, i in enumerate(g["idxs"]):
@@ -281,9 +350,32 @@ class ScanEngine:
         return full
 
 
+def _pack_raw(buf, starts, ends, L: int, reverse: bool, bits: int):
+    """(bits, packed rows, exceptions) of raw-byte rows: with bits=2, 2 bits
+    with the identity values (A, C, G, T; every other byte an exception)
+    unless the exception list overflows or a read holds byte 255, which the
+    identity map reports as a miss with no exception (the JAX package then
+    decodes it as A, ROADMAP section C); else 8 bits."""
+    B = len(starts)
+    if bits == 2 and L <= _MAX_EXC_COL:
+        rows, miss, exc = pack_rows_native(buf, starts, ends, B, L,
+                                           _IDENT_AMAP, reverse, 2,
+                                           _AMAP2_ACGT)
+        if not miss and exc is not None:
+            return 2, rows, exc if len(exc) else None
+    return 8, pack_rows_native(buf, starts, ends, B, L, _IDENT_AMAP, reverse,
+                               8)[0], None
+
+
+def _alpha_table(alpha: tuple) -> tuple:
+    """K12's 16-entry table of a staged alphabet of at most 16 symbols:
+    rank -> raw byte, 0 past the alphabet (_decode_alpha)."""
+    return tuple(alpha) + (0,) * (16 - len(alpha))
+
+
 def _packed(reads):
     offs = np.zeros(len(reads) + 1, np.int64)
     np.cumsum([len(r) for r in reads], out=offs[1:])
     buf = np.frombuffer(b"".join(bytes(r) for r in reads), np.uint8)
-    return _host.fastx_batch.PackedReads(
+    return PackedReads(
         [f"read_{i}" for i in range(len(reads))], buf, offs)

@@ -1,7 +1,12 @@
-"""`run` for the port: streams a query file through the block-bits,
-layered or occ-block kernels and writes the reference's output files.
+"""`build`, `import-ref` and `run` for the port.
 
-Mirrors `spumoni_tpu/pipeline.py::run` on the staged fast path, for PML
+`build` and `import_reference_build` are copies of the JAX package's
+(spumoni_tpu/pipeline.py:52-427): the native builder, the document array,
+the null databases and the index files, byte-identical to the JAX
+package's. `run` streams a query file through the block-bits, layered or
+occ-block kernels and writes the reference's output files.
+
+`run` mirrors `spumoni_tpu/pipeline.py::run` on the staged fast path, for PML
 (-P) and MS (-M), with or without document tracking (-d), on undigested
 (-n) and minimizer-digested (-m, -a) indexes, and general text (-g): the
 engine choice (block-bits where it holds the index and the mode, else
@@ -14,13 +19,13 @@ its glibc rand() draws kept in global read order. Outputs
 are byte-identical to the JAX package's.
 
 What this slice does not cover raises NotImplementedError naming its
-ROADMAP item; nothing falls back silently. `build` and `import-ref` are the
-shared host pipeline's (spumoni_tpu_torch._host).
+ROADMAP item; nothing falls back silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import queue
 import threading
@@ -30,13 +35,20 @@ from collections import deque
 import numpy as np
 import torch
 
-from . import _host
+from .classify import binmax, kstest, report
+from .constants import (DEFAULT_BIN_SIZE, DEFAULT_MIN_K, DEFAULT_MIN_W,
+                        MAX_BIN_SIZE, MIN_BIN_SIZE)
 from .engine.blockbits import build_blockbits, eligible_any, load_cached
 from .engine.layered import build_layered
 from .engine import occblock
 from .engine.scan_engine import ScanEngine
-
-load_dense_index = _host.index_format.load_dense_index
+from .glibc_rand import GlibcRand
+from .index import refbuilder
+from .index.format import (DenseIndex, build_dense_index, build_doc_arrays,
+                           load_dense_index, save_dense_index)
+from .index.null_db import EmpNullDatabase
+from .io import fasta, fastx_batch, minimizers
+from .native import NativeQueryEngine, build_raw_index
 
 #: stats of the most recent run()'s streaming loop: reads, bases, stream_s
 LAST_RUN_STATS: dict = {}
@@ -46,11 +58,523 @@ def log(tag: str, msg: str) -> None:
     print(f"[{tag}] {msg}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass
-class RunConfig(_host.RunConfig):
-    """The JAX package's RunConfig with the port's devices: 'cuda' runs
-    the CUDA kernels on one GPU, 'cpu' their plain PyTorch versions."""
-    device: str = "cuda"
+class BuildConfig:
+    """Mirror of SpumoniBuildOptions (spumoni_main.hpp:134-231)."""
+    ref_file: str = ""
+    input_list: str = ""
+    output_prefix: str = ""
+    ms_index: bool = False
+    pml_index: bool = False
+    build_doc: bool = False
+    use_minimizers: bool = True
+    use_promotions: bool = False
+    use_dna_letters: bool = False
+    is_general_text: bool = False
+    use_rev_comp: bool = True
+    keep_files: bool = False
+    k: int = DEFAULT_MIN_K
+    w: int = DEFAULT_MIN_W
+    bin_size: int = DEFAULT_BIN_SIZE
+    verbose: bool = False
+    build_method: str = "auto"  # 'auto' | 'sais' | 'pfp' (native builder path)
+    emit_ref_formats: bool = False  # also write the reference binary's
+                                    # .bwt.heads/.bwt.len/.thr_pos/.ssa/.esa
+                                    # intermediates (index/interchange.py)
+
+    def validate(self) -> None:
+        if not self.ref_file and not self.input_list:
+            raise ValueError("a reference file (-r) or file list (-i) is required")
+        if self.ref_file and not os.path.isfile(self.ref_file):
+            raise FileNotFoundError(self.ref_file)
+        if self.input_list and not os.path.isfile(self.input_list):
+            raise FileNotFoundError(self.input_list)
+        if not self.output_prefix:
+            raise ValueError("an output prefix (-o) is required")
+        if not self.ms_index and not self.pml_index:
+            raise ValueError("at least one index type (-M or -P) is required")
+        # -d with a single reference file needs a pre-made .fa.fdi
+        # (spumoni_main.hpp:186-196); otherwise the doc-array build would
+        # only fail later with a missing-.fdi error.
+        if (self.build_doc and self.ref_file and not self.input_list
+                and not os.path.isfile(self.output_prefix + ".fa.fdi")):
+            raise ValueError(
+                "cannot build a document array (-d) when indexing a single "
+                "file unless a *.fa.fdi file is provided for it; use a file "
+                "list (-i) instead")
+        if self.use_minimizers and not self.is_general_text:
+            if self.use_promotions and self.use_dna_letters:
+                raise ValueError("only one minimizer type may be specified")
+            if not self.use_promotions and not self.use_dna_letters:
+                raise ValueError("a minimizer type (-m or -a) is required, "
+                                 "or disable digestion with -n")
+        else:
+            if self.use_promotions or self.use_dna_letters:
+                raise ValueError("minimizer type given but digestion disabled")
+        if self.k > 4:
+            raise ValueError("small window size (k) cannot exceed 4")
+        if self.w < self.k:
+            raise ValueError("large window (w) must be >= small window (k)")
+        if not MIN_BIN_SIZE <= self.bin_size <= MAX_BIN_SIZE:
+            raise ValueError(f"bin size must be in [{MIN_BIN_SIZE},{MAX_BIN_SIZE}]")
+
+
+def _ref_paths(cfg: BuildConfig):
+    parent = os.path.dirname(os.path.abspath(cfg.output_prefix))
+    name = os.path.basename(cfg.output_prefix)
+    ext = ".bin" if cfg.use_promotions else ".fa"
+    ref_path = os.path.join(parent, name + ext)
+    null_path = os.path.join(parent, "spumoni_null_reads.fa")
+    return ref_path, null_path
+
+
+def build(cfg: BuildConfig) -> str:
+    """Runs the full build; returns the built-reference path (the run-time
+    index prefix is that path)."""
+    cfg.validate()
+    t_start = time.time()
+    ref_path, null_path = _ref_paths(cfg)
+    rand = GlibcRand(0)  # process-wide rand() state (refbuilder.cpp:84)
+
+    # ---- reference preparation (L4) ----
+    if cfg.input_list:
+        log("build_main", f"input: list of files ({cfg.input_list})")
+        res = refbuilder.build_reference_from_filelist(
+            cfg.input_list, ref_path, null_path, cfg.build_doc,
+            cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w,
+            cfg.use_rev_comp, rand=rand)
+    elif not cfg.is_general_text:
+        log("build_main", f"input: single reference file ({cfg.ref_file})")
+        refbuilder.parse_null_reads(cfg.ref_file, null_path, rand=rand)
+        res = refbuilder.build_reference(cfg.ref_file, ref_path,
+                                         cfg.use_promotions,
+                                         cfg.use_dna_letters, cfg.k, cfg.w,
+                                         cfg.use_rev_comp)
+        res.null_read_path = null_path
+    else:
+        log("build_main", "general text reference used directly")
+        refbuilder.parse_null_reads_from_general_text(cfg.ref_file, null_path,
+                                                      rand=rand)
+        ref_path = cfg.ref_file
+        with open(cfg.ref_file, "rb") as f:
+            text = np.frombuffer(f.read(), dtype=np.uint8)
+        res = refbuilder.RefBuildResult(ref_path, text, null_path)
+        res.null_read_path = null_path
+
+    # ---- index construction (replaces PFP/pfp_thresholds subprocesses) ----
+    text = res.text
+    # SA-IS is in-memory: ~13 bytes/char peak with 32-bit indexes
+    # (n < 2^31), ~26 beyond. The PFP path (build_method='pfp', auto-selected
+    # for very large texts) needs only O(parse + dict) working memory.
+    from .native import PFP_AUTO_THRESHOLD
+    uses_sais = cfg.build_method == "sais" or (
+        cfg.build_method == "auto"
+        and not (len(text) > PFP_AUTO_THRESHOLD and len(text) > 0
+                 and int(text.min()) >= 3))
+    if uses_sais:
+        try:
+            avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+            need = (13 if len(text) < 2**31 - 2 else 26) * len(text)
+            if need > avail:
+                raise MemoryError(
+                    f"SA-IS construction needs ~{need / 1e9:.1f} GB "
+                    f"({len(text) / 1e6:.0f} Mbp reference) but only "
+                    f"{avail / 1e9:.1f} GB RAM is available; use "
+                    f"--build-method pfp (O(parse+dict) memory)")
+        except (ValueError, OSError):
+            pass
+    content_hash = hashlib.sha256(text.tobytes()).hexdigest()[:16]
+    raw = _build_raw_cached(ref_path, text, content_hash, cfg.build_method)
+    n, r = raw.n, raw.r
+    log("build_main", f"bwt statistics: r = {r}, n = {n}, n/r = {n / r:.3f}")
+
+    if cfg.emit_ref_formats:
+        from .index.interchange import export_reference_index
+        paths = export_reference_index(raw, ref_path)
+        log("build_main", "wrote reference-format intermediates: "
+            + ", ".join(os.path.basename(p) for p in paths))
+
+    # ---- document array (L2, doc_array.cpp) ----
+    doc_start = doc_end = None
+    if cfg.build_doc:
+        fdi = res.fdi_path or (ref_path + ".fdi")
+        seq_lengths = refbuilder.read_fdi(fdi)
+        doc_start, doc_end = build_doc_arrays(raw, seq_lengths)
+
+    # CPU engine used for null-DB generation (build-time self-query,
+    # spumoni.cpp:654); avoids needing a device at build time.
+    cpu_engine = NativeQueryEngine(
+        raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
+        raw.samples_start, raw.samples_last, start_doc=doc_start,
+        end_doc=doc_end, text=text)
+    threads = os.cpu_count() or 1
+
+    if cfg.ms_index:
+        log("build_ms", "building the MS index")
+        dense = build_dense_index(raw, text=text, with_samples=True,
+                                  doc_start=doc_start, doc_end=doc_end)
+        save_dense_index(dense, ref_path + ".thrbv.ms")
+        _write_stats(dense, cfg.output_prefix + ".ms_index_stats.txt")
+
+        log("build_main", "building the empirical null statistic database for MS")
+        qfn = lambda reads: cpu_engine.query_ms(reads, threads=threads)[1]
+        null_db = EmpNullDatabase.from_null_reads(
+            qfn, res.null_read_path, cfg.use_promotions, cfg.use_dna_letters,
+            cfg.k, cfg.w, cfg.is_general_text)
+        if not cfg.is_general_text:
+            null_db.ks_stat_threshold = kstest.find_ks_threshold(
+                qfn, res.null_read_path, null_db, cfg.bin_size,
+                cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w,
+                rand=rand)
+        else:
+            null_db.ks_stat_threshold = 0.10
+        null_db.save(ref_path + ".msnulldb")
+
+    if cfg.pml_index:
+        log("build_pml", "building the PML index")
+        dense = build_dense_index(raw, with_samples=False,
+                                  doc_start=doc_start, doc_end=doc_end)
+        save_dense_index(dense, ref_path + ".thrbv.spumoni")
+        _write_stats(dense, cfg.output_prefix + ".pml_index_stats.txt")
+
+        log("build_main", "building the empirical null statistic database for PML")
+        qfn = lambda reads: cpu_engine.query_pml(reads, threads=threads)
+        null_db = EmpNullDatabase.from_null_reads(
+            qfn, res.null_read_path, cfg.use_promotions, cfg.use_dna_letters,
+            cfg.k, cfg.w, cfg.is_general_text)
+        if not cfg.is_general_text:
+            null_db.ks_stat_threshold = kstest.find_ks_threshold(
+                qfn, res.null_read_path, null_db, cfg.bin_size,
+                cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w,
+                rand=rand)
+        else:
+            null_db.ks_stat_threshold = 0.10
+        null_db.save(ref_path + ".pmlnulldb")
+
+    if cfg.build_doc:
+        np.savez(ref_path + ".doc.npz", start_runs_doc=doc_start,
+                 end_runs_doc=doc_end)
+
+    if not cfg.keep_files:
+        _rm_temp_files(ref_path)
+    log("build_main", f"total elapsed time for build process (s): "
+                      f"{time.time() - t_start:.3f}")
+    return ref_path
+
+
+def _build_raw_cached(ref_path: str, text: np.ndarray, content_hash: str,
+                      method: str = "auto"):
+    """Quick-build analog: cache the raw index keyed by the text hash."""
+    from .native import RawIndex
+    cache = ref_path + ".rawindex.npz"
+    if os.path.exists(cache):
+        data = np.load(cache)
+        if str(data.get("content_hash")) == content_hash:
+            log("build_main", "quick build is activated (raw index cache hit)")
+            return RawIndex(int(data["n"]), data["run_heads"],
+                            data["run_starts"], data["thresholds"],
+                            data["samples_start"], data["samples_last"])
+    raw = build_raw_index(text, method=method)
+    np.savez(cache, content_hash=content_hash, n=raw.n,
+             run_heads=raw.run_heads, run_starts=raw.run_starts,
+             thresholds=raw.thresholds, samples_start=raw.samples_start,
+             samples_last=raw.samples_last)
+    return raw
+
+
+def import_reference_build(cfg: BuildConfig) -> str:
+    """Builds run-ready indexes from a reference binary's intermediate files
+    (<ref_file>.bwt.heads/.bwt.len/.thr_pos/.ssa/.esa) — i.e. resumes a
+    reference `spumoni build` at the point after pfp_thresholds ran
+    (spumoni.cpp:524-545). `cfg.ref_file` is the built-reference path the
+    intermediates are named after (usually `<prefix>.fa`); indexes are
+    written next to it so `run -r <prefix>` works unchanged.
+
+    The empirical null databases are rebuilt from `spumoni_null_reads.fa`
+    in the same directory when present (the reference keeps it for its own
+    quick-build, spumoni.cpp:570-601); without it, value-output runs work
+    but classification (-c) has no threshold source."""
+    from .index.interchange import import_reference_index
+
+    ref_path = cfg.ref_file
+    raw = import_reference_index(ref_path,
+                                 with_samples=cfg.ms_index)
+    n, r = raw.n, raw.r
+    log("import_ref", f"imported reference intermediates: r = {r}, n = {n}, "
+                      f"n/r = {n / r:.3f}")
+
+    text = None
+    if cfg.ms_index and os.path.isfile(ref_path):
+        with open(ref_path, "rb") as f:
+            t = np.frombuffer(f.read(), dtype=np.uint8)
+        if len(t) + 1 != n and len(t) and t[0] == ord(">"):
+            # the built reference is a FASTA (RefBuilder's .fa output,
+            # refbuilder.cpp:318): the indexed text is the concatenation of
+            # its record sequences
+            t = np.frombuffer(
+                b"".join(rec.seq for rec in fasta.read_fastx(ref_path)),
+                np.uint8)
+        if len(t) + 1 == n:
+            text = t
+        else:
+            log("import_ref", f"WARNING: {ref_path} is {len(t)} bytes but "
+                              f"the BWT implies a {n - 1}-byte text; MS runs "
+                              f"will emit pointers without lengths")
+
+    doc_start = doc_end = None
+    if cfg.build_doc:
+        # rebuild the document array from the imported SA samples + the
+        # .fdi sequence boundaries, exactly like the reference's -d build
+        # (doc_array.cpp:18-108 consumes .ssa/.esa + .fdi) — or, without an
+        # .fdi, read the reference's own serialized .doc directly
+        # (doc_array.cpp:184-201)
+        fdi = ref_path + ".fdi"
+        doc_file = ref_path + ".doc"
+        if os.path.isfile(fdi):
+            seq_lengths = refbuilder.read_fdi(fdi)
+            doc_start, doc_end = build_doc_arrays(raw, seq_lengths)
+        elif os.path.isfile(doc_file):
+            from .index.interchange import read_reference_doc
+            doc_start, doc_end = read_reference_doc(doc_file)
+            if len(doc_start) != r:
+                raise ValueError(f"{doc_file} holds {len(doc_start)} "
+                                 f"entries for {r} runs")
+            log("import_ref", f"document array read from {doc_file}")
+        else:
+            raise FileNotFoundError(f"-d import needs {fdi} or {doc_file}")
+        np.savez(ref_path + ".doc.npz", start_runs_doc=doc_start,
+                 end_runs_doc=doc_end)
+
+    null_path = os.path.join(os.path.dirname(os.path.abspath(ref_path)),
+                             "spumoni_null_reads.fa")
+    have_nulls = os.path.isfile(null_path)
+    engine = None
+    if have_nulls:
+        engine = NativeQueryEngine(
+            raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
+            raw.samples_start, raw.samples_last, text=text)
+    else:
+        # no null reads: fall back to the reference's own serialized null
+        # databases (emp_null_database.cpp:82-141) so a reference-built
+        # index classifies without spumoni_null_reads.fa
+        from .index.interchange import read_reference_nulldb
+        converted = []
+        for want_ms, ext in ((True, ".msnulldb"), (False, ".pmlnulldb")):
+            if want_ms and not cfg.ms_index:
+                continue
+            if not want_ms and not cfg.pml_index:
+                continue
+            src = ref_path + ext
+            if not os.path.isfile(src):
+                continue
+            d = read_reference_nulldb(src)
+            db = EmpNullDatabase(d["null_stats"])
+            # keep the reference's RECORDED scalars (its mean/percentile
+            # computation is definitionally ours, but trust the file)
+            db.ks_stat_threshold = d["ks_stat_threshold"]
+            db.mean_null_stat = d["mean_null_stat"]
+            db.percentile_value = d["percentile_value"]
+            db.save(src)
+            converted.append(ext)
+        if converted:
+            log("import_ref", "null databases read from the reference's "
+                              f"serialized {'/'.join(converted)}")
+        else:
+            log("import_ref", f"WARNING: {null_path} not found and no "
+                              f"reference .msnulldb/.pmlnulldb to read; "
+                              f"skipping the null databases "
+                              f"(classification runs need them)")
+
+    threads = os.cpu_count() or 1
+    rand = GlibcRand(0)
+    for want_ms in (True, False):
+        if want_ms and not cfg.ms_index:
+            continue
+        if not want_ms and not cfg.pml_index:
+            continue
+        kind = "ms" if want_ms else "spumoni"
+        dense = build_dense_index(raw, text=text if want_ms else None,
+                                  with_samples=want_ms,
+                                  doc_start=doc_start, doc_end=doc_end)
+        save_dense_index(dense, f"{ref_path}.thrbv.{kind}")
+        _write_stats(dense, cfg.output_prefix
+                     + (".ms" if want_ms else ".pml") + "_index_stats.txt")
+        if have_nulls:
+            if want_ms:
+                qfn = lambda reads: engine.query_ms(reads, threads=threads)[1]
+            else:
+                qfn = lambda reads: engine.query_pml(reads, threads=threads)
+            null_db = EmpNullDatabase.from_null_reads(
+                qfn, null_path, cfg.use_promotions, cfg.use_dna_letters,
+                cfg.k, cfg.w, cfg.is_general_text)
+            null_db.ks_stat_threshold = kstest.find_ks_threshold(
+                qfn, null_path, null_db, cfg.bin_size,
+                cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w,
+                rand=rand)
+            null_db.save(ref_path + (".msnulldb" if want_ms
+                                     else ".pmlnulldb"))
+    return ref_path
+
+
+def _rm_temp_files(ref_path: str) -> None:
+    """Counterpart of rm_temp_build_files (spumoni.cpp:502-522)."""
+    p = ref_path + ".rawindex.npz"
+    if os.path.exists(p):
+        os.remove(p)
+
+
+def _write_stats(dense: DenseIndex, path: str) -> None:
+    """*.ms_index_stats.txt / *.pml_index_stats.txt
+    (compute_ms_pml.cpp:204-209,532-538)."""
+    with open(path, "w") as f:
+        for key, val in dense.index_stats().items():
+            f.write(f"{key}: {val}\n")
+
+
+# ---------------------------------------------------------------------------
+# run
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RunConfig:
+    """Mirror of SpumoniRunOptions (spumoni_main.hpp:233-330), with the
+    port's devices."""
+    ref_file: str = ""        # index prefix (without .fa/.bin)
+    pattern_file: str = ""
+    ms_requested: bool = False
+    pml_requested: bool = False
+    use_doc: bool = False
+    write_report: bool = False
+    min_digest: bool = True
+    use_promotions: bool = False
+    use_dna_letters: bool = False
+    is_general_text: bool = False
+    k: int = DEFAULT_MIN_K
+    w: int = DEFAULT_MIN_W
+    bin_size: int = DEFAULT_BIN_SIZE
+    threads: int = 1
+    device: str = "cuda"      # 'cuda': the CUDA kernels on one GPU; 'cpu':
+                              # their plain PyTorch versions
+    batch_bases: int = 33_554_432  # bases per streamed batch
+    resume: bool = False      # resume from the durable read cursor
+    process_index: int = 0    # multi-process read sharding (ROADMAP A9)
+    process_count: int = 1
+    ks_report: bool = False   # classify via windowed KS test instead of
+                              # bin-max (the reference's build-time-live path,
+                              # ks_test.cpp + compute_ms_pml.cpp:942-967)
+    report_only: bool = False  # -c without value files: classification is
+                              # fused on device and only O(B) verdict
+                              # summaries leave it (extension flag; the
+                              # reference always writes values)
+    tp_devices: int = 0       # sharded index over this many devices
+                              # (ROADMAP A10)
+    engine: str = "auto"      # 'auto' | 'layered' | 'occ' | 'bits'
+
+    @property
+    def mode(self) -> str:
+        if self.ms_requested and not self.pml_requested:
+            return "ms"
+        if self.pml_requested and not self.ms_requested:
+            return "pml"
+        raise ValueError("exactly one of -M or -P must be specified")
+
+    def validate(self) -> None:
+        _ = self.mode
+        if not self.ref_file or not self.pattern_file:
+            raise ValueError("both a reference (-r) and pattern file (-p) "
+                             "are required")
+        if not os.path.isfile(self.pattern_file):
+            raise FileNotFoundError(self.pattern_file)
+        if self.min_digest and not self.is_general_text:
+            if self.use_promotions and self.use_dna_letters:
+                raise ValueError("only one minimizer type may be specified")
+            if not self.use_promotions and not self.use_dna_letters:
+                raise ValueError("a minimizer type (-m or -a) is required, "
+                                 "or disable digestion with -n")
+        # general-text restrictions (spumoni_main.hpp:305-310)
+        if self.is_general_text and self.min_digest:
+            raise ValueError("general-text querying requires -n (no digestion)")
+        if self.is_general_text and self.write_report:
+            raise ValueError("classification is not available for general text")
+        if not MIN_BIN_SIZE <= self.bin_size <= MAX_BIN_SIZE:
+            raise ValueError(f"bin size must be in [{MIN_BIN_SIZE},{MAX_BIN_SIZE}]")
+        if self.report_only:
+            if not self.write_report:
+                raise ValueError("--report-only requires -c")
+            if self.ks_report:
+                raise ValueError("--report-only is bin-max only (the KS "
+                                 "statistic needs the full value vectors)")
+            if self.use_doc:
+                # doc_numbers is a per-position VALUE file
+                # (compute_ms_pml.cpp:853-860) — emitting it would defeat
+                # --report-only's contract (only O(B) verdicts leave the
+                # device). Reject instead of silently dropping the output
+                # the user asked for.
+                raise ValueError("--report-only cannot produce .doc_numbers "
+                                 "(-d writes per-position value files); run "
+                                 "without --report-only for doc output")
+        if self.tp_devices > 1:
+            pml_ok = (self.report_only and self.mode == "pml"
+                      and not self.use_doc)
+            ms_ok = self.mode == "ms" and not self.report_only
+            if not (pml_ok or ms_ok):
+                raise ValueError("--tp-devices (sharded index) supports "
+                                 "-P -c --report-only without -d "
+                                 "(classify-only PML) or -M value runs")
+            if self.engine == "occ":
+                raise ValueError("--tp-devices supports the layered and "
+                                 "block-bits engines")
+
+
+def _unorder(dense: DenseIndex, field: str):
+    """Dense tables are char-grouped; the CPU engine ctor wants run-major
+    inputs. Rebuild run-major order via run_heads' stable argsort inverse."""
+    arr = getattr(dense, field)
+    if arr is None:
+        return None
+    order = np.argsort(np.asarray(dense.run_heads), kind="stable")
+    out = np.empty_like(np.asarray(arr))
+    out[order] = np.asarray(arr)
+    return out
+
+
+def _unorder_samples(dense: DenseIndex, field: str):
+    """Same as _unorder, but undo the (sa-1) mod n storage convention since
+    the CPU-engine ctor re-applies it."""
+    arr = _unorder(dense, field)
+    if arr is None:
+        return None
+    n = dense.n
+    return np.where(arr == n - 1, 0, arr + 1)
+
+
+def _prefetched(gen, depth: int = 2):
+    """Runs `gen` in a daemon thread, keeping up to `depth` items ready —
+    host FASTA decode + digestion overlap device compute (SURVEY.md §7.8;
+    the role of the reference's threaded BatchLoader)."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    SENTINEL = object()
+
+    def producer():
+        try:
+            for item in gen:
+                q.put(item)
+            q.put(SENTINEL)
+        except BaseException as e:  # surface errors on the consumer side
+            q.put(e)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is SENTINEL:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
 
 
 def _check_supported(cfg: RunConfig) -> None:
@@ -177,9 +701,9 @@ def run(cfg: RunConfig) -> int:
     if cfg.is_general_text:
         return _run_general_text(cfg, engine)
 
-    null_db = _host.null_db.EmpNullDatabase.load(
+    null_db = EmpNullDatabase.load(
         base + (".msnulldb" if ms else ".pmlnulldb"))
-    thr = _host.binmax.max_value_threshold(
+    thr = binmax.max_value_threshold(
         null_db.percentile_value, cfg.use_promotions, cfg.use_dna_letters,
         cfg.mode)
 
@@ -205,14 +729,13 @@ def run(cfg: RunConfig) -> int:
             skip = int(f.read().strip() or 0)
         log("run", f"resuming after {skip} completed reads")
 
-    rep = _host.report
+    rep = report
     ks_test = ks_pending = None
     if cfg.write_report and cfg.ks_report:
         # classification starts with srand(0) (compute_ms_pml.cpp:892);
         # reads skipped by --resume still consume their rand() draws, one
         # per KS window: the pending queue counts them per yielded read
-        ks_test = _host.kstest.KSTest(null_db, cfg.bin_size,
-                                      rand=_host.glibc_rand.GlibcRand(0))
+        ks_test = kstest.KSTest(null_db, cfg.bin_size, rand=GlibcRand(0))
         ks_thr = null_db.ks_stat_threshold
         ks_pending = deque()
 
@@ -259,7 +782,7 @@ def run(cfg: RunConfig) -> int:
                         sum(ks_list) / len(ks_list), above,
                         len(ks_list) - above))
                 elif cfg.write_report:
-                    res = _host.binmax.classify(lengths, cfg.bin_size, thr)
+                    res = binmax.classify(lengths, cfg.bin_size, thr)
                     files["report"].write(rep.report_line(
                         rid, res.status, res.avg_max, res.bins_above,
                         res.bins_below))
@@ -282,11 +805,11 @@ def run(cfg: RunConfig) -> int:
     def digested(pk):
         if not cfg.min_digest:
             return pk
-        return _host.minimizers.digest_packed(
+        return minimizers.digest_packed(
             pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
 
     def staged_batches():
-        fb = _host.fastx_batch
+        fb = fastx_batch
         seen = 0        # records seen (the cursor counts in these units)
         ks_carry = 0    # rand() draws owed for records not yielded
         max_lanes = 65536 if cfg.report_only else 8192
@@ -298,7 +821,7 @@ def run(cfg: RunConfig) -> int:
                 # one draw per KS window of the DIGESTED read
                 # (spumoni_tpu/pipeline.py:1040-1050)
                 pk = digested(pk)
-                nw = _host.kstest.n_windows_batch(pk.lens, cfg.bin_size)
+                nw = kstest.n_windows_batch(pk.lens, cfg.bin_size)
                 csum = np.zeros(npk + 1, dtype=np.int64)
                 np.cumsum(nw, out=csum[1:])
             if seen + npk <= skip:   # resume: skip whole batches
@@ -325,7 +848,7 @@ def run(cfg: RunConfig) -> int:
     wthread = threading.Thread(target=_writer, daemon=True)
     wthread.start()
     try:
-        for ids, staged, bases in _host._prefetched(staged_batches()):
+        for ids, staged, bases in _prefetched(staged_batches()):
             total_bases += bases
             if cfg.report_only:
                 out = engine.classify_staged(staged, cfg.bin_size, thr)
@@ -372,7 +895,7 @@ def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
         with open(cursor_path) as f:
             skip = int(f.read().strip() or 0)
         log("run", f"resuming after {skip} completed reads")
-    fa = _host.fasta
+    fa = fasta
     records = (item for i, item in enumerate(
         fa.iter_general_reads(cfg.pattern_file)) if i >= skip)
     num_reads = skip
@@ -380,12 +903,11 @@ def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
     total_bases = 0
     files = {k: open(v, "ab" if skip else "wb") for k, v in paths.items()}
     try:
-        for batch in _host._prefetched(fa.batch_iter(records,
-                                                     cfg.batch_bases)):
+        for batch in _prefetched(fa.batch_iter(records, cfg.batch_bases)):
             out = engine.query([rd for _, rd in batch])
             for i, (rid, rd) in enumerate(batch):
                 for k, f in files.items():   # lengths, then pointers
-                    _host.report.write_values_record(f, rid, out[k][i])
+                    report.write_values_record(f, rid, out[k][i])
                 num_reads += 1
                 total_bases += len(rd)
             for f in files.values():

@@ -15,7 +15,7 @@ from spumoni_tpu.index.format import build_dense_index
 from spumoni_tpu.native import NativeQueryEngine, build_raw_index
 from spumoni_tpu.parallel.mesh import fused_classify_kernel
 
-from spumoni_tpu_torch import _host
+from spumoni_tpu_torch.classify import binmax
 from spumoni_tpu_torch.engine import blockbits as tbb
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.scan_engine import ScanEngine
@@ -171,7 +171,7 @@ def test_engine_list_api_and_long_reads(dna):
     for i, want in enumerate(native.query_pml(reads)):
         assert np.array_equal(jout["lengths"][i], want), i
         assert np.array_equal(tout["lengths"][i], want), i
-        res = _host.binmax.classify(want, 150, 9)
+        res = binmax.classify(want, 150, 9)
         assert (tcls["above"][i], tcls["below"][i]) == (res.bins_above,
                                                         res.bins_below), i
     for key in ("found", "above", "below", "sum_maxes"):

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from spumoni_tpu_torch import _host
+from spumoni_tpu_torch.classify import binmax
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.blockbits import build_blockbits
+from spumoni_tpu_torch.index import format as fmt
+from spumoni_tpu_torch.native import NativeQueryEngine, build_raw_index
 
 # decided at setup time, not at import: the string is evaluated per test
 needs_cuda = pytest.mark.skipif(
@@ -31,11 +33,11 @@ def _index(seed, n, alphabet=ACGT, repeat=False, **kw):
                                np.tile(unit, 3)])
     else:
         text = rng.choice(alphabet, size=n)
-    raw = _host.build_raw_index(text)
-    dense = _host.index_format.build_dense_index(raw)
-    native = _host.NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
-                                     raw.thresholds, raw.samples_start,
-                                     raw.samples_last)
+    raw = build_raw_index(text)
+    dense = fmt.build_dense_index(raw)
+    native = NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
+                               raw.thresholds, raw.samples_start,
+                               raw.samples_last)
     index, table = build_blockbits(dense, **kw)
     return text, index, table, native
 
@@ -89,7 +91,7 @@ def test_cpu_tensors_take_the_plain_path():
     found, above, below, summ = kernels.pml_classify(index, tab, rev, lens,
                                                      7, 150)
     for i, want in enumerate(native.query_pml(reads)):
-        res = _host.binmax.classify(want, 150, 7)
+        res = binmax.classify(want, 150, 7)
         assert bool(found[i]) == (res.status == "FOUND"), i
         assert (int(above[i]), int(below[i]), int(summ[i])) == (
             res.bins_above, res.bins_below, int(res.bin_maxes.sum())), i

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from spumoni_tpu_torch import _host
+from spumoni_tpu_torch.classify import binmax
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.layered import raw_rows, seeded_layered
 
@@ -58,7 +58,7 @@ def test_cpu_tensors_take_the_plain_path():
     found, above, below, summ = kernels.layered_classify(index, rev, lens,
                                                          7, 150)
     for i, want in enumerate(native.query_pml(reads)):
-        res = _host.binmax.classify(want, 150, 7)
+        res = binmax.classify(want, 150, 7)
         assert bool(found[i]) == (res.status == "FOUND"), i
         assert (int(above[i]), int(below[i]), int(summ[i])) == (
             res.bins_above, res.bins_below, int(res.bin_maxes.sum())), i

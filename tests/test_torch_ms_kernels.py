@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from spumoni_tpu_torch import _host
+from spumoni_tpu_torch.classify import binmax
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.blockbits import build_blockbits
+from spumoni_tpu_torch.index import format as fmt
+from spumoni_tpu_torch.native import NativeQueryEngine, build_raw_index
 from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
 
 from test_torch_kernels import ACGT, _reads, needs_cuda
@@ -23,12 +25,11 @@ def _ms_index(seed, doc_lens, **kw):
     """A multi-document MS + doc index, its text and the native engine."""
     rng = np.random.default_rng(seed)
     text = np.concatenate([rng.choice(ACGT, m) for m in doc_lens])
-    raw = _host.build_raw_index(text)
-    fmt = _host.index_format
+    raw = build_raw_index(text)
     ds, de = fmt.build_doc_arrays(raw, doc_lens)
     dense = fmt.build_dense_index(raw, text=text, with_samples=True,
                                   doc_start=ds, doc_end=de)
-    native = _host.NativeQueryEngine(
+    native = NativeQueryEngine(
         raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
         raw.samples_start, raw.samples_last, start_doc=ds, end_doc=de,
         text=text)
@@ -80,7 +81,7 @@ def test_cpu_tensors_take_the_plain_paths():
         assert np.array_equal(ms_len[i, :m].numpy(), wlen[i]), i
         assert np.array_equal(plen[i, :m].numpy(), vlen[i]), i
         assert np.array_equal(pdocs[i, :m].numpy(), vdoc[i]), i
-        res = _host.binmax.classify(wlen[i], 150, 9)
+        res = binmax.classify(wlen[i], 150, 9)
         assert bool(found[i]) == (res.status == "FOUND"), i
         assert (int(above[i]), int(below[i]), int(summ[i])) == (
             res.bins_above, res.bins_below, int(res.bin_maxes.sum())), i
@@ -124,8 +125,8 @@ def test_wrappers_check_their_inputs(bad):
         if bad == "mode":
             kernels.ms_scan(index, tab, rev, lens, "pml", False)
         elif bad == "no_tables":
-            bare, btab = build_blockbits(_host.index_format.build_dense_index(
-                _host.build_raw_index(text)))
+            bare, btab = build_blockbits(fmt.build_dense_index(
+                build_raw_index(text)))
             kernels.ms_scan(bare, btab.table_for_alphabet((0, 65)), rev,
                             lens, "ms", False)
         elif bad == "ptr_dtype":

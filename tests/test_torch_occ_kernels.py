@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from spumoni_tpu_torch import _host
+from spumoni_tpu_torch.classify import binmax
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.blockbits import ranked_rows
 from spumoni_tpu_torch.engine.occblock import seeded_occ
@@ -46,7 +46,7 @@ def test_cpu_tensors_take_the_plain_path():
     found, above, below, summ = kernels.occ_classify(index, tab, rev, lens,
                                                      7, 150)
     for i, want in enumerate(wpml):
-        res = _host.binmax.classify(want, 150, 7)
+        res = binmax.classify(want, 150, 7)
         assert bool(found[i]) == (res.status == "FOUND"), i
         assert (int(above[i]), int(below[i]), int(summ[i])) == (
             res.bins_above, res.bins_below, int(res.bin_maxes.sum())), i

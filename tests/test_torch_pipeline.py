@@ -6,7 +6,9 @@ layered engine's runs, digested indexes and general text are in
 tests/test_torch_layered_pipeline.py.
 """
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -275,3 +277,72 @@ def test_cli_runs_without_jax(tmp_path, rng):
                                                          "spumoni_tpu")}
         assert not leaked, leaked
     assert os.path.getsize(reads_path + ".report") > 0
+
+
+_LOAD_CHECK = """
+import ast, os, sys
+repo = sys.argv[1]
+sys.path.insert(0, repo)
+from spumoni_tpu_torch import cli
+cli.main(sys.argv[2].split())
+cli.main(sys.argv[3].split())
+with open(os.path.join(repo, "chip_smoke.py")) as f:
+    tree = ast.parse(f.read())
+for node in ast.walk(tree):   # every import chip_smoke.py makes, nested too
+    if isinstance(node, ast.Import) or isinstance(node, ast.ImportFrom) \\
+            and not node.level:
+        exec(ast.unparse(node))
+import chip_smoke
+jax_pkg = os.path.join(repo, "spumoni_tpu") + os.sep
+print("LOADED", sorted(
+    name for name, mod in list(sys.modules.items())
+    if name.startswith(("jax", "_spumoni_tpu_host"))
+    or name.split(".")[0] == "spumoni_tpu"
+    or os.path.realpath(getattr(mod, "__file__", None) or "").startswith(
+        jax_pkg)))
+"""
+
+
+def test_port_loads_nothing_from_the_jax_package(tmp_path, rng):
+    """One process runs the port's CLI `build` and `run --device cpu`, then
+    every import of chip_smoke.py: afterwards no module is named jax*,
+    spumoni_tpu or _spumoni_tpu_host*, and no module was loaded from a file
+    under spumoni_tpu/, whatever its name."""
+    genome_path = str(tmp_path / "g.fa")
+    seqs = _write_genome(genome_path, rng, contigs=(("chr1", 6000),))
+    reads_path = str(tmp_path / "r.fa")
+    _write_reads(reads_path, rng, seqs["chr1"], n_pos=2, n_neg=2, m=200)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    env.pop("JAX_PLATFORMS", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _LOAD_CHECK, REPO,
+         f"build -r {genome_path} -P -n -o {tmp_path / 'i'}",
+         f"run -r {tmp_path / 'i'} -p {reads_path} -P -n -c --device cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.splitlines()[-1] == "LOADED []"
+    assert os.path.getsize(reads_path + ".report") > 0
+
+
+#: an import of the JAX package or of the old loader, as a statement
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"_spumoni_tpu_host|^\s*import spumoni_tpu\b|^\s*from spumoni_tpu[.\s]",
+    re.M)
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No source of the port and no line of chip_smoke.py names the old
+    loader or imports spumoni_tpu (comments citing its files are fine)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        p for ext in ("py", "cu", "cuh") for p in glob.glob(
+            os.path.join(REPO, "spumoni_tpu_torch", "**", f"*.{ext}"),
+            recursive=True)]
+    assert len(paths) > 25
+    hits = {}
+    for path in paths:
+        with open(path) as f:
+            found = _JAX_PACKAGE_IMPORT.findall(f.read())
+        if found:
+            hits[os.path.relpath(path, REPO)] = found
+    assert not hits
