@@ -8,8 +8,15 @@ Phases, each of which fails the script (exit != 0) on any fault:
   2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
      `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
      `layered_scan`, K8 `layered_classify`, K9 `occ_scan`, K10
-     `occ_classify`, K11 `unpack2` and K12 `unpack4` from
-     spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in parallel;
+     `occ_classify`, K11 `unpack2`, K12 `unpack4`, K13 `pml_classify_tp`,
+     K14 `layered_classify_tp`, K15 `ms_scan_tp` and K16 `ms_extend_tp`
+     from spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in
+     parallel;
+  2b. the inputs of phases 4-4e, and the CPU-bound index builds of 4, 4b
+     and 4c (`build -P -n`, `-i list -M -P -d -n`, `-P -m`, `-P -a`) in a
+     background process of this script (`--builds-only`), one after
+     another while phases 3-3f hold the card; phase 4 waits for them, and
+     the script ends the process if a phase fails first;
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
@@ -35,6 +42,13 @@ Phases, each of which fails the script (exit != 0) on any fault:
      the exception list holds: MS forward rows at 4 bits too) and a read
      holding 0xFF (forward rows at 8 bits), every output file equal to a
      --device cpu run's, and the MS lengths equal to the native engine's;
+  3f. the sharded index (1, 3 and 4 shards): K13 and K15 (ms, ms+doc,
+     pml+doc) and K16 vs plain versions and vs their unsharded twins K2,
+     K3 and K4 on small MS + doc block-bits indexes, K14 vs its plain
+     version and K8 on small layered indexes, with reads holding a byte
+     past every index character (ROADMAP section C); max |err| 0 (where n
+     is a multiple of P that read reaches a pad row and the twins may
+     differ, as the JAX sharded path differs from its replicated one);
   4. the main path through the CLI at a real size (reads staged at 2
      bits and decoded by K11 in every run but -m's, which stage at 8): a synthetic stand-in for
      a 10-strain bacterial pangenome (10 x 4.6 Mbp at 1% divergence from one
@@ -58,6 +72,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
   4d. the occ-block engine: 4b's runs and `-P -c [--report-only]` with
      `--engine occ` on 4b's index (n ~ 92 M, past the JAX package's 2^24
      bound), every output file byte-identical to the block-bits run's;
+  4e. the sharded index, `--tp-devices 4` (all shards on the one card):
+     `-P -n -c --report-only` on phase 4's index (K13), `--engine layered
+     -P -n -c --report-only` (K14) and `-M -n -c -d` (K15, K16) on 4b's,
+     every output file byte-identical to its unsharded twin run's;
   5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
      on the main-path index;
   5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the MS
@@ -74,9 +92,13 @@ Phases, each of which fails the script (exit != 0) on any fault:
      exceptions) and with 1 in 128 bytes set to N, K12 on their 4-bit rows
      without and with the alphabet's byte table, and `lut[codes]` beside
      the table mode; then the host time to stage the batch at 8 bits and
-     at 2 bits with K11, in turns.
+     at 2 bits with K11, in turns;
+  5f. K13, K14, K15 (ms+doc and ms) and K16 vs plain at the main-path
+     shape on 4 shards of the indexes 4e runs, each beside its unsharded
+     twin (K2, K8, K3, K4) and itself on one shard, timed on the same
+     inputs, outputs equal.
 
-Every CLI run of 3e, 4, 4b, 4c and 4d, and the gather-chase script of 5b,
+Every CLI run of 3e, 4, 4b, 4c, 4d and 4e, and the gather-chase script of 5b,
 is a path of its own: the launch counts are set to 0 just before it and read
 just after, and it must launch each kernel PATH_KERNELS gives it and no
 other. The line before the last is the per-kernel JSON summary: each
@@ -104,10 +126,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "chip_smoke_work")
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 BIN_WIDTH = 150
+_T0 = time.time()
 
 
 def phase(title: str) -> None:
-    print(f"\n=== {title}", flush=True)
+    print(f"\n=== {title} (t = {time.time() - _T0:.1f} s)", flush=True)
 
 
 def sync(device) -> None:
@@ -625,6 +648,109 @@ def staging_phase(device, n=30000, cpu_run=False):
     return stats
 
 
+#: 3f's block-bits cases: label, layout, text length (n = length + 1)
+TP_CASES = [
+    ("P512-pack2", dict(P=512, pack=2, wide=False), 20000),
+    ("P256-pack4-wide", dict(P=256, pack=4, wide=True), 20000),
+    ("n-multiple-of-P", dict(P=64, pack=2, wide=False), 4095),
+]
+#: shard counts of 3f: none, uneven padding, the main path's
+TP_SHARDS = (1, 3, 4)
+
+
+def _quirk(text):
+    """ROADMAP section C's read: W sorts after every index character."""
+    return text[100:160].tobytes() + b"W" + text[200:260].tobytes()
+
+
+def _tp_reads(seed, text, num, max_len):
+    """3f's reads, none longer than max_len: _small_reads' mutated and
+    random reads, then reads with N and bytes absent from the index, the
+    text's end and section C's read."""
+    return _small_reads(seed, text, num, max_len)[:num] + [
+        b"N" * 64, b"NXY" + text[:100].tobytes() + b"Q",
+        text[-100:].tobytes(), _quirk(text)]
+
+
+def small_tp_phase(device, num_reads=60, max_len=128):
+    """3f: on small MS + doc block-bits indexes cut into 1, 3 and 4 shards,
+    K13, K15 in its three modes and K16 against their plain versions and
+    their unsharded twins K2, K3 and K4; on small layered indexes K14
+    against its plain version and K8. The reads hold bytes past every index
+    character (ROADMAP section C). Where n is a multiple of P, such a read
+    reaches position n in a pad row, which the twins clamp to the last real
+    row: there only the plain versions must agree (the JAX sharded path
+    differs from its replicated one the same way)."""
+    phase("3f. K13-K16 vs plain versions and unsharded twins on small "
+          "sharded indexes")
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
+    from spumoni_tpu_torch.engine.layered import raw_rows, seeded_layered
+    from spumoni_tpu_torch.parallel import tp
+
+    for ci, (label, build_kw, n) in enumerate(TP_CASES):
+        text, index, table, _ = _small_index(1600 + ci, n, b"ACGT", False,
+                                             build_kw, ms=True)
+        reads = _tp_reads(1700 + ci, text, num_reads, max_len)
+        tab, rev, fwd, lens = ranked_rows(table, reads, max_len, device)
+        shards = {S: tp.shard_blockbits_ms(index, S).to(device)
+                  for S in TP_SHARDS}
+        index = index.to(device)
+        twin_ok = index.meta.n % index.meta.P != 0
+        plain_err = twin_err = 0
+        for S, sh in shards.items():
+            pairs = []
+            got = kernels.pml_classify_tp(sh, tab, rev, lens, 7, BIN_WIDTH)
+            pairs.append((got, kernels.pml_classify_tp_reference(
+                sh, tab, rev, lens, 7, BIN_WIDTH), kernels.pml_classify(
+                index, tab, rev, lens, 7, BIN_WIDTH)))
+            for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
+                got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
+                pairs.append((got, kernels.ms_scan_tp_reference(
+                    sh, tab, rev, lens, mode, doc), kernels.ms_scan(
+                    index, tab, rev, lens, mode, doc)))
+            ptrs = kernels.ms_scan_tp(sh, tab, rev, lens, "ms", False)[0]
+            got = kernels.ms_extend_tp(sh.text, sh.text_bound, fwd, lens,
+                                       ptrs)
+            pairs.append((got, kernels.ms_extend_tp_reference(
+                sh.text, sh.text_bound, fwd, lens, ptrs), kernels.ms_extend(
+                index.text, index.text_bound, fwd, lens, ptrs)))
+            sync(device)
+            plain_err = max([plain_err] + [_max_err(g, w)
+                                           for g, w, _ in pairs])
+            twin_err = max([twin_err] + [_max_err(g, t) for g, _, t in pairs])
+        if plain_err or (twin_ok and twin_err):
+            raise AssertionError(f"{label}: K13 / K15 / K16 != plain (max "
+                                 f"|err| {plain_err}) or twins ({twin_err})")
+        print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
+              f"wide={index.meta.wide} n={index.meta.n} S={TP_SHARDS} "
+              f"B={len(reads)}: K13, K15 (3 modes), K16 == plain, max |err| "
+              f"0; vs twins K2, K3, K4: max |err| {twin_err}"
+              + ("" if twin_ok else " (position n in a pad row)"))
+    for ci, docs in enumerate((False, True)):
+        text, index, _ = seeded_layered(1800 + ci, 20000, docs=docs)
+        reads = _tp_reads(1900 + ci, text, num_reads, max_len)
+        rev, _, lens = raw_rows(reads, max_len, device)
+        shards = {S: tp.shard_layered(index, S).to(device)
+                  for S in TP_SHARDS}
+        index = index.to(device)
+        errs = []
+        for S, sh in shards.items():
+            got = kernels.layered_classify_tp(sh, rev, lens, 7, BIN_WIDTH)
+            sync(device)
+            errs += [_max_err(got, kernels.layered_classify_tp_reference(
+                sh, rev, lens, 7, BIN_WIDTH)), _max_err(
+                got, kernels.layered_classify(index, rev, lens, 7,
+                                              BIN_WIDTH))]
+        if any(errs):
+            raise AssertionError(f"layered docs={docs}: K14 != plain or K8 "
+                                 f"(max |err| {errs})")
+        m = shards[3].meta
+        print(f"layered{'-docs' if docs else '':9s} D={m.depth} W={m.width} "
+              f"r={m.r} S={TP_SHARDS} (bound {m.probe_bound} at S=3) "
+              f"B={len(reads)}: K14 == plain == K8, max |err| 0")
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path at a real size
 # ---------------------------------------------------------------------------
@@ -785,6 +911,9 @@ PATH_KERNELS = {
     "S-M-c-report-only": ("ms_scan", "ms_extend", "binmax_values", "unpack2",
                           "unpack4"),
     "S-M-c": ("ms_scan", "ms_extend", "unpack2", "unpack4"),
+    "T-P-c-report-only": ("pml_classify_tp", "unpack2"),
+    "T-L-P-c-report-only": ("layered_classify_tp", "unpack2"),
+    "T-M-c-d": ("ms_scan_tp", "ms_extend_tp", "unpack2"),
     "exp_vmem_gather": ("gather_chase",),
 }
 
@@ -850,22 +979,90 @@ def _found_rates(report_path, check=True):
     return pos, neg
 
 
-def main_path_phase(device, strains, strain_len=4_600_000, n_reads=65536,
-                    read_len=1024, n_check=2048, cpu_run=False):
-    phase(f"4. main path: {strains} strains x {strain_len} bp, "
-          f"{n_reads} reads x {read_len} bp, through the CLI")
-    from spumoni_tpu_torch import cli
-
+def write_inputs(strains, strain_len=4_600_000, n_reads=65536,
+                 read_len=1024):
+    """Phase 4's inputs (make_inputs) in a fresh WORK: returns the paths of
+    the pangenome FASTA and of the reads."""
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     t0 = time.time()
     ref, reads = make_inputs(WORK, strains, strain_len, n_reads, read_len)
-    print(f"inputs written in {time.time() - t0:.1f} s")
-    prefix = os.path.join(WORK, "idx")
+    print(f"inputs written in {time.time() - t0:.1f} s: {strains} strains x "
+          f"{strain_len} bp, {n_reads} reads x {read_len} bp")
+    return ref, reads
+
+
+def _build_args():
+    """{build: CLI arguments} of the indexes of phases 4, 4b and 4c, on
+    write_inputs' files."""
+    ref = os.path.join(WORK, "pangenome.fa")
+    return {
+        "-P -n": ["build", "-r", ref, "-P", "-n", "-o",
+                  os.path.join(WORK, "idx")],
+        "-M -P -d": ["build", "-i", os.path.join(WORK, "strains.txt"), "-M",
+                     "-P", "-d", "-n", "-o", os.path.join(WORK, "msidx")],
+        "-m -P": ["build", "-r", ref, "-P", "-m", "-o",
+                  os.path.join(WORK, "idx-m")],
+        "-a -P": ["build", "-r", ref, "-P", "-a", "-o",
+                  os.path.join(WORK, "idx-a")],
+    }
+
+
+def run_builds():
+    """Builds phases 4-4c's indexes through the CLI, one after another;
+    returns {build: seconds} and writes it to WORK/builds.json."""
+    from spumoni_tpu_torch import cli
+
+    secs = {}
+    for key, args in _build_args().items():
+        t0 = time.time()
+        cli.main(args)
+        secs[key] = time.time() - t0
+    with open(os.path.join(WORK, "builds.json"), "w") as f:
+        json.dump(secs, f)
+    return secs
+
+
+def start_builds(strains, n_reads):
+    """write_inputs, then run_builds in a process of its own (this script
+    with --builds-only), so that the CPU-bound builds run while phases 3-3f
+    hold the card; its output goes to WORK/builds.log."""
+    phase("2b. inputs of phases 4-4e, and their index builds started in the "
+          "background")
+    write_inputs(strains, n_reads=n_reads)
+    with open(os.path.join(WORK, "builds.log"), "wb") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--builds-only"],
+            stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+
+
+def wait_builds(proc):
+    """Waits for start_builds' process and prints its log; fails unless
+    every build ended. Returns {build: seconds}."""
     t0 = time.time()
-    cli.main(["build", "-r", ref, "-P", "-n", "-o", prefix])
-    build_s = time.time() - t0
-    print(f"build: {build_s:.1f} s")
+    rc = proc.wait()
+    with open(os.path.join(WORK, "builds.log"), errors="replace") as f:
+        print(f.read(), end="")
+    if rc:
+        raise RuntimeError(f"the background index builds failed (rc {rc})")
+    with open(os.path.join(WORK, "builds.json")) as f:
+        secs = json.load(f)
+    print(f"builds (in the background): "
+          + ", ".join(f"build {k}: {v:.1f} s" for k, v in secs.items())
+          + f"; waited {time.time() - t0:.1f} s for them")
+    return secs
+
+
+def main_path_phase(device, builds, strains, strain_len=4_600_000,
+                    n_reads=65536, read_len=1024, n_check=2048,
+                    cpu_run=False):
+    """4: the runs on write_inputs' files and the `-P -n` index of
+    run_builds (builds: its seconds)."""
+    phase(f"4. main path: {strains} strains x {strain_len} bp, "
+          f"{n_reads} reads x {read_len} bp, through the CLI")
+    reads = os.path.join(WORK, "reads.fa")
+    prefix = os.path.join(WORK, "idx")
+    print(f"build: {builds['-P -n']:.1f} s")
 
     run_args = ["run", "-r", prefix, "-p", reads, "-P", "-n", "-c"]
     if cpu_run:
@@ -904,20 +1101,15 @@ def main_path_phase(device, strains, strain_len=4_600_000, n_reads=65536,
     return prefix, reads, stats
 
 
-def ms_main_path_phase(device, reads, n_reads, n_check=2048,
+def ms_main_path_phase(device, builds, reads, n_reads, n_check=2048,
                        cpu_run=False):
-    """4b: the strains of phase 4 as 10 documents, built with -M -P -d, and
-    the MS report-only, MS + doc value and PML + doc value runs over
-    phase 4's reads (a copy, so phase 4's outputs stay)."""
+    """4b: the strains of phase 4 as 10 documents, built with -M -P -d
+    (run_builds), and the MS report-only, MS + doc value and PML + doc
+    value runs over phase 4's reads (a copy, so phase 4's outputs stay)."""
     phase(f"4b. MS / doc main path: the strains as documents, {n_reads} "
           f"reads, through the CLI")
-    from spumoni_tpu_torch import cli
-
     prefix = os.path.join(WORK, "msidx")
-    t0 = time.time()
-    cli.main(["build", "-i", os.path.join(WORK, "strains.txt"), "-M", "-P",
-              "-d", "-n", "-o", prefix])
-    build_s = time.time() - t0
+    build_s = builds["-M -P -d"]
     print(f"build -M -P -d: {build_s:.1f} s")
     ms_reads = os.path.join(WORK, "reads_ms.fa")
     shutil.copy(reads, ms_reads)
@@ -928,7 +1120,7 @@ def ms_main_path_phase(device, reads, n_reads, n_check=2048,
     stats, vals = {}, {}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    hashes = {}    # run -> {output file: sha256}, held against 4c
+    hashes = {}    # run -> {output file: sha256}, held against 4c-4e
     for label, extra, exts in (
             ("M-c-report-only", ["-M", "-c", "--report-only"], ()),
             ("M-c-d", ["-M", "-c", "-d"],
@@ -1056,7 +1248,47 @@ def _twin_runs(device, engine, runs, ms_prefix, ms_reads, hashes, cpu_run):
     return stats
 
 
-def digested_main_path_phase(device, reads, n_reads, n_check=2048,
+#: 4e's sharded runs: (path, flags, output files, the twin run of 4 / 4b)
+TP_RUNS = (
+    ("T-P-c-report-only", ["-P", "-c", "--report-only"], (".report",),
+     "P-c-report-only"),
+    ("T-L-P-c-report-only", ["--engine", "layered", "-P", "-c",
+                             "--report-only"], (".report",), "P-d-c"),
+    ("T-M-c-d", ["-M", "-c", "-d"],
+     (".pointers", ".lengths", ".doc_numbers", ".report"), "M-c-d"),
+)
+
+
+def tp_main_path_phase(device, prefix, reads, ms_prefix, ms_reads, hashes,
+                       cpu_run=False):
+    """4e: TP_RUNS with `--tp-devices 4`, the first on phase 4's index and
+    reads, the others on 4b's (no new build); every output file must equal
+    its twin run's, the unsharded run of the same mode: K13, K14, and K15
+    -> K16 on the card, each shard on cuda:0."""
+    phase("4e. the sharded index (--tp-devices 4) on 4's and 4b's indexes, "
+          "through the CLI")
+    twins = dict(hashes, **{"P-c-report-only": _file_hashes(
+        reads + ".P-c-report-only", (".report",))})
+    dev = ["--device", "cpu"] if cpu_run else []
+    stats = {}
+    for label, flags, exts, twin in TP_RUNS:
+        idx, rd = (prefix, reads) if twin == "P-c-report-only" \
+            else (ms_prefix, ms_reads)
+        stats[label] = _timed_cli_run(
+            device, label, ["run", "-r", idx, "-p", rd, "-n", *flags,
+                            "--tp-devices", "4", *dev], cpu_run)
+        got = _file_hashes(rd, exts)
+        bad = [ext for ext in exts if got[ext] != twins[twin][ext]]
+        if bad:
+            raise AssertionError(f"{label}: {bad} differ from the unsharded "
+                                 f"run {twin}")
+    _print_runs(stats)
+    print(f"checks: every output file of the {len(TP_RUNS)} sharded runs is "
+          f"byte-identical to its unsharded twin run's")
+    return stats
+
+
+def digested_main_path_phase(device, builds, reads, n_reads, n_check=2048,
                              cpu_run=False):
     """4c, second half: the 10-strain FASTA built with -m -P (promoted
     minimizers: sigma > 8, the layered engine) and -a -P (DNA-letter
@@ -1068,24 +1300,16 @@ def digested_main_path_phase(device, reads, n_reads, n_check=2048,
     reports."""
     phase(f"4c. digested main path: build -m -P and -a -P, {n_reads} "
           f"reads, through the CLI")
-    from spumoni_tpu_torch import cli
     from spumoni_tpu_torch.engine.layered import depth_for
     from spumoni_tpu_torch.index.format import load_dense_index
     from spumoni_tpu_torch.io.minimizers import digest
 
-    ref = os.path.join(WORK, "pangenome.fa")
-    builds = {}
-    for flag in ("-m", "-a"):
-        t0 = time.time()
-        cli.main(["build", "-r", ref, "-P", flag, "-o",
-                  os.path.join(WORK, f"idx{flag}")])
-        builds[flag] = time.time() - t0
     m_prefix = os.path.join(WORK, "idx-m")
     dense = load_dense_index(m_prefix + ".bin.thrbv.spumoni")
     sigma = int((np.asarray(dense.cnt) > 0).sum())
-    print(f"build -m -P: {builds['-m']:.1f} s (sigma={sigma}, "
+    print(f"build -m -P: {builds['-m -P']:.1f} s (sigma={sigma}, "
           f"n={dense.n}, r={dense.r}, D={depth_for(dense.char_off)}); build -a -P: "
-          f"{builds['-a']:.1f} s")
+          f"{builds['-a -P']:.1f} s")
     m_reads = os.path.join(WORK, "reads_m.fa")
     shutil.copy(reads, m_reads)
     a_reads = os.path.join(WORK, "reads_a.fa")
@@ -1149,7 +1373,10 @@ STEP_OPS = {"pml_scan": 20, "pml_classify": 24, "ms_scan": 30,
             "layered_scan": 40, "layered_classify": 44, "occ_scan": 40,
             "occ_classify": 44,
             # per output byte: shift, mask, length test, select, merge
-            "unpack2": 5, "unpack4": 5}
+            "unpack2": 5, "unpack4": 5,
+            # the twins' steps and the shard divide
+            "pml_classify_tp": 26, "layered_classify_tp": 46,
+            "ms_scan_tp": 34, "ms_extend_tp": 12}
 
 
 def _nbytes(*tensors) -> int:
@@ -1191,14 +1418,33 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps, out
 
 
+_ENGINES: dict = {}
+_STAGED: dict = {}
+
+
+def _engine(path, device, *args, **kw):
+    """pipeline.make_engine(path, device, *args, **kw), built once: the
+    timing phases of an index share its engine (5f shards 5's, 5b's and
+    5c's on the card)."""
+    from spumoni_tpu_torch import pipeline
+
+    key = (path, str(device), args, tuple(sorted(kw.items())))
+    if key not in _ENGINES:
+        _ENGINES[key] = pipeline.make_engine(path, device, *args, **kw)
+    return _ENGINES[key]
+
+
 def _staged(engine, reads_path, n_reads):
     """The phase-4 reads staged by `engine` as one group of n_reads, its
-    rows decoded (_decoded)."""
+    rows decoded (_decoded); staged once per engine."""
     from spumoni_tpu_torch.io.fastx_batch import iter_packed_batches
 
-    pk = next(iter_packed_batches(reads_path, 1 << 40, upper=True))
-    (g,) = engine.stage(pk, max_lanes=n_reads)
-    return _decoded(engine, g)
+    key = (id(engine), reads_path, n_reads)
+    if key not in _STAGED:
+        pk = next(iter_packed_batches(reads_path, 1 << 40, upper=True))
+        (g,) = engine.stage(pk, max_lanes=n_reads)
+        _STAGED[key] = _decoded(engine, g)
+    return _STAGED[key]
 
 
 def _decoded(engine, g):
@@ -1212,10 +1458,9 @@ def _decoded(engine, g):
 
 def timing_phase(device, prefix, reads, n_reads):
     phase(f"5. kernel vs plain at the main-path shape (B={n_reads})")
-    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
 
-    engine = pipeline.make_engine(prefix + ".fa.thrbv.spumoni", device)
+    engine = _engine(prefix + ".fa.thrbv.spumoni", device)
     g = _staged(engine, reads, n_reads)
     args = (engine.index, g["tab"], g["rev_d"], g["lens_d"])
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
@@ -1234,15 +1479,18 @@ def timing_phase(device, prefix, reads, n_reads):
                      _scan_work("pml_classify", rows, *args[2:], args[1]))]
 
 
-def _time_kernel(name, kern, plain, args, source, replaces, work):
+def _time_kernel(name, kern, plain, args, source, replaces, work,
+                 plain_turns=2):
     """CUDA-event ms per call of a kernel wrapper and of its plain version,
-    in turns (plain, kernel warm-up + 5 timed calls, plain); fails unless
-    the outputs are equal (tolerance 0: integer outputs). work = (input
-    bytes, operations) for the bound, to which the outputs are added."""
+    in turns (plain, kernel warm-up + 5 timed calls, plain; with
+    plain_turns=1 the second plain call is left out); fails unless the
+    outputs are equal (tolerance 0: integer outputs). work = (input bytes,
+    operations) for the bound, to which the outputs are added."""
     plain_ms1, want = _time_ms(lambda: plain(*args), 1)
     kern(*args)
     ms, got = _time_ms(lambda: kern(*args), 5)
-    plain_ms2, _ = _time_ms(lambda: plain(*args), 1)
+    plain_ms2 = _time_ms(lambda: plain(*args), 1)[0] if plain_turns == 2 \
+        else plain_ms1
     err = _max_err(got, want)
     if err:
         raise AssertionError(f"{name}: kernel != plain (max |err| {err})")
@@ -1260,13 +1508,16 @@ def _time_kernel(name, kern, plain, args, source, replaces, work):
 def _with_modes(name, timed):
     """One kernel's line from its timings by mode ({label: result}): the
     first mode's numbers, the largest |err|, and every mode's ms, plain_ms,
-    bound_ms and max_abs_err under `modes`."""
+    bound_ms and max_abs_err (and a sharded kernel's twin, twin_ms and
+    one_shard_ms) under `modes`."""
     first = next(iter(timed.values()))
     return dict(first, name=name,
                 max_abs_err=max(r["max_abs_err"] for r in timed.values()),
                 modes={label: {k: r[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms",
-                                                 "max_abs_err")}
+                                                 "max_abs_err", "twin",
+                                                 "twin_ms", "one_shard_ms")
+                               if k in r}
                        for label, r in timed.items()})
 
 
@@ -1277,12 +1528,11 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     script's entry point at its own shape, run as the path
     'exp_vmem_gather'. Returns (results, that path's launch counts)."""
     phase(f"5b. K3-K6 vs plain at the main-path shape (B={n_reads})")
-    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
 
-    engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
-                                  use_doc=True)   # jump_d for the doc modes
+    engine = _engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
+                     use_doc=True)   # jump_d for the doc modes
     g = _staged(engine, reads, n_reads)
     index, lens = engine.index, g["lens_d"]
     print(f"batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, index "
@@ -1383,8 +1633,8 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
                                       ("ms+doc", "ms", True))}
     del engine, g, index, args
     # K8 on the tables 4c's L-P-c-report-only run gives it
-    engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.spumoni", device,
-                                  engine="layered")
+    engine = _engine(ms_prefix + ".fa.thrbv.spumoni", device,
+                     engine="layered")
     g = _staged(engine, ms_reads, n_reads)
     m = engine.index.meta
     print(f"PML batch: B={g['rev_d'].shape[0]} L={g['rev_d'].shape[1]}, "
@@ -1492,14 +1742,13 @@ def staging_timing_phase(device, prefix, reads, n_reads):
     the time of `lut[codes]` (the one PyTorch call that computes the
     table's decode, _decode_alpha) beside the table mode."""
     phase(f"5e. K11 / K12 vs plain at the main-path shape (B={n_reads})")
-    from spumoni_tpu_torch import pipeline
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.scan_engine import _alpha_table
     from spumoni_tpu_torch.io.fastx_batch import (PackedReads,
                                                   iter_packed_batches)
     from spumoni_tpu_torch.native import pack_rows_native
 
-    engine = pipeline.make_engine(prefix + ".fa.thrbv.spumoni", device)
+    engine = _engine(prefix + ".fa.thrbv.spumoni", device)
     pk = next(iter_packed_batches(reads, 1 << 40, upper=True))
     buf = pk.buf.copy()
     buf[np.random.default_rng(1500).random(len(buf)) < 1 / 128] = ord("N")
@@ -1584,13 +1833,141 @@ def _staging_ab(device, engine, pk, g):
           f"2 bits {times[2][0]:.3f} / {times[2][1]:.3f} ms; equal rows")
 
 
+def _time_twin(result, twin_name, twin, twin_args, got, one_shard):
+    """Times a sharded kernel's unsharded twin on the same reads, and the
+    sharded kernel on a one-shard cut of the same index (one_shard = (the
+    kernel, its arguments)), warm-up + 5 calls each; fails unless both
+    outputs equal the sharded kernel's `got`. Adds `twin`, `twin_ms` and
+    `one_shard_ms` to the sharded kernel's result."""
+    twin(*twin_args)
+    ms, out = _time_ms(lambda: twin(*twin_args), 5)
+    kern, args1 = one_shard
+    kern(*args1)
+    ms1, out1 = _time_ms(lambda: kern(*args1), 5)
+    err = max(_max_err(got, out), _max_err(got, out1))
+    if err:
+        raise AssertionError(f"{result['name']} != its twin {twin_name} or "
+                             f"its one-shard run (max |err| {err})")
+    result.update(twin=twin_name, twin_ms=ms, one_shard_ms=ms1)
+    print(f"  twin {twin_name}: {ms:.3f} ms/call; 1 shard: {ms1:.3f} "
+          f"ms/call; outputs equal; sharded / twin {result['ms'] / ms:.3f}, "
+          f"1 shard / twin {ms1 / ms:.3f}")
+
+
+def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
+                    S=4):
+    """5f: K13, K14, K15 (ms, the mode of -M -c, and ms+doc, the mode of
+    4e's -M -c -d run) and K16 against their plain versions (one plain
+    call each: seconds a call at this shape) at B = n_reads, L = 1,024 on
+    S shards of the indexes 4e runs, cut on the card from the engines and
+    staged reads of 5, 5b and 5c, each beside its unsharded twin and
+    itself on one shard, on the same inputs (_time_twin). The bound counts
+    the twin's bytes: the shards hold the same rows, plus pad."""
+    phase(f"5f. K13-K16 vs plain and vs their unsharded twins at the "
+          f"main-path shape (B={n_reads}, {S} shards)")
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.parallel import tp
+
+    results = []
+    engine = _engine(prefix + ".fa.thrbv.spumoni", device)
+    g = _staged(engine, reads, n_reads)
+    cut = {k: tp.shard_blockbits(engine.index, k) for k in (S, 1)}
+    args = (cut[S], g["tab"], g["rev_d"], g["lens_d"], 7, BIN_WIDTH)
+    r = _time_kernel("pml_classify_tp", kernels.pml_classify_tp,
+                     kernels.pml_classify_tp_reference, args,
+                     "spumoni_tpu_torch/csrc/blockbits_pml.cu",
+                     "spumoni_tpu/parallel/tp.py:144",
+                     _scan_work("pml_classify_tp", cut[S].bblocks.shards,
+                                g["rev_d"], g["lens_d"], g["tab"]),
+                     plain_turns=1)
+    _time_twin(r, "pml_classify", kernels.pml_classify,
+               (engine.index, *args[1:]), kernels.pml_classify_tp(*args),
+               (kernels.pml_classify_tp, (cut[1], *args[1:])))
+    results.append(r)
+    del engine, g, cut, args
+
+    engine = _engine(ms_prefix + ".fa.thrbv.spumoni", device,
+                     engine="layered")
+    g = _staged(engine, ms_reads, n_reads)
+    cut = {k: tp.shard_layered(engine.index, k) for k in (S, 1)}
+    m = cut[S].meta
+    print(f"layered: D={m.depth} W={m.width} r={m.r}, {S} shards of "
+          f"{cut[S].fields.rows_per_shard} field rows, bound "
+          f"{m.probe_bound}")
+    args = (cut[S], g["rev_d"], g["lens_d"], 7, BIN_WIDTH)
+    r = _time_kernel("layered_classify_tp", kernels.layered_classify_tp,
+                     kernels.layered_classify_tp_reference, args,
+                     "spumoni_tpu_torch/csrc/layered.cu",
+                     "spumoni_tpu/engine/layered.py:327",
+                     _scan_work("layered_classify_tp",
+                                (cut[S].charmeta, *cut[S].levels,
+                                 *cut[S].fields.shards),
+                                g["rev_d"], g["lens_d"],
+                                dependent=m.depth + 1),
+                     plain_turns=1)
+    _time_twin(r, "layered_classify", kernels.layered_classify,
+               (engine.index, *args[1:]), kernels.layered_classify_tp(*args),
+               (kernels.layered_classify_tp, (cut[1], *args[1:])))
+    results.append(r)
+    del engine, g, cut, args
+
+    engine = _engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
+                     use_doc=True)
+    g = _staged(engine, ms_reads, n_reads)
+    cut = {k: tp.shard_blockbits_ms(engine.index, k) for k in (S, 1)}
+    sh, lens = cut[S], g["lens_d"]
+    modes = {}
+    for label, doc in (("ms+doc", True), ("ms", False)):
+        args = (sh, g["tab"], g["rev_d"], lens, "ms", doc)
+        tables = [*sh.bblocks.shards, *sh.msrows.shards, *sh.jump_t.shards,
+                  *(sh.jump_d.shards if doc else ())]
+        r = _time_kernel(f"ms_scan_tp {label}", kernels.ms_scan_tp,
+                         kernels.ms_scan_tp_reference, args,
+                         "spumoni_tpu_torch/csrc/blockbits_ms.cu",
+                         "spumoni_tpu/parallel/tp.py:297",
+                         _scan_work("ms_scan_tp", tables, g["rev_d"], lens,
+                                    g["tab"], dependent=2),
+                         plain_turns=1)
+        got = kernels.ms_scan_tp(*args)
+        _time_twin(r, f"ms_scan {label}", kernels.ms_scan,
+                   (engine.index, *args[1:]), got,
+                   (kernels.ms_scan_tp, (cut[1], *args[1:])))
+        modes[label] = r
+    results.append(_with_modes("ms_scan_tp", modes))
+    ptrs = got[0]
+    steps = int(lens.sum())
+    args = (sh.text, sh.text_bound, g["fwd_d"], lens, ptrs)
+    r = _time_kernel("ms_extend_tp", kernels.ms_extend_tp,
+                     kernels.ms_extend_tp_reference, args,
+                     "spumoni_tpu_torch/csrc/blockbits_ms.cu",
+                     "spumoni_tpu/engine/scan_engine.py:724",
+                     (min(_nbytes(*sh.text.shards), steps * SECTOR) + steps
+                      + steps * ptrs.element_size() + _nbytes(lens),
+                      steps * STEP_OPS["ms_extend_tp"]),
+                     plain_turns=1)
+    _time_twin(r, "ms_extend", kernels.ms_extend,
+               (engine.index.text, engine.index.text_bound, *args[2:]),
+               kernels.ms_extend_tp(*args),
+               (kernels.ms_extend_tp, (cut[1].text, cut[1].text_bound,
+                                       *args[2:])))
+    results.append(r)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--strains", type=int, default=10,
                     help="pangenome strains of 4.6 Mbp (default 10)")
     ap.add_argument("--reads", type=int, default=65536,
                     help="reads of 1,024 bp (default 65,536)")
+    ap.add_argument("--builds-only", action="store_true",
+                    help="run_builds on the inputs in chip_smoke_work/ and "
+                         "exit (start_builds runs the script so)")
     args = ap.parse_args(argv)
+    if args.builds_only:
+        sys.path.insert(0, REPO)
+        run_builds()
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -1599,6 +1976,18 @@ def main(argv=None) -> int:
 
     dev, name, _ = device_phase()
     build_phase()
+    build_proc = start_builds(args.strains, args.reads)
+    try:
+        return _phases(args, dev, name, build_proc)
+    finally:
+        if build_proc.poll() is None:
+            build_proc.kill()
+            build_proc.wait()
+
+
+def _phases(args, dev, name, build_proc) -> int:
+    """Phases 3-5f, with the index builds of start_builds running until
+    phase 4 waits for them."""
     small_phase(dev)
     small_ms_phase(dev)
     small_layered_phase(dev)
@@ -1606,18 +1995,24 @@ def main(argv=None) -> int:
     sync(dev)
     stg_stats = staging_phase(dev)
     sync(dev)
-    prefix, reads, stats = main_path_phase(dev, args.strains,
+    small_tp_phase(dev)
+    sync(dev)
+    builds = wait_builds(build_proc)
+    prefix, reads, stats = main_path_phase(dev, builds, args.strains,
                                            n_reads=args.reads)
     sync(dev)
-    ms_prefix, ms_reads, ms_stats, hashes = ms_main_path_phase(dev, reads,
-                                                               args.reads)
+    ms_prefix, ms_reads, ms_stats, hashes = ms_main_path_phase(
+        dev, builds, reads, args.reads)
     sync(dev)
     lay_stats = layered_main_path_phase(dev, ms_prefix, ms_reads, hashes)
     sync(dev)
-    m_prefix, m_reads, dig_stats = digested_main_path_phase(dev, reads,
-                                                            args.reads)
+    m_prefix, m_reads, dig_stats = digested_main_path_phase(
+        dev, builds, reads, args.reads)
     sync(dev)
     occ_stats = occ_main_path_phase(dev, ms_prefix, ms_reads, hashes)
+    sync(dev)
+    tp_stats = tp_main_path_phase(dev, prefix, reads, ms_prefix, ms_reads,
+                                  hashes)
     sync(dev)
     results = timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
@@ -1632,17 +2027,21 @@ def main(argv=None) -> int:
     sync(dev)
     results += staging_timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
+    results += tp_timing_phase(dev, prefix, reads, ms_prefix, ms_reads,
+                               args.reads)
+    sync(dev)
     # each path's own counts; a kernel reports those of the paths it is on,
     # `launches` being its first path's
     paths = {label: st["launches"]
              for label, st in {**stg_stats, **stats, **ms_stats,
                                **lay_stats, **dig_stats,
-                               **occ_stats}.items()}
+                               **occ_stats, **tp_stats}.items()}
     paths["exp_vmem_gather"] = chase_counts
     for r in results:
         own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]
         r["launches"] = paths[own[0]][r["name"]]
         r["launches_by_path"] = {p: paths[p][r["name"]] for p in own}
+    print(f"chip_smoke: all phases passed in {time.time() - _T0:.1f} s")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -109,13 +109,16 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--engine", choices=["auto", "layered", "occ", "bits"],
                    default="auto",
                    help="index layout: auto (block-bits where it holds "
-                        "the index and the mode, else layered), bits or "
-                        "layered; occ is not in the port yet")
+                        "the index and the mode, else layered), bits, "
+                        "layered or occ (occ-block, sigma <= 15)")
     r.add_argument("--batch-bases", dest="batch_bases", type=int,
                    default=33_554_432, help="bases per streamed batch")
     r.add_argument("--tp-devices", dest="tp_devices", type=int, default=0,
-                   help="sharded index over this many devices (not in the "
-                        "port yet)")
+                   help="cut the index rows into S shards (2 to 16) for -P "
+                        "-c --report-only without -d, or -M value runs "
+                        "(block-bits or layered, not occ); all shards sit "
+                        "on the run's device (one GPU, or the CPU with "
+                        "--device cpu); 0 or 1: unsharded")
     r.add_argument("--ks-report", dest="ks_report", action="store_true",
                    help="classify via windowed KS test instead of bin-max")
     r.add_argument("--resume", dest="resume", action="store_true",

@@ -1,5 +1,6 @@
-// K1 `pml_scan` and K2 `pml_classify`: the PML recurrence over the
-// block-bits rows, one thread per read, on NVIDIA Hopper (sm_90a).
+// K1 `pml_scan`, K2 `pml_classify` and K13 `pml_classify_tp`: the PML
+// recurrence over the block-bits rows, one thread per read, on NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K1: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v4 (the v4
@@ -7,6 +8,10 @@
 //       per-lane output flip of _flip_rows: K1 writes forward order.
 //   K2: spumoni_tpu/parallel/mesh.py::fused_classify_kernel (the same scan
 //       with the windowed bin-max folded into the carry).
+//   K13: spumoni_tpu/parallel/tp.py::TpPmlClassifier._classify_fn, K2 over
+//       the sharded index: the rows in S shards (sharded.cuh), a block
+//       clamped to the padded row count as the JAX owner-masked read
+//       (engine/blockbits.py:707-725) clamps it; pad rows are zero.
 //
 // Bound: each step is one DEPENDENT random read of one index row (208 B at
 // P=256, 400 B at P=512 for pack=2) — the next position comes from this
@@ -17,7 +22,8 @@
 // touches only the row words it needs (checkpoint slot, char words up to
 // the offset, one up-bit word). The per-character table sits in shared
 // memory. Steps past a read's length are not run: their outputs are never
-// read (mesh.py:102-111, scan_engine.py:1966).
+// read (mesh.py:102-111, scan_engine.py:1966). K13 is K2's body with the
+// row read from its shard: one divide more per step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for a layout this
@@ -29,6 +35,7 @@
 
 #include "binmax.cuh"
 #include "blockbits_pml.cuh"
+#include "sharded.cuh"
 
 namespace {
 
@@ -93,8 +100,45 @@ pml_classify_kernel(const uint32_t* __restrict__ rows,
   bins.finish(found + b, above + b, below + b, sum_maxes + b);
 }
 
+// K13: K2 with the rows in shards; spn::pml_step reads the step's row
+// through the shard's base (ShardedRows::base).
+template <int P, int PACK, bool WIDE>
+__global__ void __launch_bounds__(kThreads)
+pml_classify_tp_kernel(const spn::ShardedRows<uint32_t> rows,
+                       const long long* __restrict__ tab_g, int sq,
+                       const uint8_t* __restrict__ reads,
+                       const long long* __restrict__ lens, long long B,
+                       long long L, long long thr, int bin_width,
+                       uint8_t* __restrict__ found,
+                       int32_t* __restrict__ above,
+                       int32_t* __restrict__ below,
+                       long long* __restrict__ sum_maxes,
+                       spn::IndexScalars s) {
+  constexpr int W = spn::Layout<P, PACK, WIDE>::W;
+  __shared__ spn::CharTab tab;
+  spn::load_char_tab(tab, tab_g, sq);
+  __syncthreads();
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  long long len64 = lens[b];
+  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
+  const uint8_t* rd = reads + b * L;
+  spn::BinMax bins(len, bin_width, thr);
+  long long pos = s.n - 1;
+  int length = 0;
+  for (int t = 0; t < len; ++t) {
+    bool match;
+    pos = spn::pml_step<P, PACK, WIDE>(rows.base(spn::block_of<P>(s, pos), W),
+                                       tab, s, pos, __ldg(rd + t), match);
+    length = match ? length + 1 : 0;
+    bins.add(t, length);
+  }
+  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+}
+
 struct Args {
   const uint32_t* rows;
+  spn::ShardedRows<uint32_t> shards;  // K13: the rows in S shards
   const long long* tab;
   int sq;
   const uint8_t* reads;
@@ -132,6 +176,14 @@ void launch_classify(const Args& a) {
       a.found, a.above, a.below, a.sum_maxes, a.s);
 }
 
+template <int P, int PACK, bool WIDE>
+void launch_classify_tp(const Args& a) {
+  pml_classify_tp_kernel<P, PACK, WIDE>
+      <<<grid_of(a), kThreads, 0, a.stream>>>(
+          a.shards, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.thr,
+          a.bin_width, a.found, a.above, a.below, a.sum_maxes, a.s);
+}
+
 // Runs FN<P, PACK, WIDE>(a) for the runtime layout; false when the layout
 // has no instantiation.
 #define SPN_CASE(FN, P_, PACK_, WIDE_)                                 \
@@ -153,6 +205,11 @@ bool dispatch_scan(const Args& a) {
 
 bool dispatch_classify(const Args& a) {
   SPN_DISPATCH(launch_classify)
+  return false;
+}
+
+bool dispatch_classify_tp(const Args& a) {
+  SPN_DISPATCH(launch_classify_tp)
   return false;
 }
 
@@ -217,4 +274,31 @@ extern "C" int spn_pml_classify(const void* rows, long long nb, int P,
   a.below = (int32_t*)below;
   a.sum_maxes = (long long*)sum_maxes;
   return dispatch_classify(a) ? (int)cudaGetLastError() : kUnsupported;
+}
+
+// K13: shard_ptrs is a host array of S shard pointers, each shard
+// rows_per_shard rows; nb = S * rows_per_shard, the padded row count.
+extern "C" int spn_pml_classify_tp(const void* shard_ptrs, int S,
+                                   long long rows_per_shard, long long nb,
+                                   int P, int pack, int wide, long long n,
+                                   long long term_pos, long long F_term,
+                                   int term_code, const void* tab, int sq,
+                                   const void* reads, const void* lens,
+                                   long long B, long long L, long long thr,
+                                   int bin_width, void* found, void* above,
+                                   void* below, void* sum_maxes,
+                                   void* stream) {
+  if (B == 0) return 0;
+  Args a = common(nullptr, nb, P, pack, wide, n, term_pos, F_term, term_code,
+                  tab, sq, reads, lens, B, L, stream);
+  if (!spn::sharded_rows(a.shards, shard_ptrs, S, rows_per_shard) ||
+      nb != S * rows_per_shard)
+    return kUnsupported;
+  a.thr = thr;
+  a.bin_width = bin_width;
+  a.found = (uint8_t*)found;
+  a.above = (int32_t*)above;
+  a.below = (int32_t*)below;
+  a.sum_maxes = (long long*)sum_maxes;
+  return dispatch_classify_tp(a) ? (int)cudaGetLastError() : kUnsupported;
 }

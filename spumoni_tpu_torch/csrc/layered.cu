@@ -1,6 +1,6 @@
-// K7 `layered_scan` and K8 `layered_classify`: the PML / MS / doc
-// recurrence over the layered index (engine v2), one thread per read, on
-// NVIDIA Hopper (sm_90a).
+// K7 `layered_scan`, K8 `layered_classify` and K14 `layered_classify_tp`:
+// the PML / MS / doc recurrence over the layered index (engine v2), one
+// thread per read, on NVIDIA Hopper (sm_90a).
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K7: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v2 (the step
@@ -10,6 +10,10 @@
 //   K8: spumoni_tpu/parallel/mesh.py::fused_classify_kernel with the
 //       layered step: K7's PML scan with the windowed bin-max folded into
 //       the carry (binmax.cuh, shared with K2).
+//   K14: spumoni_tpu/parallel/tp.py::TpPmlClassifier._classify_fn with the
+//       layered step: K8 with `fields` in S shards (sharded.cuh), the probe
+//       clipped to the JAX sharded table's padded row count
+//       (engine/layered.py:327-342) instead of the replicated one.
 //
 // Layout (spumoni_tpu_torch/engine/layered.py; T = int32 or int64):
 //   charmeta [256, 16] T   F, cnt, lo0, hi0, then the row offset of the
@@ -36,6 +40,7 @@
 // on chip. A level row is sorted, so "entries <= pos" is an upper-bound
 // search: 6 dependent probes inside the row's 256 / 512 bytes instead of
 // the TPU's 64-wide compare-count. Steps past a read's length are not run.
+// K14 reads each field row from its shard: one divide more per step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -46,6 +51,7 @@
 #include <cstdint>
 
 #include "binmax.cuh"
+#include "sharded.cuh"
 
 namespace {
 
@@ -148,6 +154,46 @@ __device__ __forceinline__ void step(const T (*cm)[kMetaCols],
   }
 }
 
+// K14's step: step<T, kPml> with the field row read from its shard. The
+// two must stay the same recurrence (chip_smoke.py phase 3f and
+// tests/test_torch_tp_kernels.py hold K14 to K8).
+template <typename T>
+__device__ __forceinline__ void step_tp(const T (*cm)[kMetaCols],
+                                        const T* const* lv,
+                                        const long long* lv_rows,
+                                        const spn::ShardedRows<T>& fields,
+                                        const Scalars& s, int c, Carry& st) {
+  const long long F = cm[c][0], cnt = cm[c][1], lo0 = cm[c][2],
+                  hi0 = cm[c][3];
+  const long long pos = st.pos;
+  long long rank = 0;
+  bool dead = false;
+  for (int t = s.depth - 1; t >= 0; --t) {
+    long long at = (long long)cm[c][4 + t] + rank;
+    at = at < lv_rows[t] - 1 ? at : lv_rows[t] - 1;
+    const T* row = lv[t] + at * kNode;
+    const int m = count_le(row, pos);
+    if (t == s.depth - 1) dead = m == 0;
+    rank = rank * kNode + (m > 0 ? m - 1 : 0);
+  }
+  long long probe = dead ? lo0 : lo0 + rank + 1;
+  probe = probe < 0 ? 0 : probe < s.probe_bound - 1 ? probe
+                                                    : s.probe_bound - 1;
+  const bool pad = probe >= s.rows;
+  const T* f = fields.row(pad ? 0 : probe, s.width);
+  const long long start = pad ? s.n : (long long)__ldg(f + kStart);
+  const long long len = pad ? 0 : (long long)__ldg(f + kLen);
+  const long long cum = pad ? 0 : (long long)__ldg(f + kCum);
+  const long long thr = pad ? 0 : (long long)__ldg(f + kThr);
+  const bool is_match = !dead && pos < start + len;
+  const long long off = pos - start;
+  const long long rnk = dead ? 0 : cum + (off < len ? off : len);
+  const bool has_next = dead ? cnt > 0 : (rank + 1) < (hi0 - lo0);
+  const bool jump_down = !is_match && has_next && pos >= thr;
+  st.pos = cnt == 0 ? F : (is_match || jump_down) ? F + rnk : F + rnk - 1;
+  st.length = is_match ? st.length + 1 : 0;
+}
+
 // charmeta and the level pointers and row counts into shared memory (all
 // threads of the block take part; the caller synchronises).
 template <typename T>
@@ -218,6 +264,37 @@ layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
   Carry st = {s.n - 1, 0, s.last_run_sample, s.last_run_edoc};
   for (int t = 0; t < len; ++t) {
     step<T, kPml>(cm, lv, lv_rows, fields, s, __ldg(rd + t), st);
+    bins.add(t, st.length);
+  }
+  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+}
+
+// K14: K8 with the fields in shards.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+layered_classify_tp_kernel(const T* __restrict__ charmeta, Levels levels,
+                           const spn::ShardedRows<T> fields, Scalars s,
+                           const uint8_t* __restrict__ reads,
+                           const long long* __restrict__ lens, long long B,
+                           long long L, long long thr, int bin_width,
+                           uint8_t* __restrict__ found,
+                           int32_t* __restrict__ above,
+                           int32_t* __restrict__ below,
+                           long long* __restrict__ sum_maxes) {
+  __shared__ T cm[256][kMetaCols];
+  __shared__ const T* lv[kMaxDepth];
+  __shared__ long long lv_rows[kMaxDepth];
+  load_meta(cm, lv, lv_rows, charmeta, levels);
+  __syncthreads();
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long len64 = lens[b];
+  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
+  const uint8_t* rd = reads + b * L;
+  spn::BinMax bins(len, bin_width, thr);
+  Carry st = {s.n - 1, 0, s.last_run_sample, s.last_run_edoc};
+  for (int t = 0; t < len; ++t) {
+    step_tp<T>(cm, lv, lv_rows, fields, s, __ldg(rd + t), st);
     bins.add(t, st.length);
   }
   bins.finish(found + b, above + b, below + b, sum_maxes + b);
@@ -342,6 +419,44 @@ extern "C" int spn_layered_classify(const void* charmeta,
   else
     layered_classify_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
         (const int32_t*)charmeta, levels, (const int32_t*)fields, s,
+        (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
+        (uint8_t*)found, (int32_t*)above, (int32_t*)below,
+        (long long*)sum_maxes);
+  return (int)cudaGetLastError();
+}
+
+// K14: fields is a host array of S shard pointers, rows_per_shard rows
+// each; rows = r + 1 (the real field rows), probe_bound the padded bound.
+extern "C" int spn_layered_classify_tp(const void* charmeta,
+                                       const void* level_ptrs, int depth,
+                                       const void* fields, int S,
+                                       long long rows_per_shard,
+                                       long long rows, long long probe_bound,
+                                       int width, int wide, long long n,
+                                       const void* reads, const void* lens,
+                                       long long B, long long L,
+                                       long long thr, int bin_width,
+                                       void* found, void* above, void* below,
+                                       void* sum_maxes, void* stream) {
+  if (B == 0) return 0;
+  Levels levels = {};
+  Scalars s = {};
+  if (!index_args(level_ptrs, depth, rows, probe_bound, width, n, levels, s) ||
+      bin_width <= 0)
+    return kUnsupported;
+  spn::ShardedRows<char> shards;
+  if (!spn::sharded_rows(shards, fields, S, rows_per_shard))
+    return kUnsupported;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (wide)
+    layered_classify_tp_kernel<long long><<<grid_of(B), kThreads, 0, st>>>(
+        (const long long*)charmeta, levels, spn::retype<long long>(shards), s,
+        (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
+        (uint8_t*)found, (int32_t*)above, (int32_t*)below,
+        (long long*)sum_maxes);
+  else
+    layered_classify_tp_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
+        (const int32_t*)charmeta, levels, spn::retype<int32_t>(shards), s,
         (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
         (uint8_t*)found, (int32_t*)above, (int32_t*)below,
         (long long*)sum_maxes);

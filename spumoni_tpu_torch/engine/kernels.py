@@ -23,11 +23,17 @@ plain PyTorch versions.
     4-entry value table, with the exceptions written over their cells.
   * `unpack4` (K12): the decode of 4-bit staged read rows, optionally
     through a 16-entry byte table (rank -> raw byte).
+  * `pml_classify_tp` (K13), `layered_classify_tp` (K14), `ms_scan_tp`
+    (K15) and `ms_extend_tp` (K16): K2, K8, K3 and K4 over a sharded index
+    (`parallel/tp.py`, `run --tp-devices S`), each table read from the
+    shard that holds the row.
 
-K1/K2 live in `csrc/blockbits_pml.cu`, K3-K5 in `csrc/blockbits_ms.cu`,
-K6 in `csrc/gather_chase.cu`, K7/K8 in `csrc/layered.cu`, K9/K10 in
-`csrc/occblock.cu` and K11/K12 in `csrc/staging.cu`, each behind a plain C
-interface (the bin-max carry of K2, K8 and K10 in `csrc/binmax.cuh`).
+K1/K2/K13 live in `csrc/blockbits_pml.cu`, K3-K5/K15/K16 in
+`csrc/blockbits_ms.cu`, K6 in `csrc/gather_chase.cu`, K7/K8/K14 in
+`csrc/layered.cu`, K9/K10 in `csrc/occblock.cu` and K11/K12 in
+`csrc/staging.cu`, each behind a plain C interface (the bin-max carry of
+K2, K8 and K10 in `csrc/binmax.cuh`, the sharded row source in
+`csrc/sharded.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -52,6 +58,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel.tp import ShardedBlockBits, ShardedLayered, ShardedTable
 from .blockbits import BlockBitsIndex, ms_probe, pml_probe
 from .layered import LayeredIndex, initial_state, layered_step
 from .occblock import OccIndex, occ_initial_state, occ_step
@@ -61,7 +68,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
             "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
-            "occblock.cu", "staging.cu")
+            "occblock.cu", "sharded.cuh", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
@@ -138,13 +145,22 @@ _SIGNATURES = {
                          _P, _I32, _P, _P, _I64, _I64, _P, _P],
         "spn_pml_classify": [_P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
                              _I32, _P, _I32, _P, _P, _I64, _I64, _I64, _I32,
-                             _P, _P, _P, _P, _P]},
+                             _P, _P, _P, _P, _P],
+        "spn_pml_classify_tp": [_P, _I32, _I64, _I64, _I32, _I32, _I32,
+                                _I64, _I64, _I64, _I32, _P, _I32, _P, _P,
+                                _I64, _I64, _I64, _I32, _P, _P, _P, _P,
+                                _P]},
     "blockbits_ms": {
         "spn_ms_scan": [_P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
                         _I32, _I64, _I64, _P, _I32, _P, _P, _I64, _I64, _P,
                         _P, _I32, _P, _P, _P],
         "spn_ms_extend": [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _I32, _P,
                           _P],
+        "spn_ms_scan_tp": [_P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _I64,
+                           _I64, _I64, _I32, _I64, _I64, _P, _I32, _P, _P,
+                           _I64, _I64, _P, _P, _I64, _I32, _P, _P, _P],
+        "spn_ms_extend_tp": [_P, _I32, _I64, _I64, _P, _P, _P, _I64, _I64,
+                             _I32, _P, _P],
         "spn_binmax_values": [_P, _P, _I64, _I64, _I32, _I64, _I32, _P, _P,
                               _P, _P, _P]},
     "gather_chase": {
@@ -155,7 +171,10 @@ _SIGNATURES = {
                              _P, _P],
         "spn_layered_classify": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32,
                                  _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
-                                 _P, _P, _P]},
+                                 _P, _P, _P],
+        "spn_layered_classify_tp": [_P, _P, _I32, _P, _I32, _I64, _I64, _I64,
+                                    _I32, _I32, _I64, _P, _P, _I64, _I64,
+                                    _I64, _I32, _P, _P, _P, _P, _P]},
     "occblock": {
         "spn_occ_scan": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
                          _I32, _I32, _I32, _P, _I32, _P, _P, _I64, _I64,
@@ -747,9 +766,198 @@ def unpack4(packed: torch.Tensor, lens: torch.Tensor, table=None):
 
 unpack4.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the sharded index (parallel/tp.py): K13-K16
+# ---------------------------------------------------------------------------
+
+def _check_shards(name: str, tables, dev: torch.device) -> None:
+    """Every shard of each (label, ShardedTable or None) on `dev` and
+    contiguous: the kernels read every shard on the reads' device and
+    stream (a ShardedTable holds 1 to MAX_SHARDS of them)."""
+    for label, table in tables:
+        if table is None:
+            continue
+        for i, t in enumerate(table.shards):
+            if t.device != dev:
+                raise ValueError(f"{name}: shard {i} of {label} is on "
+                                 f"{t.device}, reads on {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _shard_ptrs(table: ShardedTable):
+    """The host array of a table's S shard pointers (the entry points copy
+    it into the kernel's row source)."""
+    return (ctypes.c_longlong * table.S)(*(t.data_ptr()
+                                           for t in table.shards))
+
+
+def pml_classify_tp(index: ShardedBlockBits, tab: torch.Tensor,
+                    reads_rev: torch.Tensor, lens: torch.Tensor,
+                    max_value_thr: int, bin_width: int):
+    """K13. pml_classify (K2) over a sharded block-bits index
+    (parallel/tp.py::shard_blockbits): each row from its shard, blocks
+    clamped to the padded row count (zero pad rows), as the JAX sharded
+    classifier reads them. Same inputs and outputs as pml_classify."""
+    if bin_width <= 0:
+        raise ValueError("bin_width must be positive")
+    dev = reads_rev.device
+    kind = _check_inputs(index.bblocks, tab, reads_rev, lens)
+    _check_shards("pml_classify_tp", (("bblocks", index.bblocks),), dev)
+    if kind == "cpu":
+        return pml_classify_tp_reference(index, tab, reads_rev, lens,
+                                         max_value_thr, bin_width)
+    B = reads_rev.shape[0]
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    above = torch.zeros(B, dtype=torch.int32, device=dev)
+    below = torch.zeros(B, dtype=torch.int32, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return found, above, below, summ
+    m, rows = index.meta, index.bblocks
+    rc = library("blockbits_pml").spn_pml_classify_tp(
+        _shard_ptrs(rows), rows.S, rows.rows_per_shard, rows.shape[0], m.P,
+        m.pack, int(m.wide), m.n, m.term_pos, m.F_term, m.term_code,
+        tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
+        B, reads_rev.shape[1], int(max_value_thr), int(bin_width),
+        found.data_ptr(), above.data_ptr(), below.data_ptr(),
+        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "pml_classify_tp", index)
+    pml_classify_tp.launches += 1
+    return found, above, below, summ
+
+
+pml_classify_tp.launches = 0
+
+
+def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
+                        lens: torch.Tensor, max_value_thr: int,
+                        bin_width: int):
+    """K14. layered_classify (K8) over a sharded layered index
+    (parallel/tp.py::shard_layered): each field row from its shard, probes
+    clipped to the sharded table's padded bound (index.meta.probe_bound).
+    Same inputs and outputs as layered_classify."""
+    if bin_width <= 0:
+        raise ValueError("bin_width must be positive")
+    dev = reads_rev.device
+    kind = _check_layered(index, reads_rev, lens)
+    _check_shards("layered_classify_tp", (("fields", index.fields),), dev)
+    if kind == "cpu":
+        return layered_classify_tp_reference(index, reads_rev, lens,
+                                             max_value_thr, bin_width)
+    B = reads_rev.shape[0]
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    above = torch.zeros(B, dtype=torch.int32, device=dev)
+    below = torch.zeros(B, dtype=torch.int32, device=dev)
+    summ = torch.zeros(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return found, above, below, summ
+    m, fields = index.meta, index.fields
+    levels = (ctypes.c_longlong * (2 * m.depth))(
+        *(lv.data_ptr() for lv in index.levels),
+        *(lv.shape[0] for lv in index.levels))
+    rc = library("layered").spn_layered_classify_tp(
+        index.charmeta.data_ptr(), levels, m.depth, _shard_ptrs(fields),
+        fields.S, fields.rows_per_shard, m.r + 1, m.probe_bound, m.width,
+        int(m.wide), m.n, reads_rev.data_ptr(), lens.data_ptr(), B,
+        reads_rev.shape[1], int(max_value_thr), int(bin_width),
+        found.data_ptr(), above.data_ptr(), below.data_ptr(),
+        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "layered_classify_tp")
+    layered_classify_tp.launches += 1
+    return found, above, below, summ
+
+
+layered_classify_tp.launches = 0
+
+
+def ms_scan_tp(index: ShardedBlockBits, tab: torch.Tensor,
+               reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
+               use_doc: bool):
+    """K15. ms_scan (K3) over a sharded block-bits MS index
+    (parallel/tp.py::shard_blockbits_ms): rows and msrows from their shard,
+    blocks clamped to the padded row count, jump_t / jump_d entries from
+    theirs. Same inputs, modes and outputs as ms_scan."""
+    kind = _check_inputs(index.bblocks, tab, reads_rev, lens)
+    code = _MS_MODES.get((mode, bool(use_doc)))
+    if code is None:
+        raise ValueError(f"ms_scan_tp: mode={mode!r}, use_doc={use_doc} "
+                         f"(plain PML has no sharded scan)")
+    need = ["msrows"] + (["jump_t"] if mode == "ms" else []) + (
+        ["jump_d"] if use_doc else [])
+    for name in need:
+        if getattr(index, name) is None:
+            raise ValueError(f"ms_scan_tp: the index has no {name}")
+    dev = reads_rev.device
+    _check_shards("ms_scan_tp", [(name, getattr(index, name)) for name in (
+        "bblocks", "msrows", "jump_t", "jump_d")], dev)
+    if kind == "cpu":
+        return ms_scan_tp_reference(index, tab, reads_rev, lens, mode,
+                                    use_doc)
+    m = index.meta
+    vals = torch.zeros(reads_rev.shape, dtype=m.pos_dtype, device=dev)
+    docs = torch.zeros_like(vals) if use_doc else None
+    if vals.numel() == 0:
+        return vals, docs
+    jumps = index.jump_t if index.jump_t is not None else index.jump_d
+    rows = index.bblocks
+    ptrs = lambda t: None if t is None else _shard_ptrs(t)  # noqa: E731
+    rc = library("blockbits_ms").spn_ms_scan_tp(
+        _shard_ptrs(rows), _shard_ptrs(index.msrows), rows.S,
+        rows.rows_per_shard, rows.shape[0], m.P, m.pack, int(m.wide), m.n,
+        m.term_pos, m.F_term, m.term_code, m.r, m.term_runidx,
+        tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
+        reads_rev.shape[0], reads_rev.shape[1], ptrs(index.jump_t),
+        ptrs(index.jump_d), jumps.rows_per_shard, code, vals.data_ptr(),
+        0 if docs is None else docs.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "ms_scan_tp", index)
+    ms_scan_tp.launches += 1
+    return vals, docs
+
+
+ms_scan_tp.launches = 0
+
+
+def ms_extend_tp(text: ShardedTable, text_bound: int,
+                 reads_fwd: torch.Tensor, lens: torch.Tensor,
+                 ptrs: torch.Tensor) -> torch.Tensor:
+    """K16. ms_extend (K4) over a sharded text (ShardedBlockBits.text:
+    bytes in S shards, zero past the text), read as 0 past its shards up to
+    text_bound (the index's `text_bound`). Same reads, pointers and output
+    as ms_extend."""
+    if text is None:
+        raise ValueError("ms_extend_tp: the index has no text (build -M)")
+    kind = _check_matrix_inputs("ms_extend_tp", (
+        ("reads_fwd", reads_fwd, (torch.uint8,)),
+        ("ptrs", ptrs, (torch.int32, torch.int64))), lens)
+    if reads_fwd.shape != ptrs.shape:
+        raise ValueError("ms_extend_tp: reads_fwd and ptrs differ in shape")
+    if text.dtype != torch.uint8 or len(text.shape) != 1:
+        raise ValueError("ms_extend_tp: text must be a 1-D uint8 table")
+    _check_shards("ms_extend_tp", (("text", text),), lens.device)
+    if kind == "cpu":
+        return ms_extend_tp_reference(text, text_bound, reads_fwd, lens, ptrs)
+    out = torch.zeros_like(ptrs)
+    if out.numel() == 0:
+        return out
+    rc = library("blockbits_ms").spn_ms_extend_tp(
+        _shard_ptrs(text), text.S, text.rows_per_shard, int(text_bound),
+        reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
+        ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
+        out.data_ptr(), torch.cuda.current_stream(lens.device).cuda_stream)
+    _raise_on(rc, "ms_extend_tp")
+    ms_extend_tp.launches += 1
+    return out
+
+
+ms_extend_tp.launches = 0
+
 _WRAPPERS = (pml_scan, pml_classify, ms_scan, ms_extend, binmax_values,
              gather_chase, layered_scan, layered_classify, occ_scan,
-             occ_classify, unpack2, unpack4)
+             occ_classify, unpack2, unpack4, pml_classify_tp,
+             layered_classify_tp, ms_scan_tp, ms_extend_tp)
 
 
 def reset_launch_counts() -> None:
@@ -1083,6 +1291,42 @@ def unpack4_reference(packed: torch.Tensor, lens: torch.Tensor,
         nib = torch.tensor(table, dtype=torch.uint8,
                            device=packed.device)[nib.long()]
     return _zero_past(nib, lens)
+
+
+def pml_classify_tp_reference(index: ShardedBlockBits, tab: torch.Tensor,
+                              reads_rev: torch.Tensor, lens: torch.Tensor,
+                              max_value_thr: int, bin_width: int):
+    """Plain PyTorch version of K13: K2's plain version over the shard list
+    (ShardedTable reads each row from its owner shard, 0 past the padded
+    rows; blocks clamp to the padded count), as TpPmlClassifier computes."""
+    return pml_classify_reference(index, tab, reads_rev, lens, max_value_thr,
+                                  bin_width)
+
+
+def layered_classify_tp_reference(index: ShardedLayered,
+                                  reads_rev: torch.Tensor, lens: torch.Tensor,
+                                  max_value_thr: int, bin_width: int):
+    """Plain PyTorch version of K14: K8's plain version over the shard list,
+    probes clipped to the sharded bound (layered.py:327-342)."""
+    return layered_classify_reference(index, reads_rev, lens, max_value_thr,
+                                      bin_width)
+
+
+def ms_scan_tp_reference(index: ShardedBlockBits, tab: torch.Tensor,
+                         reads_rev: torch.Tensor, lens: torch.Tensor,
+                         mode: str, use_doc: bool):
+    """Plain PyTorch version of K15: K3's plain version over the shard lists
+    of the rows, msrows and jump tables (TpMsQuery._query_fn's scan and
+    _tp_take_1d)."""
+    return ms_scan_reference(index, tab, reads_rev, lens, mode, use_doc)
+
+
+def ms_extend_tp_reference(text: ShardedTable, text_bound: int,
+                           reads_fwd: torch.Tensor, lens: torch.Tensor,
+                           ptrs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K16: K4's plain version over the text's
+    shard list (bytes past the shards read as 0)."""
+    return ms_extend_reference(text, text_bound, reads_fwd, lens, ptrs)
 
 
 def seeded_packed(seed: int, B: int, L: int, k: int):

@@ -8,7 +8,10 @@ engines: `stage`, the growing staged alphabet, `classify_staged`,
 on K1 / K2, MS on K3 pointers, K4 lengths and K5 bin-max, and document
 tracking on K3; the layered engine runs PML on K7 / K8, MS and document
 tracking on K7, then K4 and K5; the occ-block engine the same on K9 / K10
-(the JAX package's v3 path, scan_engine.py:1861-1931).
+(the JAX package's v3 path, scan_engine.py:1861-1931). A sharded index
+(parallel/tp.py, `run --tp-devices S`) runs report-only PML on K13
+(block-bits) or K14 (layered), and MS values, with or without doc ids, on
+K15 then K16 (block-bits).
 
 Reads are bucketed by padded length (a power of two from PAD_TO up to
 CHUNK, then multiples of CHUNK, as in the JAX package) and packed REVERSED
@@ -38,6 +41,7 @@ import torch
 
 from ..io.fastx_batch import PackedReads
 from ..native import pack_rows_native
+from ..parallel.tp import ShardedBlockBits, ShardedLayered
 from ..utils import present_chars
 from . import kernels
 from .blockbits import BlockBitsIndex, CharTable, alphabet_seed
@@ -62,11 +66,12 @@ class ScanEngine:
 
     def __init__(self, index, table: CharTable = None, mode: str = "pml",
                  use_doc: bool = False):
-        """index: a BlockBitsIndex or an OccIndex with its CharTable, or a
-        LayeredIndex (no table)."""
+        """index: a BlockBitsIndex, ShardedBlockBits or OccIndex with its
+        CharTable, or a LayeredIndex or ShardedLayered (no table)."""
         if mode not in ("pml", "ms"):
             raise ValueError(f"mode must be 'pml' or 'ms', not {mode!r}")
-        self.layered = isinstance(index, LayeredIndex)
+        self.sharded = isinstance(index, (ShardedBlockBits, ShardedLayered))
+        self.layered = isinstance(index, (LayeredIndex, ShardedLayered))
         self.occ = isinstance(index, OccIndex)
         if self.layered or self.occ:
             has_ms, has_doc = index.meta.has_samples, index.meta.has_doc
@@ -243,7 +248,14 @@ class ScanEngine:
     def _scan(self, g, rev, mode: str, use_doc: bool):
         """(vals, docs) [B, L] on the device for the group's decoded rows
         `rev`: K7 on the layered engine, K9 on the occ-block engine, K3 on
-        block-bits (MS, or PML with doc tracking)."""
+        block-bits (MS, or PML with doc tracking), K15 on sharded
+        block-bits."""
+        if self.sharded:
+            if self.layered:
+                raise ValueError("a sharded layered index serves "
+                                 "report-only PML only")
+            return kernels.ms_scan_tp(self.index, g["tab"], rev, g["lens_d"],
+                                      mode, use_doc)
         if self.layered:
             return kernels.layered_scan(self.index, rev, g["lens_d"], mode,
                                         use_doc)
@@ -258,7 +270,8 @@ class ScanEngine:
         pointer scan (K7, K9 or K3), then K4 on its pointers and the
         decoded forward rows."""
         ptrs, docs = self._scan(g, rev, "ms", use_doc)
-        mats = {"pointers": ptrs, "lengths": kernels.ms_extend(
+        extend = kernels.ms_extend_tp if self.sharded else kernels.ms_extend
+        mats = {"pointers": ptrs, "lengths": extend(
             self.index.text, self.index.text_bound, self._fwd_d(g),
             g["lens_d"], ptrs)}
         if use_doc:
@@ -268,8 +281,9 @@ class ScanEngine:
     def classify_staged(self, staged, bin_width: int, max_value_thr: int):
         """Per-read (found, above, below, sum_maxes) over staged groups, in
         the batch's read order. PML: K2, K8 on the layered engine or K10 on
-        the occ-block engine; MS: K3, K7 or K9 -> K4 -> K5 (the port of
-        _classify_ms_dev). Only [B] summaries leave the device."""
+        the occ-block engine, K13 / K14 on a sharded index; MS: K3, K7 or
+        K9 -> K4 -> K5 (the port of _classify_ms_dev). Only [B] summaries
+        leave the device."""
         if self.use_doc:
             raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
@@ -280,16 +294,19 @@ class ScanEngine:
         for g in staged:
             rev = self._rev_d(g)
             if self.mode == "pml" and self.layered:
-                res = kernels.layered_classify(self.index, rev, g["lens_d"],
-                                               max_value_thr, bin_width)
+                classify = (kernels.layered_classify_tp if self.sharded
+                            else kernels.layered_classify)
+                res = classify(self.index, rev, g["lens_d"], max_value_thr,
+                               bin_width)
             elif self.mode == "pml" and self.occ:
                 res = kernels.occ_classify(self.index, g["tab"], rev,
                                            g["lens_d"], max_value_thr,
                                            bin_width)
             elif self.mode == "pml":
-                res = kernels.pml_classify(self.index, g["tab"], rev,
-                                           g["lens_d"], max_value_thr,
-                                           bin_width)
+                classify = (kernels.pml_classify_tp if self.sharded
+                            else kernels.pml_classify)
+                res = classify(self.index, g["tab"], rev, g["lens_d"],
+                               max_value_thr, bin_width)
             else:
                 res = kernels.binmax_values(
                     self._ms_values(g, rev, False)["lengths"], g["lens_d"],
@@ -301,8 +318,9 @@ class ScanEngine:
     def query_staged(self, staged) -> dict:
         """Per-read value arrays over staged groups, in the batch's read
         order: 'lengths' (PML: K1, or K3 with doc tracking, K7 on the
-        layered engine, K9 on the occ-block engine; MS: K4), 'pointers' (MS:
-        K3, K7 or K9) and 'docs' (doc tracking: K3, K7 or K9)."""
+        layered engine, K9 on the occ-block engine; MS: K4, K16 on a sharded
+        index), 'pointers' (MS: K3, K7, K9 or K15) and 'docs' (doc tracking:
+        K3, K7, K9 or K15). A sharded index has no PML value scan."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
@@ -315,6 +333,10 @@ class ScanEngine:
             elif self.use_doc or self.layered or self.occ:
                 lengths, docs = self._scan(g, rev, "pml", self.use_doc)
                 mats = {"lengths": lengths, "docs": docs}
+            elif self.sharded:
+                raise ValueError("a sharded index serves PML values only "
+                                 "with doc ids (report-only PML: "
+                                 "classify_staged)")
             else:
                 mats = {"lengths": kernels.pml_scan(
                     self.index, g["tab"], rev, g["lens_d"])}

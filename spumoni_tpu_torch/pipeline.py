@@ -16,7 +16,9 @@ the prefetch thread that parses, digests and stages batches, the writer
 thread, the durable read cursor with `--resume`, and `--ks-report` with
 its glibc rand() draws kept in global read order. Outputs
 (`.pseudo_lengths`, `.lengths`, `.pointers`, `.doc_numbers`, `.report`)
-are byte-identical to the JAX package's.
+are byte-identical to the JAX package's. `--tp-devices S` shards the
+index (parallel/tp.py) for report-only PML and -M value runs, as the JAX
+package's sharded path does; all S shards sit on the run's device.
 
 What this slice does not cover raises NotImplementedError naming its
 ROADMAP item; nothing falls back silently.
@@ -49,6 +51,8 @@ from .index.format import (DenseIndex, build_dense_index, build_doc_arrays,
 from .index.null_db import EmpNullDatabase
 from .io import fasta, fastx_batch, minimizers
 from .native import NativeQueryEngine, build_raw_index
+from .parallel.tp import (MAX_SHARDS, shard_blockbits, shard_blockbits_ms,
+                          shard_layered)
 
 #: stats of the most recent run()'s streaming loop: reads, bases, stream_s
 LAST_RUN_STATS: dict = {}
@@ -470,8 +474,8 @@ class RunConfig:
                               # fused on device and only O(B) verdict
                               # summaries leave it (extension flag; the
                               # reference always writes values)
-    tp_devices: int = 0       # sharded index over this many devices
-                              # (ROADMAP A10)
+    tp_devices: int = 0       # index rows in this many shards (>1), all
+                              # on the run's device until ROADMAP A9
     engine: str = "auto"      # 'auto' | 'layered' | 'occ' | 'bits'
 
     @property
@@ -578,14 +582,11 @@ def _prefetched(gen, depth: int = 2):
 
 
 def _check_supported(cfg: RunConfig) -> None:
-    unsupported = (
-        (cfg.tp_devices > 1, "--tp-devices > 1 (sharded index) is "
-                             "ROADMAP A10"),
-        (cfg.process_count > 1, "multi-process runs are ROADMAP A9"),
-    )
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"not in the port yet: {what}")
+    if cfg.process_count > 1:
+        raise NotImplementedError("not in the port yet: multi-process runs "
+                                  "are ROADMAP A9")
+    if cfg.tp_devices > MAX_SHARDS:
+        raise ValueError(f"--tp-devices takes at most {MAX_SHARDS} shards")
     if cfg.device not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, not {cfg.device!r}")
 
@@ -618,19 +619,64 @@ def _uses_blockbits(dense, mode: str, use_doc: bool, engine: str) -> bool:
             and (mode == "pml" and not use_doc or dense.r < 2**30))
 
 
+def _tp_decision(*, mode: str, use_doc: bool, report_only: bool,
+                 tp_devices: int) -> int:
+    """The shard count of the index (spumoni_tpu/pipeline.py:614-658): the
+    explicit tp_devices (> 1) for report-only PML without -d and for -M
+    value runs, else 1. The JAX package's automatic sharding past a memory
+    budget is left out until the shards can sit on several GPUs (ROADMAP
+    A9): with every shard on the run's card, sharding cannot make an index
+    fit that card."""
+    pml_ok = report_only and mode == "pml" and not use_doc
+    ms_ok = mode == "ms" and not report_only
+    return tp_devices if tp_devices > 1 and (pml_ok or ms_ok) else 1
+
+
+def _sharded_index(dense, S: int, index_path: str, mode: str, use_doc: bool,
+                   engine: str):
+    """(sharded index, CharTable or None) of a run with S shards
+    (spumoni_tpu/pipeline.py:661-709): for -M the block-bits MS tables
+    whatever --engine says, as the JAX package builds them; for report-only
+    PML the block-bits rows when --engine allows and they hold the index,
+    else the layered fields. Built on the host, then cut into shards: the
+    device never holds the whole table beside its shards. The JAX check
+    that S divides the device count has no counterpart: every shard sits on
+    the run's device until multi-GPU runs (ROADMAP A9)."""
+    if mode == "ms":
+        if not (eligible_any(dense) and dense.has_samples
+                and dense.r < 2**30 and dense.text is not None):
+            raise ValueError("--tp-devices for -M needs a v4-MS-capable "
+                             "index (SA samples + text, sigma <= 8, "
+                             "r < 2^30)")
+        index, table = build_blockbits(
+            dense, cache_path=index_path + ".bbrows.npz",
+            src_path=index_path + ".npz", want_ms=True, want_doc=use_doc,
+            ms_cache_path=index_path + ".bbms.npz")
+        return shard_blockbits_ms(index, S), table
+    if engine in ("auto", "bits") and eligible_any(dense):
+        index, table = build_blockbits(
+            dense, cache_path=index_path + ".bbrows.npz",
+            src_path=index_path + ".npz")
+        return shard_blockbits(index, S), table
+    return shard_layered(build_layered(dense), S), None
+
+
 def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                 use_doc: bool = False, engine: str = "auto",
-                fast_start: bool = True) -> ScanEngine:
+                fast_start: bool = True, tp_devices: int = 0,
+                report_only: bool = False) -> ScanEngine:
     """The engine for the index at index_path, chosen as the JAX package
     chooses (`_uses_blockbits`; `occ` only when asked for). Block-bits PML
-    without doc tracking (with `auto` / `bits` and fast_start) starts from
-    the rows cache when it is fresh and under SPN_HBM_BUDGET_GB (default
-    12); otherwise the dense index is loaded and the block-bits rows (and
-    for MS / doc tracking the msrows, `.bbms.npz`) are built or loaded from
-    their caches, or the layered or occ-block tables are built."""
+    without doc tracking (with `auto` / `bits`, fast_start and no explicit
+    shards) starts from the rows cache when it is fresh and under
+    SPN_HBM_BUDGET_GB (default 12); otherwise the dense index is loaded and
+    the block-bits rows (and for MS / doc tracking the msrows,
+    `.bbms.npz`) are built or loaded from their caches, or the layered or
+    occ-block tables are built. With tp_devices (RunConfig's) > 1 and a
+    mode `_tp_decision` allows, the index is sharded (`_sharded_index`)."""
     fast = None
-    if fast_start and engine in ("auto", "bits") and mode == "pml" \
-            and not use_doc:
+    if fast_start and tp_devices <= 1 and engine in ("auto", "bits") \
+            and mode == "pml" and not use_doc:
         budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
         fast = load_cached(index_path + ".bbrows.npz", index_path + ".npz",
                            max_bytes=budget)
@@ -645,7 +691,17 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
             raise ValueError("-M needs an index built with -M (SA samples "
                              "and text)")
         n, r = dense.n, dense.r
-        if engine == "occ":
+        S = _tp_decision(mode=mode, use_doc=use_doc, report_only=report_only,
+                         tp_devices=tp_devices)
+        if S > 1:
+            index, table = _sharded_index(dense, S, index_path, mode,
+                                          use_doc, engine)
+            count = torch.cuda.device_count()
+            log("run", f"sharded index: {S} shards, all on {device}"
+                       + (f" ({count} GPUs visible; placing shards on "
+                          f"several is ROADMAP A9)"
+                          if count > 1 else ""))
+        elif engine == "occ":
             if not occblock.eligible(dense):
                 raise ValueError("occ engine needs sigma <= 15 and n < 2^31 "
                                  "(use engine=layered)")
@@ -679,6 +735,8 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
     else:
         layout = (f"block-bits, P={m.P}, pack={m.pack}, wide={m.wide}, "
                   f"msrows={index.msrows is not None}")
+    if getattr(index, "S", 1) > 1:
+        layout += f", {index.S} shards"
     log("run", f"index resident on {device}: {nbytes / 1e6:.1f} MB "
                f"(n={n}, r={r}, {layout})")
     return ScanEngine(index, table, mode=mode, use_doc=use_doc)
@@ -697,7 +755,12 @@ def run(cfg: RunConfig) -> int:
     ms = cfg.mode == "ms"
     engine = make_engine(base + (".thrbv.ms" if ms else ".thrbv.spumoni"),
                          device, cfg.mode, cfg.use_doc, cfg.engine,
-                         fast_start=not cfg.is_general_text)
+                         fast_start=not cfg.is_general_text,
+                         # general text runs unsharded, as in the JAX
+                         # package (spumoni_tpu/pipeline.py:807-810)
+                         tp_devices=0 if cfg.is_general_text
+                         else cfg.tp_devices,
+                         report_only=cfg.report_only)
     if cfg.is_general_text:
         return _run_general_text(cfg, engine)
 

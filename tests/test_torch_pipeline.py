@@ -243,7 +243,6 @@ def test_ms_doc_resume_continues_the_files(msdoc, run_id):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(tp_devices=2, write_report=True, report_only=True), "A10"),
     (dict(process_count=2), "A9"),
 ])
 def test_uncovered_cases_name_their_roadmap_item(indexed, kw, item):

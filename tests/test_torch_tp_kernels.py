@@ -1,0 +1,235 @@
+"""The sharded-index kernel wrappers K13-K16 (`pml_classify_tp`,
+`layered_classify_tp`, `ms_scan_tp`, `ms_extend_tp`) and the shard tables
+of spumoni_tpu_torch/parallel/tp.py: CPU tensors take the plain versions,
+anything else launches the CUDA kernel or raises, shards are checked, and on
+a GPU each kernel equals its plain version and its unsharded twin (K2, K8,
+K3, K4) exactly.
+
+This file imports neither JAX nor tests/conftest.py fixtures, so it also
+runs on a machine with a GPU and no JAX:
+    python -m pytest --noconftest tests/test_torch_tp_kernels.py
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import spumoni_tpu_torch.pipeline as tpl
+from spumoni_tpu_torch.engine import kernels
+from spumoni_tpu_torch.engine.blockbits import build_blockbits, ranked_rows
+from spumoni_tpu_torch.engine.layered import raw_rows, seeded_layered
+from spumoni_tpu_torch.index import format as fmt
+from spumoni_tpu_torch.native import build_raw_index
+from spumoni_tpu_torch.parallel import tp
+
+from test_torch_kernels import ACGT, needs_cuda
+
+
+def _ms_index(seed, n, **kw):
+    """A two-document MS + doc block-bits index of n seeded bases."""
+    text = np.random.default_rng(seed).choice(ACGT, n)
+    raw = build_raw_index(text)
+    ds, de = fmt.build_doc_arrays(raw, [n // 2, n - n // 2])
+    dense = fmt.build_dense_index(raw, text=text, with_samples=True,
+                                  doc_start=ds, doc_end=de)
+    index, table = build_blockbits(dense, want_ms=True, want_doc=True, **kw)
+    return text, index, table
+
+
+def _reads(text, seed, num=12, m=300):
+    """Substrings, random reads, ROADMAP section C's read (a byte past every
+    index character) and a read with bytes absent from the index."""
+    rng = np.random.default_rng(seed)
+    reads = [text[s:s + m].tobytes()
+             for s in rng.integers(0, len(text) - m, num // 2)]
+    reads += [rng.choice(ACGT, m).tobytes() for _ in range(num // 2)]
+    return reads + [text[100:160].tobytes() + b"W" + text[200:260].tobytes(),
+                    b"NNN" + text[400:600].tobytes()]
+
+
+def test_sharded_table_reads_rows_from_their_shard():
+    """Rows come from shard r // rows_per_shard; rows past the table are
+    the pad row, and indexes outside the padded rows read 0 (JAX's
+    owner-masked read and psum)."""
+    table = torch.arange(30, dtype=torch.int32).reshape(10, 3)
+    sh = tp.ShardedTable.from_rows(table, 4, pad_row=torch.tensor([7, 8, 9]))
+    assert sh.S == 4 and sh.rows_per_shard == 3 and tuple(sh.shape) == (12, 3)
+    assert [t.shape[0] for t in sh.shards] == [3, 3, 3, 3]
+    idx = torch.tensor([[0, 4], [9, 10], [11, 12], [-1, 5]])
+    want = torch.cat([table, torch.tensor([[7, 8, 9]] * 2, dtype=torch.int32),
+                      torch.zeros((1, 3), dtype=torch.int32)])
+    got = sh[idx]
+    assert torch.equal(got[:3], want[idx[:3].clamp(0, 12)])
+    assert torch.equal(got[3, 0], torch.zeros(3, dtype=torch.int32))
+    assert torch.equal(got[3, 1], table[5])
+    assert torch.equal(torch.cat(sh.shards)[:10], table)
+
+
+@pytest.mark.parametrize("S", [0, 17])
+def test_shard_counts_out_of_range_raise(S):
+    _, index, _ = _ms_index(1, 3000)
+    with pytest.raises(ValueError, match="1 to 16"):
+        tp.shard_blockbits_ms(index, S)
+
+
+def test_cpu_tensors_take_the_plain_paths():
+    """K13, K15 and K16 on CPU tensors equal their twins K2, K3 and K4 on
+    the unsharded index (n % P != 0 here, so the padded clamp never
+    differs), K14 equals K8, and no launch is counted."""
+    text, index, table = _ms_index(2, 5000, P=64)
+    assert index.meta.n % 64
+    reads = _reads(text, 3)
+    tab, rev, fwd, lens = ranked_rows(table, reads, 512)
+    kernels.reset_launch_counts()
+    for S in (1, 3, 4):
+        sh = tp.shard_blockbits_ms(index, S)
+        for a, b in zip(kernels.pml_classify_tp(sh, tab, rev, lens, 7, 150),
+                        kernels.pml_classify(index, tab, rev, lens, 7, 150)):
+            assert torch.equal(a, b), S
+        for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
+            got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
+            want = kernels.ms_scan(index, tab, rev, lens, mode, doc)
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(got, want)), (S, mode, doc)
+        ptrs = kernels.ms_scan_tp(sh, tab, rev, lens, "ms", False)[0]
+        assert torch.equal(
+            kernels.ms_extend_tp(sh.text, sh.text_bound, fwd, lens, ptrs),
+            kernels.ms_extend(index.text, index.text_bound, fwd, lens, ptrs))
+    ltext, lindex, _ = seeded_layered(4, 8000)
+    lrev, _, llens = raw_rows(_reads(ltext, 5), 512)
+    for S in (1, 3):
+        for a, b in zip(
+                kernels.layered_classify_tp(tp.shard_layered(lindex, S), lrev,
+                                            llens, 7, 150),
+                kernels.layered_classify(lindex, lrev, llens, 7, 150)):
+            assert torch.equal(a, b), S
+    assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("wrapper", ["pml_classify_tp", "layered_classify_tp",
+                                     "ms_scan_tp", "ms_extend_tp"])
+def test_wrappers_raise_for_non_cpu_tensors(wrapper):
+    """A tensor that is not on the CPU must launch the kernel or raise: the
+    plain version never stands in for it."""
+    text, index, table = _ms_index(6, 3000)
+    sh = tp.shard_blockbits_ms(index, 3).to("meta")
+    tab, rev, fwd, lens = (t.to("meta") for t in ranked_rows(
+        table, _reads(text, 7, 4, 100), 256))
+    _, lindex, _ = seeded_layered(8, 3000)
+    lsh = tp.shard_layered(lindex, 3).to("meta")
+    ptrs = torch.zeros(rev.shape, dtype=torch.int32, device="meta")
+    kernels.reset_launch_counts()
+    call = {
+        "pml_classify_tp": lambda: kernels.pml_classify_tp(sh, tab, rev, lens,
+                                                           7, 150),
+        "layered_classify_tp": lambda: kernels.layered_classify_tp(
+            lsh, rev, lens, 7, 150),
+        "ms_scan_tp": lambda: kernels.ms_scan_tp(sh, tab, rev, lens, "ms",
+                                                 True),
+        "ms_extend_tp": lambda: kernels.ms_extend_tp(sh.text, sh.text_bound,
+                                                     fwd, lens, ptrs),
+    }[wrapper]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+    assert getattr(kernels, wrapper).launches == 0
+
+
+@pytest.mark.parametrize("bad", ["shard_device", "too_many_shards", "mode",
+                                 "no_jump_d", "text_dtype", "bin_width"])
+def test_wrappers_check_their_shards(bad):
+    text, index, table = _ms_index(9, 3000)
+    sh = tp.shard_blockbits_ms(index, 3)
+    tab, rev, fwd, lens = ranked_rows(table, _reads(text, 10, 4, 100), 256)
+    with pytest.raises(ValueError):
+        if bad == "shard_device":      # one shard elsewhere than the reads
+            sh.bblocks.shard1 = sh.bblocks.shard1.to("meta")
+            kernels.pml_classify_tp(sh, tab, rev, lens, 7, 150)
+        elif bad == "too_many_shards":   # more than a kernel takes
+            tpl._check_supported(tpl.RunConfig(tp_devices=17))
+        elif bad == "mode":
+            kernels.ms_scan_tp(sh, tab, rev, lens, "pml", False)
+        elif bad == "no_jump_d":
+            sh.jump_d = None
+            kernels.ms_scan_tp(sh, tab, rev, lens, "ms", True)
+        elif bad == "text_dtype":
+            kernels.ms_extend_tp(sh.bblocks, sh.text_bound, fwd, lens,
+                                 torch.zeros(rev.shape, dtype=torch.int32))
+        else:
+            kernels.layered_classify_tp(
+                tp.shard_layered(seeded_layered(11, 3000)[1], 3),
+                rev, lens, 7, 0)
+
+
+def test_help_names_occ_and_the_sharded_index():
+    """`run --help` lists occ as an engine and says what --tp-devices does:
+    neither says "not in the port yet"."""
+    out = subprocess.run([sys.executable, "-m", "spumoni_tpu_torch", "run",
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    flat = " ".join(out.split())
+    assert "occ is not in the port yet" not in flat
+    tp_help = flat[flat.rindex("--tp-devices TP_DEVICES"):]
+    tp_help = tp_help[:tp_help.rindex("--ks-report")]
+    assert "not in the port yet" not in tp_help and "shards" in tp_help
+    assert "occ (occ-block" in flat
+
+
+# ---------------------------------------------------------------------------
+# on the GPU: kernel == plain version == unsharded twin, exactly
+# ---------------------------------------------------------------------------
+
+@needs_cuda
+@pytest.mark.parametrize("layout", [dict(P=64, pack=2, wide=False),
+                                    dict(P=512, pack=2, wide=False),
+                                    dict(P=256, pack=4, wide=True)],
+                         ids=lambda d: "P{P}-pack{pack}-wide{wide}".format(**d))
+def test_block_bits_tp_kernels_on_gpu(layout):
+    text, index, table = _ms_index(12, 9000, **layout)
+    assert index.meta.n % index.meta.P
+    reads = _reads(text, 13, 40, 700)
+    shards = {S: tp.shard_blockbits_ms(index, S).to("cuda") for S in (1, 3, 4)}
+    index = index.to("cuda")
+    tab, rev, fwd, lens = ranked_rows(table, reads, 1024, "cuda")
+    kernels.reset_launch_counts()
+    for S, sh in shards.items():
+        got = kernels.pml_classify_tp(sh, tab, rev, lens, 7, 150)
+        for want in (kernels.pml_classify_tp_reference(sh, tab, rev, lens, 7,
+                                                       150),
+                     kernels.pml_classify(index, tab, rev, lens, 7, 150)):
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), S
+        for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
+            got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
+            for want in (kernels.ms_scan_tp_reference(sh, tab, rev, lens,
+                                                      mode, doc),
+                         kernels.ms_scan(index, tab, rev, lens, mode, doc)):
+                assert all(a is b is None or torch.equal(a, b)
+                           for a, b in zip(got, want)), (S, mode, doc)
+        ptrs = kernels.ms_scan_tp(sh, tab, rev, lens, "ms", False)[0]
+        got = kernels.ms_extend_tp(sh.text, sh.text_bound, fwd, lens, ptrs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.ms_extend_tp_reference(
+            sh.text, sh.text_bound, fwd, lens, ptrs))
+        assert torch.equal(got, kernels.ms_extend(index.text, index.text_bound,
+                                                  fwd, lens, ptrs))
+    assert (kernels.pml_classify_tp.launches, kernels.ms_scan_tp.launches,
+            kernels.ms_extend_tp.launches) == (3, 12, 3)
+
+
+@needs_cuda
+def test_layered_tp_kernel_on_gpu():
+    text, index, _ = seeded_layered(14, 20000, docs=True)
+    rev, _, lens = raw_rows(_reads(text, 15, 40, 700), 1024, "cuda")
+    shards = {S: tp.shard_layered(index, S).to("cuda") for S in (1, 3, 4)}
+    index = index.to("cuda")
+    kernels.reset_launch_counts()
+    for S, sh in shards.items():
+        got = kernels.layered_classify_tp(sh, rev, lens, 7, 150)
+        torch.cuda.synchronize()
+        for want in (kernels.layered_classify_tp_reference(sh, rev, lens, 7,
+                                                           150),
+                     kernels.layered_classify(index, rev, lens, 7, 150)):
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), S
+    assert kernels.layered_classify_tp.launches == 3
