@@ -5,24 +5,29 @@
 
 Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
-  2. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
+  2. the inputs of phases 4-4e, and the CPU-bound index builds of 4, 4b
+     and 4c (`build -P -n`, `-i list -M -P -d -n`, `-P -m`, `-P -a`) in a
+     background process of this script (`--builds-only`), one after
+     another while phases 2b-3f run; phase 4 waits for them, and the
+     script ends the process if a phase fails first;
+  2b. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
      `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
      `layered_scan`, K8 `layered_classify`, K9 `occ_scan`, K10
      `occ_classify`, K11 `unpack2`, K12 `unpack4`, K13 `pml_classify_tp`,
      K14 `layered_classify_tp`, K15 `ms_scan_tp` and K16 `ms_extend_tp`
      from spumoni_tpu_torch/csrc for sm_90a, one nvcc per source, in
-     parallel;
-  2b. the inputs of phases 4-4e, and the CPU-bound index builds of 4, 4b
-     and 4c (`build -P -n`, `-i list -M -P -d -n`, `-P -m`, `-P -a`) in a
-     background process of this script (`--builds-only`), one after
-     another while phases 3-3f hold the card; phase 4 waits for them, and
-     the script ends the process if a phase fails first;
+     parallel, beside the index builds;
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
      from the index; equality is exact (integers, tolerance 0);
   3b. K3 (ms, ms+doc, pml+doc), K4, K5 and K6 vs plain versions the same
-     way, on multi-document MS indexes of the same layouts;
+     way, on multi-document MS indexes of the same layouts; K3 with
+     kernels.ms_edge_reads added (lengths 0, 1, 7, 8, 9 around its G = 8
+     threads a read, 1,023 and L; a read whose last step jumps; the
+     terminator query; ROADMAP
+     section C's W read), on the main path's layout also at L = 1,021, and
+     on section C's 3,000-base index of seed 5 at L = 1,024 and 1,021;
   3c. K7 `layered_scan` (pml, pml+doc, ms, ms+doc; int32 and int64), K8
      `layered_classify` and K4 on K7's pointers vs plain versions on small
      layered indexes: DNA of depth 2 and 3, two documents, general text
@@ -43,8 +48,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
      holding 0xFF (forward rows at 8 bits), every output file equal to a
      --device cpu run's, and the MS lengths equal to the native engine's;
   3f. the sharded index (1, 3 and 4 shards): K13 and K15 (ms, ms+doc,
-     pml+doc) and K16 vs plain versions and vs their unsharded twins K2,
-     K3 and K4 on small MS + doc block-bits indexes, K14 vs its plain
+     pml+doc; K15 also at 4 shards on the edge reads:
+     vs K3 at L = 1,024, vs its plain version at L = 1,021 on the main
+     path's layout) and K16 vs plain versions and vs their unsharded twins
+     K2, K3 and K4 on small MS + doc block-bits indexes, K14 vs its plain
      version and K8 on small layered indexes, with reads holding a byte
      past every index character (ROADMAP section C); max |err| 0 (where n
      is a multiple of P that read reaches a pad row and the twins may
@@ -77,9 +84,12 @@ Phases, each of which fails the script (exit != 0) on any fault:
      -P -n -c --report-only` (K14) and `-M -n -c -d` (K15, K16) on 4b's,
      every output file byte-identical to its unsharded twin run's;
   5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
-     on the main-path index;
-  5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the MS
-     index, and K6 through the gather-chase script's entry point at its
+     on the main-path index; in 5-5f every kernel on a 10-strain run is
+     also timed at the lanes the runs launch (B = 8,192 and 32,768:
+     LAUNCH_SHAPES), outputs equal to the full batch's rows, with its
+     bound there;
+  5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the
+     MS index, and K6 through the gather-chase script's entry point at its
      shape (R = 9,728, W = 128, L = 64);
   5c. K7 (pml, pml+doc, ms, ms+doc) and K8 vs plain at the same shape on
      4b's index with the layered engine, and K7-pml and K8 on the -m index
@@ -96,14 +106,18 @@ Phases, each of which fails the script (exit != 0) on any fault:
   5f. K13, K14, K15 (ms+doc and ms) and K16 vs plain at the main-path
      shape on 4 shards of the indexes 4e runs, each beside its unsharded
      twin (K2, K8, K3, K4) and itself on one shard, timed on the same
-     inputs, outputs equal.
+     inputs, outputs equal; K15's twin K3 also at LAUNCH_SHAPES.
 
 Every CLI run of 3e, 4, 4b, 4c, 4d and 4e, and the gather-chase script of 5b,
 is a path of its own: the launch counts are set to 0 just before it and read
 just after, and it must launch each kernel PATH_KERNELS gives it and no
 other. The line before the last is the per-kernel JSON summary: each
-kernel's launches on its paths, its time and its plain version's, and its
-bound, the least time the card could take for the same work (`_bound`);
+kernel's launches on its paths, its time and its plain version's, its
+bound, the least time the card could take for the same work (`_bound`),
+its time and bound at each of LAUNCH_SHAPES (`shapes`), the time it
+loses in each 10-strain run (`lost_ms`: launches x (ms - bound) at the
+run's lanes, timed alone), and the CUDA events around its calls in each
+run (`in_run_event_ms`: the kernel plus the card's waits on the host);
 the last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -118,6 +132,7 @@ import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -161,7 +176,7 @@ def device_phase():
 # ---------------------------------------------------------------------------
 
 def build_phase():
-    phase("2. kernel build")
+    phase("2b. kernel build")
     from spumoni_tpu_torch.engine import kernels
 
     t0 = time.time()
@@ -290,29 +305,81 @@ def _max_err(got, want) -> int:
                for g, w in zip(got, want) if g is not None)
 
 
+#: K3 / K15's modes: (mode, use_doc)
+MS_MODES = (("ms", False), ("ms", True), ("pml", True))
+
+
+def _scan_errs(scan, index, ref, ref_index, table, reads, L, device):
+    """Max |err| of K3 / K15 (`scan` on `index`) in every mode against
+    `ref` on ref_index (its plain version, or K15's twin K3), on reads at
+    width L."""
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
+
+    tab, rev, _, lens = ranked_rows(table, reads, L, device)
+    err = 0
+    for mode, doc in MS_MODES:
+        want = ref(ref_index, tab, rev, lens, mode, doc)
+        got = scan(index, tab, rev, lens, mode, doc)
+        sync(device)
+        err = max(err, _max_err(got, want))
+    return err
+
+
+#: the 3b case whose K3 also runs the edge reads at L = 1,021: the main
+#: path's layout
+EDGE_CASE = "P512-pack2"
+
+
+def _edge_check(label, index, table, text, device, L=1021):
+    """K3 against its plain version on the edge reads at width L; returns
+    the note 3b prints."""
+    from spumoni_tpu_torch.engine import kernels
+
+    edge = kernels.ms_edge_reads(text, L)
+    err = _scan_errs(kernels.ms_scan, index, kernels.ms_scan_reference,
+                      index, table, edge, L, device)
+    if err:
+        raise AssertionError(f"{label}: ms_scan on the edge reads at L = {L}"
+                             f" != plain (max |err| {err})")
+    return f"; L = {L} edge reads, B={len(edge)}"
+
+
 def small_ms_phase(device, n=20000, num_reads=300):
+    """3b: K3 in each mode (on seeded reads and ms_edge_reads; EDGE_CASE
+    also at L = 1,021), K4, K5 and K6 against their plain versions; K3 and
+    K4 also
+    against the native engine on the seeded reads. The last case is
+    ROADMAP section C's seed-5 index, on the edge reads alone (L = 1,024
+    and 1,021)."""
     phase("3b. K3-K6 vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
     from spumoni_tpu_torch.scripts import exp_vmem_gather as chase
 
     for ci, (label, build_kw, alphabet, repeat) in enumerate(SMALL_CASES):
-        text, index, table, native = _small_index(300 + ci, n, alphabet,
-                                                  repeat, build_kw, ms=True)
-        reads = _small_reads(400 + ci, text, num_reads, 1024)
+        seed = 300 + ci
+        text, index, table, native = _small_index(seed, n, alphabet, repeat,
+                                                  build_kw, ms=True)
+        seeded = _small_reads(400 + ci, text, num_reads, 1024)
+        # the edge reads add lengths 0, 1, G - 1 ... G + 1, the flush, the
+        # terminator
+        # query and section C's W (whose answer the engines do not share)
+        reads = seeded + kernels.ms_edge_reads(text, 1024)
         index = index.to(device)
         tab, rev, fwd, lens = ranked_rows(table, reads, 1024, device)
-        wptr, wlen, wdoc = native.query_ms(reads, with_docs=True)
-        plen, pdoc = native.query_pml(reads, with_docs=True)
+        wptr, wlen, wdoc = native.query_ms(seeded, with_docs=True)
+        plen, pdoc = native.query_pml(seeded, with_docs=True)
         natives = {("ms", True): (wptr, wdoc), ("pml", True): (plen, pdoc)}
-        for mode, use_doc in (("ms", False), ("ms", True), ("pml", True)):
+        for mode, use_doc in MS_MODES:
             got = kernels.ms_scan(index, tab, rev, lens, mode, use_doc)
             sync(device)
             want = kernels.ms_scan_reference(index, tab, rev, lens, mode,
                                              use_doc)
-            if _max_err(got, want):
+            err = _max_err(got, want)
+            if err:
                 raise AssertionError(f"{label}: ms_scan {mode} doc={use_doc}"
-                                     f" != ms_scan_reference")
+                                     f" != ms_scan_reference (max |err| "
+                                     f"{err})")
             if use_doc:
                 vals, docs = (t.cpu().numpy() for t in got)
                 for i, (wv, wd) in enumerate(zip(*natives[mode, use_doc])):
@@ -337,10 +404,22 @@ def small_ms_phase(device, n=20000, num_reads=300):
         if _max_err(res, kernels.binmax_values_reference(got, lens, 9,
                                                          BIN_WIDTH)):
             raise AssertionError(f"{label}: binmax_values != plain")
+        edge = ""
+        if label == EDGE_CASE:
+            edge = _edge_check(label, index, table, text, device)
         print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
               f"wide={index.meta.wide} n={index.meta.n} r={index.meta.r} "
-              f"B={len(reads)}: K3 (3 modes) == plain == native, K4 == plain "
+              f"B={len(reads)}: K3 (3 modes{edge}) == plain, == native, K4 "
+              f"== plain "
               f"== native, K5 == plain, exactly ({int(res[0].sum())} FOUND)")
+    text, index, table, _ = _small_index(5, 3000, b"ACGT", False, {},
+                                         ms=True)
+    index = index.to(device)
+    for L in (1024, 1021):
+        _edge_check("seed5-3000", index, table, text, device, L)
+    print(f"seed5-3000       P={index.meta.P} pack={index.meta.pack} "
+          f"n={index.meta.n}: K3 (3 modes) on the "
+          f"edge reads at L = 1024 and 1021 == plain, exactly")
     table, idx0 = chase.make_inputs(0, device)
     table, idx0 = table[:1024].contiguous(), (idx0[:1024] % 1024).contiguous()
     i0 = int(idx0[5, 7])
@@ -704,11 +783,12 @@ def small_tp_phase(device, num_reads=60, max_len=128):
             pairs.append((got, kernels.pml_classify_tp_reference(
                 sh, tab, rev, lens, 7, BIN_WIDTH), kernels.pml_classify(
                 index, tab, rev, lens, 7, BIN_WIDTH)))
-            for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
-                got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
-                pairs.append((got, kernels.ms_scan_tp_reference(
-                    sh, tab, rev, lens, mode, doc), kernels.ms_scan(
-                    index, tab, rev, lens, mode, doc)))
+            for mode, doc in MS_MODES:
+                want = kernels.ms_scan_tp_reference(sh, tab, rev, lens, mode,
+                                                    doc)
+                twin = kernels.ms_scan(index, tab, rev, lens, mode, doc)
+                pairs.append((kernels.ms_scan_tp(sh, tab, rev, lens, mode,
+                                                 doc), want, twin))
             ptrs = kernels.ms_scan_tp(sh, tab, rev, lens, "ms", False)[0]
             got = kernels.ms_extend_tp(sh.text, sh.text_bound, fwd, lens,
                                        ptrs)
@@ -719,13 +799,33 @@ def small_tp_phase(device, num_reads=60, max_len=128):
             plain_err = max([plain_err] + [_max_err(g, w)
                                            for g, w, _ in pairs])
             twin_err = max([twin_err] + [_max_err(g, t) for g, _, t in pairs])
-        if plain_err or (twin_ok and twin_err):
+        # K15 at S = 4 on the edge reads: against its twin K3 (held to its
+        # plain version on them in 3b) at L = 1,024 and, in the first case,
+        # also against its plain version at L = 1,021
+        S = TP_SHARDS[-1]
+        edge_err = 0
+        if twin_ok:
+            edge_err = _scan_errs(kernels.ms_scan_tp, shards[S],
+                                   kernels.ms_scan, index, table,
+                                   kernels.ms_edge_reads(text, 1024), 1024,
+                                   device)
+        if ci == 0:
+            edge_err = max(edge_err, _scan_errs(
+                kernels.ms_scan_tp, shards[S], kernels.ms_scan_tp_reference,
+                shards[S], table, kernels.ms_edge_reads(text, 1021), 1021,
+                device))
+        if plain_err or edge_err or (twin_ok and twin_err):
             raise AssertionError(f"{label}: K13 / K15 / K16 != plain (max "
-                                 f"|err| {plain_err}) or twins ({twin_err})")
+                                 f"|err| {plain_err}; K15 on the edge reads "
+                                 f"{edge_err}) or twins ({twin_err})")
         print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
               f"wide={index.meta.wide} n={index.meta.n} S={TP_SHARDS} "
               f"B={len(reads)}: K13, K15 (3 modes), K16 == plain, max |err| "
-              f"0; vs twins K2, K3, K4: max |err| {twin_err}"
+              f"0; K15 at S={S}"
+              f" on the edge reads: " + ("== K3 at L = 1024" if twin_ok
+                                         else "not run (pad row)")
+              + ("; == plain at L = 1021" if ci == 0 else "")
+              + f"; vs twins K2, K3, K4: max |err| {twin_err}"
               + ("" if twin_ok else " (position n in a pad row)"))
     for ci, docs in enumerate((False, True)):
         text, index, _ = seeded_layered(1800 + ci, 20000, docs=docs)
@@ -845,8 +945,10 @@ def _native_engine(index_path):
 
 
 class _KernelTimer:
-    """CUDA-event time of every launch a wrapper makes while installed
-    (the wrapper itself, and so its launch count, is unchanged)."""
+    """CUDA-event time around every call of a wrapper while installed (the
+    wrapper itself, and so its launch count, is unchanged). Where the card
+    is idle when the first event is recorded, the time holds the host's
+    work in the wrapper too: an upper bound of the kernel's time."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -949,7 +1051,8 @@ def _timed_cli_run(device, path, args, cpu_run=False):
               launches=kernels.launch_counts())
     _check_launches(path, st["launches"], cpu_run)
     if timers:
-        st["kernel_ms"] = sum(t.ms() for t in timers)
+        st["kernel_ms_by"] = {t.name: t.ms() for t in timers}
+        st["kernel_ms"] = sum(st["kernel_ms_by"].values())
     return st
 
 
@@ -959,8 +1062,10 @@ def _print_runs(stats):
         own = {k: st["launches"][k] for k in PATH_KERNELS[label]}
         print(f"run {label}: {st['reads']} reads in {st['stream_s']:.3f} s "
               f"streaming -> {st['reads'] / st['stream_s']:.1f} reads/s; "
-              f"wall {st['wall_s']:.1f} s; kernel time {kms:.3f} ms "
-              f"(device idle share of the stream "
+              f"wall {st['wall_s']:.1f} s; in-run event time {kms:.3f} ms "
+              + "".join(f"({' + '.join(f'{k} {v:.3f}' for k, v in by.items())}) "
+                        for by in [st.get("kernel_ms_by")] if by)
+              + f"(device idle share of the stream at least "
               f"{1 - kms / 1e3 / st['stream_s']:.4f}); launches {own}, "
               f"no other kernel")
 
@@ -1025,9 +1130,10 @@ def run_builds():
 
 def start_builds(strains, n_reads):
     """write_inputs, then run_builds in a process of its own (this script
-    with --builds-only), so that the CPU-bound builds run while phases 3-3f
-    hold the card; its output goes to WORK/builds.log."""
-    phase("2b. inputs of phases 4-4e, and their index builds started in the "
+    with --builds-only), so that the CPU-bound builds run while the kernels
+    build and phases 3-3f hold the card; its output goes to
+    WORK/builds.log."""
+    phase("2. inputs of phases 4-4e, and their index builds started in the "
           "background")
     write_inputs(strains, n_reads=n_reads)
     with open(os.path.join(WORK, "builds.log"), "wb") as log:
@@ -1390,10 +1496,35 @@ def _scan_work(name, index_tensors, reads, lens, tab=None, dependent=1):
     must read (one sector per dependent row read, at most the whole
     index); operations STEP_OPS[name] per step. _time_kernel adds the
     outputs, each written once."""
-    steps = int(lens.clamp(0, reads.shape[1]).sum())
+    steps = _steps(lens, reads.shape[1])
     nbytes = (steps + _nbytes(lens, tab)
               + min(_nbytes(*index_tensors), steps * SECTOR * dependent))
     return nbytes, steps * STEP_OPS[name]
+
+
+def _steps(lens, L) -> int:
+    return int(lens.clamp(0, L).sum())
+
+
+def _reads_work(name, index_tensors, dependent=1, tab=True):
+    """work(args) of a scan whose arguments start (index, tab, reads, lens)
+    (tab=False: (index, reads, lens)): _scan_work on the call's reads."""
+    if tab:
+        return lambda a: _scan_work(name, index_tensors, a[2], a[3], a[1],
+                                    dependent)
+    return lambda a: _scan_work(name, index_tensors, a[1], a[2],
+                                dependent=dependent)
+
+
+def _extend_work(name, text_tensors):
+    """work(args) of K4 / K16 (text, text_bound, reads, lens, ptrs): each
+    step reads a read byte, a pointer and, at most once, a text sector."""
+    def work(a):
+        steps = _steps(a[3], a[2].shape[1])
+        return (min(_nbytes(*text_tensors), steps * SECTOR) + steps
+                + steps * a[4].element_size() + _nbytes(a[3]),
+                steps * STEP_OPS[name])
+    return work
 
 
 def _bound(nbytes, ops) -> dict:
@@ -1436,15 +1567,16 @@ def _engine(path, device, *args, **kw):
 
 def _staged(engine, reads_path, n_reads):
     """The phase-4 reads staged by `engine` as one group of n_reads, its
-    rows decoded (_decoded); staged once per engine."""
+    rows decoded (_decoded); staged once per engine (a weak reference
+    tells a live engine from a new one at a freed one's id)."""
     from spumoni_tpu_torch.io.fastx_batch import iter_packed_batches
 
     key = (id(engine), reads_path, n_reads)
-    if key not in _STAGED:
+    if key not in _STAGED or _STAGED[key][0]() is not engine:
         pk = next(iter_packed_batches(reads_path, 1 << 40, upper=True))
         (g,) = engine.stage(pk, max_lanes=n_reads)
-        _STAGED[key] = _decoded(engine, g)
-    return _STAGED[key]
+        _STAGED[key] = (weakref.ref(engine), _decoded(engine, g))
+    return _STAGED[key][1]
 
 
 def _decoded(engine, g):
@@ -1472,20 +1604,22 @@ def timing_phase(device, prefix, reads, n_reads):
         _time_kernel("pml_scan", kernels.pml_scan,
                      kernels.pml_scan_reference, args, src,
                      "spumoni_tpu/engine/scan_engine.py:145",
-                     _scan_work("pml_scan", rows, *args[2:], args[1])),
+                     _reads_work("pml_scan", rows)),
         _time_kernel("pml_classify", kernels.pml_classify,
                      kernels.pml_classify_reference, (*args, 7, BIN_WIDTH),
                      src, "spumoni_tpu/parallel/mesh.py:128",
-                     _scan_work("pml_classify", rows, *args[2:], args[1]))]
+                     _reads_work("pml_classify", rows))]
 
 
 def _time_kernel(name, kern, plain, args, source, replaces, work,
-                 plain_turns=2):
+                 plain_turns=2, shapes=True):
     """CUDA-event ms per call of a kernel wrapper and of its plain version,
     in turns (plain, kernel warm-up + 5 timed calls, plain; with
     plain_turns=1 the second plain call is left out); fails unless the
-    outputs are equal (tolerance 0: integer outputs). work = (input bytes,
-    operations) for the bound, to which the outputs are added."""
+    outputs are equal (tolerance 0: integer outputs). work(args) = (input
+    bytes, operations) of a call, for the bound, to which the outputs are
+    added. With shapes, the kernel is also timed at LAUNCH_SHAPES
+    (_time_shapes)."""
     plain_ms1, want = _time_ms(lambda: plain(*args), 1)
     kern(*args)
     ms, got = _time_ms(lambda: kern(*args), 5)
@@ -1495,30 +1629,74 @@ def _time_kernel(name, kern, plain, args, source, replaces, work,
     if err:
         raise AssertionError(f"{name}: kernel != plain (max |err| {err})")
     plain_ms = (plain_ms1 + plain_ms2) / 2
-    outs = got if isinstance(got, (tuple, list)) else (got,)
-    bound = _bound(work[0] + _nbytes(*outs), work[1])
+    bound = _call_bound(work, args, got)
     print(f"{name}: kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
           f"({plain_ms1:.3f}, {plain_ms2:.3f}); bound {bound['bound_ms']:.4f}"
           f" ms ({bound['bound_by']}); max |err| 0 (tolerance 0: integer "
           f"outputs)")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+    result = dict(name=name, route="cuda", source=source, replaces=replaces,
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+    return _time_shapes(result, kern, args, got, work) if shapes else result
+
+
+def _call_bound(work, args, out) -> dict:
+    """_bound of a call on args: work(args) plus its outputs, each written
+    once."""
+    nbytes, ops = work(args)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return _bound(nbytes + _nbytes(*outs), ops)
 
 
 def _with_modes(name, timed):
     """One kernel's line from its timings by mode ({label: result}): the
     first mode's numbers, the largest |err|, and every mode's ms, plain_ms,
-    bound_ms and max_abs_err (and a sharded kernel's twin, twin_ms and
-    one_shard_ms) under `modes`."""
+    bound_ms, max_abs_err and ms by lane count (shapes; and a sharded
+    kernel's twin, twin_ms and one_shard_ms) under `modes`."""
     first = next(iter(timed.values()))
     return dict(first, name=name,
                 max_abs_err=max(r["max_abs_err"] for r in timed.values()),
                 modes={label: {k: r[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms",
                                                  "max_abs_err", "twin",
-                                                 "twin_ms", "one_shard_ms")
+                                                 "twin_ms", "one_shard_ms",
+                                                 "shapes", "twin_shapes")
                                if k in r}
                        for label, r in timed.items()})
+
+
+#: lane counts the runs launch: value runs stage at most 8,192 lanes a
+#: group (pipeline.py), report-only runs a parse batch of 32,768 reads
+LAUNCH_SHAPES = (8192, 32768)
+
+
+def _time_shapes(result, kern, args, full, work):
+    """Times `kern` on the first B lanes of its arguments at each of
+    LAUNCH_SHAPES below the full batch (every tensor argument of the full
+    batch's rows cut: reads, lens, pointers, values), warm-up + 5 calls,
+    and fails unless each output equals the first B rows of the full
+    batch's (`full`, itself held to the plain version). Adds {B: {ms,
+    bound_ms}} to result['shapes'], the full batch's included; bound_ms
+    from work on the cut arguments (_call_bound)."""
+    full = full if isinstance(full, (tuple, list)) else (full,)
+    B_full = full[0].shape[0]
+    shapes = {B_full: dict(ms=result["ms"], bound_ms=result["bound_ms"])}
+    for B in (b for b in LAUNCH_SHAPES if b < B_full):
+        sub = tuple(a[:B].contiguous() if isinstance(a, torch.Tensor)
+                    and a.dim() and a.shape[0] == B_full else a for a in args)
+        kern(*sub)
+        ms, got = _time_ms(lambda: kern(*sub), 5)
+        err = _max_err(got, tuple(None if f is None else f[:B]
+                                  for f in full))
+        if err:
+            raise AssertionError(f"{result['name']} at B={B} != the full "
+                                 f"batch's rows (max |err| {err})")
+        shapes[B] = dict(ms=ms,
+                         bound_ms=_call_bound(work, sub, got)["bound_ms"])
+    result["shapes"] = dict(sorted(shapes.items()))
+    print(f"  {result['name']} by lanes: " + ", ".join(
+        f"B={B} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f})"
+        for B, v in result["shapes"].items()))
+    return result
 
 
 def ms_timing_phase(device, ms_prefix, reads, n_reads):
@@ -1548,34 +1726,30 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     # with doc tracking; the row and the msrow every step
     tables = {"ms": (index.jump_t,), "ms+doc": (index.jump_t, index.jump_d),
               "pml+doc": (index.jump_d,)}
-    modes = {label: _time_kernel(
-                 f"ms_scan {label}", kernels.ms_scan,
-                 kernels.ms_scan_reference,
-                 (index, g["tab"], g["rev_d"], lens, mode, doc), src,
-                 replaces,
-                 _scan_work("ms_scan", (index.bblocks, index.msrows,
-                                        *tables[label]),
-                            g["rev_d"], lens, g["tab"], dependent=2))
-             for label, mode, doc in (("ms", "ms", False),
-                                      ("ms+doc", "ms", True),
-                                      ("pml+doc", "pml", True))}
-    steps = int(lens.sum())
-    ext_work = (min(_nbytes(index.text), steps * SECTOR) + steps
-                + steps * ptrs.element_size() + _nbytes(lens),
-                steps * STEP_OPS["ms_extend"])
-    results = [_with_modes("ms_scan", modes)]
+    modes = {}
+    for label, mode, doc in (("ms", "ms", False), ("ms+doc", "ms", True),
+                             ("pml+doc", "pml", True)):
+        args = (index, g["tab"], g["rev_d"], lens, mode, doc)
+        modes[label] = _time_kernel(
+            f"ms_scan {label}", kernels.ms_scan, kernels.ms_scan_reference,
+            args, src, replaces,
+            _reads_work("ms_scan", (index.bblocks, index.msrows,
+                                    *tables[label]), dependent=2))
+    results = [dict(_with_modes("ms_scan", modes), group=kernels.MS_GROUP)]
     results += [
         _time_kernel("ms_extend", kernels.ms_extend,
                      kernels.ms_extend_reference,
                      (index.text, index.text_bound, g["fwd_d"], lens, ptrs),
                      src, "spumoni_tpu/engine/scan_engine.py:1042",
-                     ext_work),
+                     _extend_work("ms_extend", (index.text,))),
         _time_kernel("binmax_values", kernels.binmax_values,
                      kernels.binmax_values_reference,
                      (ms_len, lens, 7, BIN_WIDTH), src,
                      "spumoni_tpu/engine/scan_engine.py:1110",
-                     (steps * ms_len.element_size() + _nbytes(lens),
-                      steps * STEP_OPS["binmax_values"]))]
+                     lambda a: (_steps(a[1], a[0].shape[1])
+                                * a[0].element_size() + _nbytes(a[1]),
+                                _steps(a[1], a[0].shape[1])
+                                * STEP_OPS["binmax_values"]))]
     # K6 through the script's own entry point, as a path of its own
     kernels.reset_launch_counts()
     res = chase.main([])
@@ -1608,10 +1782,10 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
     k7 = "spumoni_tpu/engine/scan_engine.py:120"
     k8_src = "spumoni_tpu/parallel/mesh.py:128"
 
-    def work(name, index, g):
-        return _scan_work(name, (index.charmeta, *index.levels,
-                                 index.fields), g["rev_d"], g["lens_d"],
-                          dependent=index.meta.depth + 1)
+    def work(name, index):
+        return _reads_work(name, (index.charmeta, *index.levels,
+                                  index.fields),
+                           dependent=index.meta.depth + 1, tab=False)
 
     engine = pipeline.make_engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
                                   use_doc=True, engine="layered")
@@ -1626,7 +1800,7 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
                                  kernels.layered_scan,
                                  kernels.layered_scan_reference,
                                  (*args, mode, doc), src, k7,
-                                 work("layered_scan", index, g))
+                                 work("layered_scan", index))
              for label, mode, doc in (("pml", "pml", False),
                                       ("pml+doc", "pml", True),
                                       ("ms", "ms", False),
@@ -1643,7 +1817,7 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
         "layered_classify 10-strain", kernels.layered_classify,
         kernels.layered_classify_reference,
         (engine.index, g["rev_d"], g["lens_d"], 7, BIN_WIDTH), src, k8_src,
-        work("layered_classify", engine.index, g))}
+        work("layered_classify", engine.index))}
     del engine, g
     engine = pipeline.make_engine(m_prefix + ".bin.thrbv.spumoni", device)
     pk = digest_packed(next(iter_packed_batches(m_reads, 1 << 40,
@@ -1659,11 +1833,11 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
     modes["-m pml"] = _time_kernel(
         "layered_scan -m pml", kernels.layered_scan,
         kernels.layered_scan_reference, (*args, "pml", False), src, k7,
-        work("layered_scan", engine.index, g))
+        work("layered_scan", engine.index), shapes=False)
     k8["-m"] = _time_kernel(
         "layered_classify -m", kernels.layered_classify,
         kernels.layered_classify_reference, (*args, 7, BIN_WIDTH), src,
-        k8_src, work("layered_classify", engine.index, g))
+        k8_src, work("layered_classify", engine.index), shapes=False)
     return [_with_modes("layered_scan", modes),
             _with_modes("layered_classify", {"-m": k8["-m"],
                                              "10-strain": k8["10-strain"]})]
@@ -1721,13 +1895,13 @@ def occ_timing_phase(device, ms_prefix, ms_reads, n_reads):
             f"occ_scan {label}", kernels.occ_scan,
             kernels.occ_scan_reference, (*args, mode, use_doc), src,
             "spumoni_tpu/engine/scan_engine.py:220",
-            _scan_work("occ_scan", cols, *args[2:], args[1]))
+            _reads_work("occ_scan", cols))
         if label == "pml":
             k10 = _time_kernel(
                 "occ_classify", kernels.occ_classify,
                 kernels.occ_classify_reference, (*args, 7, BIN_WIDTH), src,
                 "spumoni_tpu/parallel/mesh.py:128",
-                _scan_work("occ_classify", cols, *args[2:], args[1]))
+                _reads_work("occ_classify", cols))
         del engine, g, index, args, cols
     return [_with_modes("occ_scan", timed), k10]
 
@@ -1768,23 +1942,29 @@ def staging_timing_phase(device, prefix, reads, n_reads):
             f"unpack2 {label}", kernels.unpack2, kernels.unpack2_reference,
             (g["rev_p"], g["ranks2"], g["exc_d"], g["lens_d"]), src,
             "spumoni_tpu/engine/scan_engine.py:1189",
-            (_nbytes(g["rev_p"], g["exc_d"], g["lens_d"]),
-             B * L * STEP_OPS["unpack2"]))
+            lambda a: (_nbytes(a[0], a[2], a[3]),
+                       a[0].shape[0] * L * STEP_OPS["unpack2"]),
+            # the exceptions name rows of the whole batch: no cut
+            shapes=g["exc_d"] is None)
     g = groups["as staged"][0]
     sel, lens = g["idxs"], g["lens_d"]
     p4 = torch.from_numpy(pack_rows_native(
         pk.buf, pk.offs[sel], pk.offs[sel + 1], len(sel), g["L"],
         engine._stage_amap, False, 4)[0]).to(device)
     table = _alpha_table(g["alpha"])
-    work4 = (_nbytes(p4, lens), p4.numel() * 2 * STEP_OPS["unpack4"])
+    # K12 runs on 3e's paths only: no run's shape to time it at
+    def work4(a):
+        return _nbytes(a[0], a[1]), a[0].numel() * 2 * STEP_OPS["unpack4"]
+
     k12 = {"byte table": _time_kernel(
                "unpack4 byte table", kernels.unpack4,
                kernels.unpack4_reference, (p4, lens, table), src,
-               "spumoni_tpu/engine/scan_engine.py:1178", work4),
+               "spumoni_tpu/engine/scan_engine.py:1178", work4,
+               shapes=False),
            "plain": _time_kernel(
                "unpack4", kernels.unpack4, kernels.unpack4_reference,
                (p4, lens), src, "spumoni_tpu/engine/scan_engine.py:1169",
-               work4)}
+               work4, shapes=False)}
     codes = kernels.unpack4(p4, lens).long()
     lut = torch.tensor(table, dtype=torch.uint8, device=device)
     _time_ms(lambda: lut[codes], 1)   # warm-up
@@ -1877,8 +2057,7 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
                      kernels.pml_classify_tp_reference, args,
                      "spumoni_tpu_torch/csrc/blockbits_pml.cu",
                      "spumoni_tpu/parallel/tp.py:144",
-                     _scan_work("pml_classify_tp", cut[S].bblocks.shards,
-                                g["rev_d"], g["lens_d"], g["tab"]),
+                     _reads_work("pml_classify_tp", cut[S].bblocks.shards),
                      plain_turns=1)
     _time_twin(r, "pml_classify", kernels.pml_classify,
                (engine.index, *args[1:]), kernels.pml_classify_tp(*args),
@@ -1899,11 +2078,10 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
                      kernels.layered_classify_tp_reference, args,
                      "spumoni_tpu_torch/csrc/layered.cu",
                      "spumoni_tpu/engine/layered.py:327",
-                     _scan_work("layered_classify_tp",
-                                (cut[S].charmeta, *cut[S].levels,
-                                 *cut[S].fields.shards),
-                                g["rev_d"], g["lens_d"],
-                                dependent=m.depth + 1),
+                     _reads_work("layered_classify_tp",
+                                 (cut[S].charmeta, *cut[S].levels,
+                                  *cut[S].fields.shards),
+                                 dependent=m.depth + 1, tab=False),
                      plain_turns=1)
     _time_twin(r, "layered_classify", kernels.layered_classify,
                (engine.index, *args[1:]), kernels.layered_classify_tp(*args),
@@ -1921,29 +2099,31 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
         args = (sh, g["tab"], g["rev_d"], lens, "ms", doc)
         tables = [*sh.bblocks.shards, *sh.msrows.shards, *sh.jump_t.shards,
                   *(sh.jump_d.shards if doc else ())]
+        work = _reads_work("ms_scan_tp", tables, dependent=2)
         r = _time_kernel(f"ms_scan_tp {label}", kernels.ms_scan_tp,
                          kernels.ms_scan_tp_reference, args,
                          "spumoni_tpu_torch/csrc/blockbits_ms.cu",
-                         "spumoni_tpu/parallel/tp.py:297",
-                         _scan_work("ms_scan_tp", tables, g["rev_d"], lens,
-                                    g["tab"], dependent=2),
+                         "spumoni_tpu/parallel/tp.py:297", work,
                          plain_turns=1)
         got = kernels.ms_scan_tp(*args)
         _time_twin(r, f"ms_scan {label}", kernels.ms_scan,
                    (engine.index, *args[1:]), got,
                    (kernels.ms_scan_tp, (cut[1], *args[1:])))
+        twin = dict(name=f"twin ms_scan {label}", ms=r["twin_ms"],
+                    bound_ms=r["bound_ms"])
+        _time_shapes(twin, kernels.ms_scan, (engine.index, *args[1:]), got,
+                     work)
+        r["twin_shapes"] = twin["shapes"]
         modes[label] = r
-    results.append(_with_modes("ms_scan_tp", modes))
+    results.append(dict(_with_modes("ms_scan_tp", modes),
+                        group=kernels.MS_GROUP))
     ptrs = got[0]
-    steps = int(lens.sum())
     args = (sh.text, sh.text_bound, g["fwd_d"], lens, ptrs)
     r = _time_kernel("ms_extend_tp", kernels.ms_extend_tp,
                      kernels.ms_extend_tp_reference, args,
                      "spumoni_tpu_torch/csrc/blockbits_ms.cu",
                      "spumoni_tpu/engine/scan_engine.py:724",
-                     (min(_nbytes(*sh.text.shards), steps * SECTOR) + steps
-                      + steps * ptrs.element_size() + _nbytes(lens),
-                      steps * STEP_OPS["ms_extend_tp"]),
+                     _extend_work("ms_extend_tp", sh.text.shards),
                      plain_turns=1)
     _time_twin(r, "ms_extend", kernels.ms_extend,
                (engine.index.text, engine.index.text_bound, *args[2:]),
@@ -1952,6 +2132,79 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
                                        *args[2:])))
     results.append(r)
     return results
+
+
+def _annotate(results, runs, chase_counts):
+    """Adds each path's launches, in-run event times and lost time to the
+    kernel lines (runs: each CLI run's stats by path), and prints the lost
+    times. A kernel's `launches` is its first path's."""
+    paths = {label: st["launches"] for label, st in runs.items()}
+    paths["exp_vmem_gather"] = chase_counts
+    for r in results:
+        own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]
+        r["launches"] = paths[own[0]][r["name"]]
+        r["launches_by_path"] = {p: paths[p][r["name"]] for p in own}
+        # the events around its calls in each run: the kernel and the
+        # card's waits on the host between the two events
+        r["in_run_event_ms"] = {
+            p: dict(launches=paths[p][r["name"]],
+                    event_ms=runs[p]["kernel_ms_by"][r["name"]])
+            for p in own if "kernel_ms_by" in runs.get(p, {})}
+        r["lost_ms"] = _lost_time(r, own, paths)
+    _print_lost(results)
+
+
+def _run_lanes(path):
+    """The lanes of each launch of a 10-strain run (phases 4-4e): a
+    report-only run's parse batch of 32,768 reads, a value run's group of
+    8,192 (pipeline.py); None for 3e's runs and the digested runs (-m,
+    -a), whose launches take other shapes."""
+    if path.startswith(("S-", "m-", "a-")) or path == "exp_vmem_gather":
+        return None
+    return 32768 if path.endswith("report-only") else 8192
+
+
+def _run_line(r, path):
+    """The timed line (shapes) of kernel line r in the mode run `path`
+    launches it in."""
+    modes = r.get("modes")
+    if modes is None:
+        return r
+    if r["name"] == "layered_classify":
+        return modes["10-strain"]
+    if r["name"] == "unpack2":
+        return modes["as staged"]
+    return modes[("ms" if "M-" in path else "pml")
+                 + ("+doc" if "-d" in path else "")]
+
+
+def _lost_time(r, own, paths):
+    """Per 10-strain run of kernel line r: launches x (ms - bound_ms) at
+    the run's lanes, both timed alone on this run's inputs
+    (_time_shapes)."""
+    lost = {}
+    for p in own:
+        lanes = _run_lanes(p)
+        # none where the batch is smaller than the run's lanes (--reads)
+        shape = None if lanes is None else _run_line(r, p).get(
+            "shapes", {}).get(lanes)
+        if shape is None:
+            continue
+        n = paths[p][r["name"]]
+        lost[p] = dict(lanes=lanes, launches=n, ms=shape["ms"],
+                       bound_ms=shape["bound_ms"],
+                       lost_ms=n * (shape["ms"] - shape["bound_ms"]))
+    return lost
+
+
+def _print_lost(results):
+    rows = sorted(((v["lost_ms"], r["name"], p, v) for r in results
+                   for p, v in r.get("lost_ms", {}).items()), reverse=True)
+    print("lost a run, launches x (ms - bound) at the run's lanes, each "
+          "kernel timed alone:")
+    for lost, name, p, v in rows:
+        print(f"  {lost:9.3f} ms  {name} in {p}: {v['launches']} x "
+              f"({v['ms']:.3f} - {v['bound_ms']:.4f}) at B={v['lanes']}")
 
 
 def main(argv=None) -> int:
@@ -1975,9 +2228,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
 
     dev, name, _ = device_phase()
-    build_phase()
     build_proc = start_builds(args.strains, args.reads)
     try:
+        build_phase()
         return _phases(args, dev, name, build_proc)
     finally:
         if build_proc.poll() is None:
@@ -2030,17 +2283,9 @@ def _phases(args, dev, name, build_proc) -> int:
     results += tp_timing_phase(dev, prefix, reads, ms_prefix, ms_reads,
                                args.reads)
     sync(dev)
-    # each path's own counts; a kernel reports those of the paths it is on,
-    # `launches` being its first path's
-    paths = {label: st["launches"]
-             for label, st in {**stg_stats, **stats, **ms_stats,
-                               **lay_stats, **dig_stats,
-                               **occ_stats, **tp_stats}.items()}
-    paths["exp_vmem_gather"] = chase_counts
-    for r in results:
-        own = [p for p in PATH_KERNELS if r["name"] in PATH_KERNELS[p]]
-        r["launches"] = paths[own[0]][r["name"]]
-        r["launches_by_path"] = {p: paths[p][r["name"]] for p in own}
+    runs = {**stg_stats, **stats, **ms_stats, **lay_stats, **dig_stats,
+            **occ_stats, **tp_stats}
+    _annotate(results, runs, chase_counts)
     print(f"chip_smoke: all phases passed in {time.time() - _T0:.1f} s")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

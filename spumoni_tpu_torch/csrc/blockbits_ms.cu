@@ -23,18 +23,36 @@
 //       shards of whole 512-byte rows, zero past the text.
 //
 // Bounds and design:
-//   K3 is K1's dependent pointer chase (one random row read per step, the
-//   next position comes from it) plus one msrow read of the same block and
-//   two independent table reads (jump_t / jump_d at the jump id). One
-//   thread per read carries (pos, jump id, d or length) in registers; the
-//   run-rank words are read before the probe so both row reads are in
-//   flight together. Latency-bound, like K1.
+//   K3 is a dependent chase: step t's row and msrow are those of the
+//   block holding the position step t-1 computed. What bounds it on the
+//   H100 is the latency of that chain, and at the lane counts the runs
+//   launch (8,192 a value-run group, 32,768 a report-only batch) the card
+//   is mostly empty. The first design, one thread per read with a loop
+//   over the char words and one over the run-start words before the
+//   offset, ran each step as up to 16 dependent L1 / L2 round trips: ptxas
+//   reuses two registers through the unrolled loops. So each step now
+//   (csrc/ms_step.cuh) issues all its loads at once: the char region and
+//   the code's run-start words as fixed, unrolled, predicated loads of
+//   16 bytes (8 and 4 of them at P = 512, pack = 2; 8 or 4 bytes where the
+//   layout's row or msrow stride or offsets are not 16-byte aligned), a
+//   load past the offset predicated off, plus the checkpoint, up-bit,
+//   high-byte and msrow checkpoint words. kGroup = 8 threads per read
+//   split those loads, and sum the two in-block ranks and the code at the
+//   offset with __shfl_xor_sync; every lane carries the same (pos, jump
+//   id, run). G = 8 was the fastest of 1, 2, 4 and 8 at every lane count
+//   the runs launch (8,192 and 32,768) and at 65,536, and no run launches
+//   more, so only G = 8 is built. The jump-table reads leave the chain:
+//   step t's lane t % G reads jump_t / jump_d at the step's jump id, and
+//   the group stores G consecutive outputs at once after the next step's
+//   row loads have issued (the last, partial group after the read). The
+//   mode is a runtime argument.
 //   K4 is one thread per read walking at most 3 L (read byte, text byte)
 //   compares; each text read is a random access into the ~92 MB text.
 //   K5 is one warp per read: coalesced reads of the value row, a warp max
 //   per bin. Bandwidth-bound on the [B, L] matrix.
 //   K15 / K16 are K3 / K4's bodies with each table read from its shard:
-//   one divide more per read, no collective.
+//   K15 takes K3's step (ms_step.cuh) on the shard's row and msrow, one
+//   divide more per read, no collective.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -46,90 +64,75 @@
 #include <type_traits>
 
 #include "blockbits_pml.cuh"
+#include "ms_step.cuh"
 #include "sharded.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
+constexpr int kGroup = 8;  // threads per read of K3 / K15
 
-enum Mode { kMs = 0, kMsDoc = 1, kPmlDoc = 2 };
+template <bool WIDE>
+using PosOf = typename std::conditional<WIDE, long long, int32_t>::type;
 
-// Char-local run rank at pos for code rk: the msrow checkpoint plus the
-// run-start bits at offsets < off (blockbits.py:874-892).
-template <int P, int PACK>
-__device__ __forceinline__ int run_rank(const uint32_t* __restrict__ msrows,
-                                        const spn::IndexScalars& s,
-                                        long long pos, int rk) {
-  constexpr int NSLOTS = PACK == 2 ? 4 : 8;
-  constexpr int WPC = P / 32;
-  constexpr int WM = NSLOTS * (1 + WPC);
-  const uint32_t* mrow = msrows + spn::block_of<P>(s, pos) * WM;
-  const int off = (int)(pos & (P - 1));
-  const uint32_t* bits = mrow + NSLOTS + rk * WPC;
-  const int wcut = off >> 5;
-  int k = (int)__ldg(mrow + rk);
-  for (int w = 0; w < wcut; ++w) k += __popc(__ldg(bits + w));
-  return k + __popc(__ldg(bits + wcut) & ((1u << (off & 31)) - 1u));
-}
-
-template <int P, int PACK, bool WIDE, int MODE>
+// K3: a group of G threads per read steps it through spn::ms_probe, every
+// lane carrying the same (pos, jump id, run); lane t % G reads step t's
+// jump-table entries, and the group stores G outputs at once a step later.
+template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 ms_scan_kernel(const uint32_t* __restrict__ rows,
                const uint32_t* __restrict__ msrows,
                const long long* __restrict__ tab_g, int sq,
                const uint8_t* __restrict__ reads,
                const long long* __restrict__ lens, long long B, long long L,
-               const typename std::conditional<WIDE, long long,
-                                               int32_t>::type* jump_t,
-               const int32_t* __restrict__ jump_d,
-               typename std::conditional<WIDE, long long, int32_t>::type* vals,
-               typename std::conditional<WIDE, long long, int32_t>::type* docs,
-               spn::IndexScalars s) {
-  using PosT = typename std::conditional<WIDE, long long, int32_t>::type;
-  constexpr int NSLOTS = PACK == 2 ? 4 : 8;
+               const PosOf<WIDE>* __restrict__ jump_t,
+               const int32_t* __restrict__ jump_d, PosOf<WIDE>* vals,
+               PosOf<WIDE>* docs, spn::IndexScalars s, int mode) {
+  using PosT = PosOf<WIDE>;
+  constexpr int G = kGroup;
+  constexpr int W = spn::Layout<P, PACK, WIDE>::W;
+  constexpr int WM = spn::MsStepLayout<P, PACK, WIDE, G>::WM;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   long long len = lens[b];
   len = len < 0 ? 0 : len > L ? L : len;
   const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
-  PosT* ov = vals + b * L + len - 1;  // forward position len-1-t
-  PosT* od = MODE == kPmlDoc || MODE == kMsDoc ? docs + b * L + len - 1
-                                               : nullptr;
+  spn::MsSlots<PosT> out = {vals + b * L + len - 1,
+                            docs ? docs + b * L + len - 1 : nullptr, 0, 0,
+                            0, mode};
   const int empty_id = (int)(2 * s.r);  // EMPTY; INIT is 2r+1
   long long pos = s.n - 1;
   int jidx = empty_id + 1;
   int run = 0;  // MS: matches since the last jump (d); PML: the length
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's character ...
+  int cn = tab.code[qn];             // ... and its code
   for (long long t = 0; t < len; ++t) {
-    const int qc = __ldg(rd + t);
-    const int code = tab.code[qc];
-    const int rk = code < NSLOTS - 1 ? code : NSLOTS - 1;
-    // the msrow read first: independent of the row read, both in flight
-    const int k_local = run_rank<P, PACK>(msrows, s, pos, rk);
-    const spn::Probe pr = spn::probe<P, PACK, WIDE>(rows, tab, s, pos, qc);
-    int jdown = 2 * (tab.run_base[qc] + k_local);
-    if (pr.is_tq) jdown = (int)(2 * s.term_runidx);
-    // a jump up targets the previous run's END entry (jdown - 1)
-    int jjump = pr.jump_up ? jdown - 1 : jdown;
-    jjump = jjump < 0 ? 0 : jjump;
-    if (MODE == kPmlDoc) {
+    const int qc = qn, code = cn;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
+    const long long blk = spn::block_of<P>(s, pos);
+    const spn::MsProbe pr = spn::ms_probe<P, PACK, WIDE, G>(
+        rows + blk * W, msrows + blk * WM, tab, s, pos, qc, code, lane);
+    // the last group's outputs, after this step's row loads
+    if (t > 0 && (t & (G - 1)) == 0) out.store(t - G + lane);
+    if (mode == spn::kPmlDoc) {
       // an absent character KEEPS the doc (compute_ms_pml.cpp:303)
-      if (!pr.is_match && !pr.empty) jidx = jjump;
-      run = pr.is_match ? run + 1 : 0;
-      ov[-t] = (PosT)run;
-    } else {
-      // an absent character resets to EMPTY (:639-643)
-      if (!pr.is_match) jidx = pr.empty ? empty_id : jjump;
-      run = pr.is_match ? run + 1 : 0;
-      // may go negative: the reference's unsigned underflow, kept signed
-      ov[-t] = (PosT)(jump_t[jidx] - (PosT)run);
+      if (!pr.is_match && !pr.empty) jidx = pr.jjump;
+    } else if (!pr.is_match) {
+      jidx = pr.empty ? empty_id : pr.jjump;  // absent: EMPTY (:639-643)
     }
-    if (MODE != kMs) od[-t] = (PosT)jump_d[jidx];
+    run = pr.is_match ? run + 1 : 0;
+    if ((t & (G - 1)) == lane) out.stage(jidx, run, jump_t, jump_d);
     pos = pr.new_pos;
+    cn = tab.code[qn];
   }
+  const long long last = len > 0 ? (len - 1) / G * G + lane : len;
+  if (last < len) out.store(last);
 }
 
 template <typename PosT>
@@ -169,70 +172,64 @@ ms_extend_kernel(const uint8_t* __restrict__ text, long long ntext,
   }
 }
 
-// K15: K3 with the tables in shards; run_rank and spn::probe read the step's
-// msrow and row through their shard's base (ShardedRows::base).
-template <int P, int PACK, bool WIDE, int MODE>
+// K15: K3 with the tables in shards: the step's row and msrow from their
+// shard (spn::shard_at), each jump-table entry from its own.
+template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
-ms_scan_tp_kernel(
-    const spn::ShardedRows<uint32_t> rows,
-    const spn::ShardedRows<uint32_t> msrows,
-    const long long* __restrict__ tab_g, int sq,
-    const uint8_t* __restrict__ reads, const long long* __restrict__ lens,
-    long long B, long long L,
-    const spn::ShardedRows<
-        typename std::conditional<WIDE, long long, int32_t>::type> jump_t,
-    const spn::ShardedRows<int32_t> jump_d,
-    typename std::conditional<WIDE, long long, int32_t>::type* vals,
-    typename std::conditional<WIDE, long long, int32_t>::type* docs,
-    spn::IndexScalars s) {
-  using PosT = typename std::conditional<WIDE, long long, int32_t>::type;
-  constexpr int NSLOTS = PACK == 2 ? 4 : 8;
+ms_scan_tp_kernel(const spn::ShardedRows<uint32_t> rows,
+                  const spn::ShardedRows<uint32_t> msrows,
+                  const long long* __restrict__ tab_g, int sq,
+                  const uint8_t* __restrict__ reads,
+                  const long long* __restrict__ lens, long long B,
+                  long long L, const spn::ShardedRows<PosOf<WIDE>> jump_t,
+                  const spn::ShardedRows<int32_t> jump_d, PosOf<WIDE>* vals,
+                  PosOf<WIDE>* docs, spn::IndexScalars s, int mode) {
+  using PosT = PosOf<WIDE>;
+  constexpr int G = kGroup;
   constexpr int W = spn::Layout<P, PACK, WIDE>::W;
-  constexpr int WM = NSLOTS * (1 + P / 32);
+  constexpr int WM = spn::MsStepLayout<P, PACK, WIDE, G>::WM;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   long long len = lens[b];
   len = len < 0 ? 0 : len > L ? L : len;
   const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
-  PosT* ov = vals + b * L + len - 1;  // forward position len-1-t
-  PosT* od = MODE == kPmlDoc || MODE == kMsDoc ? docs + b * L + len - 1
-                                               : nullptr;
+  spn::MsSlots<PosT> out = {vals + b * L + len - 1,
+                            docs ? docs + b * L + len - 1 : nullptr, 0, 0,
+                            0, mode};
   const int empty_id = (int)(2 * s.r);  // EMPTY; INIT is 2r+1
   long long pos = s.n - 1;
   int jidx = empty_id + 1;
   int run = 0;  // MS: matches since the last jump (d); PML: the length
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's character ...
+  int cn = tab.code[qn];             // ... and its code
   for (long long t = 0; t < len; ++t) {
-    const int qc = __ldg(rd + t);
-    const int code = tab.code[qc];
-    const int rk = code < NSLOTS - 1 ? code : NSLOTS - 1;
-    const long long blk = spn::block_of<P>(s, pos);
-    // the msrow read first: independent of the row read, both in flight
-    const int k_local = run_rank<P, PACK>(msrows.base(blk, WM), s, pos, rk);
-    const spn::Probe pr =
-        spn::probe<P, PACK, WIDE>(rows.base(blk, W), tab, s, pos, qc);
-    int jdown = 2 * (tab.run_base[qc] + k_local);
-    if (pr.is_tq) jdown = (int)(2 * s.term_runidx);
-    // a jump up targets the previous run's END entry (jdown - 1)
-    int jjump = pr.jump_up ? jdown - 1 : jdown;
-    jjump = jjump < 0 ? 0 : jjump;
-    if (MODE == kPmlDoc) {
+    const int qc = qn, code = cn;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
+    // rows and msrows share rows_per_shard: one shard lookup for both
+    const spn::ShardAt at = spn::shard_at(rows, spn::block_of<P>(s, pos));
+    const spn::MsProbe pr = spn::ms_probe<P, PACK, WIDE, G>(
+        rows.p[at.shard] + at.local * W, msrows.p[at.shard] + at.local * WM,
+        tab, s, pos, qc, code, lane);
+    // the last group's outputs, after this step's row loads
+    if (t > 0 && (t & (G - 1)) == 0) out.store(t - G + lane);
+    if (mode == spn::kPmlDoc) {
       // an absent character KEEPS the doc (compute_ms_pml.cpp:303)
-      if (!pr.is_match && !pr.empty) jidx = jjump;
-      run = pr.is_match ? run + 1 : 0;
-      ov[-t] = (PosT)run;
-    } else {
-      // an absent character resets to EMPTY (:639-643)
-      if (!pr.is_match) jidx = pr.empty ? empty_id : jjump;
-      run = pr.is_match ? run + 1 : 0;
-      // may go negative: the reference's unsigned underflow, kept signed
-      ov[-t] = (PosT)(*jump_t.row(jidx, 1) - (PosT)run);
+      if (!pr.is_match && !pr.empty) jidx = pr.jjump;
+    } else if (!pr.is_match) {
+      jidx = pr.empty ? empty_id : pr.jjump;  // absent: EMPTY (:639-643)
     }
-    if (MODE != kMs) od[-t] = (PosT)*jump_d.row(jidx, 1);
+    run = pr.is_match ? run + 1 : 0;
+    if ((t & (G - 1)) == lane) out.stage(jidx, run, jump_t, jump_d);
     pos = pr.new_pos;
+    cn = tab.code[qn];
   }
+  const long long last = len > 0 ? (len - 1) / G * G + lane : len;
+  if (last < len) out.store(last);
 }
 
 // K16: K4 with the text in shards.
@@ -348,37 +345,30 @@ unsigned grid_of(long long threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
-template <int P, int PACK, bool WIDE, int MODE>
-void launch_scan(const ScanArgs& a) {
-  using PosT = typename std::conditional<WIDE, long long, int32_t>::type;
-  if (a.sharded) {
-    ms_scan_tp_kernel<P, PACK, WIDE, MODE>
-        <<<grid_of(a.B), kThreads, 0, a.stream>>>(
-            a.rows_s, a.msrows_s, a.tab, a.sq, a.reads, a.lens, a.B, a.L,
-            spn::retype<PosT>(a.jump_t_s), a.jump_d_s, (PosT*)a.vals,
-            (PosT*)a.docs, a.s);
-    return;
-  }
-  ms_scan_kernel<P, PACK, WIDE, MODE>
-      <<<grid_of(a.B), kThreads, 0, a.stream>>>(
-          a.rows, a.msrows, a.tab, a.sq, a.reads, a.lens, a.B, a.L,
-          (const PosT*)a.jump_t, a.jump_d, (PosT*)a.vals, (PosT*)a.docs,
-          a.s);
-}
-
+// K3 / K15: kGroup threads per read, B * kGroup threads in blocks of
+// kThreads.
 template <int P, int PACK, bool WIDE>
-bool launch_modes(const ScanArgs& a) {
-  switch (a.mode) {
-    case kMs: launch_scan<P, PACK, WIDE, kMs>(a); return true;
-    case kMsDoc: launch_scan<P, PACK, WIDE, kMsDoc>(a); return true;
-    case kPmlDoc: launch_scan<P, PACK, WIDE, kPmlDoc>(a); return true;
-    default: return false;
+bool launch_scan(const ScanArgs& a) {
+  using PosT = PosOf<WIDE>;
+  if (a.mode < spn::kMs || a.mode > spn::kPmlDoc) return false;
+  const unsigned grid = grid_of(a.B * kGroup);
+  if (a.sharded) {
+    ms_scan_tp_kernel<P, PACK, WIDE><<<grid, kThreads, 0, a.stream>>>(
+        a.rows_s, a.msrows_s, a.tab, a.sq, a.reads, a.lens, a.B, a.L,
+        spn::retype<PosT>(a.jump_t_s), a.jump_d_s, (PosT*)a.vals,
+        (PosT*)a.docs, a.s, a.mode);
+    return true;
   }
+  ms_scan_kernel<P, PACK, WIDE><<<grid, kThreads, 0, a.stream>>>(
+      a.rows, a.msrows, a.tab, a.sq, a.reads, a.lens, a.B, a.L,
+      (const PosT*)a.jump_t, a.jump_d, (PosT*)a.vals, (PosT*)a.docs, a.s,
+      a.mode);
+  return true;
 }
 
 #define SPN_CASE(P_, PACK_, WIDE_)                                     \
   if (a.P == P_ && a.pack == PACK_ && a.wide == WIDE_)                 \
-    return launch_modes<P_, PACK_, WIDE_>(a);
+    return launch_scan<P_, PACK_, WIDE_>(a);
 #define SPN_CASES(P_)                                                  \
   SPN_CASE(P_, 2, false) SPN_CASE(P_, 2, true)                         \
   SPN_CASE(P_, 4, false) SPN_CASE(P_, 4, true)
@@ -400,8 +390,8 @@ ScanArgs scan_args(long long nb, int P, int pack, int wide, long long n,
                    long long term_pos, long long F_term, int term_code,
                    long long r, long long term_runidx, const void* tab,
                    int sq, const void* reads, const void* lens, long long B,
-                   long long L, int mode, void* vals, void* docs,
-                   void* stream) {
+                   long long L, int mode, void* vals,
+                   void* docs, void* stream) {
   ScanArgs a = {};
   a.tab = (const long long*)tab;
   a.sq = sq;

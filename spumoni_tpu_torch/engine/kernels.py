@@ -68,7 +68,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
             "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
-            "occblock.cu", "sharded.cuh", "staging.cu")
+            "ms_step.cuh", "occblock.cu", "sharded.cuh", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
@@ -300,6 +300,18 @@ pml_classify.launches = 0
 
 
 _MS_MODES = {("ms", False): 0, ("ms", True): 1, ("pml", True): 2}
+#: threads per read of K3 / K15 (csrc/blockbits_ms.cu kGroup): each step's
+#: loads split over 8 lanes, the fastest group at every lane count the runs
+#: launch (PERF.md section 6)
+MS_GROUP = 8
+
+
+def _check_aligned(name, tables):
+    """K3 / K15 read rows and msrows with 16-byte loads where the layout
+    allows: every (label, tensor) must start 16-byte aligned."""
+    for label, t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} is not 16-byte aligned")
 
 
 def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
@@ -328,6 +340,8 @@ def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
     if kind == "cpu":
         return ms_scan_reference(index, tab, reads_rev, lens, mode, use_doc)
     dev = reads_rev.device
+    _check_aligned("ms_scan", (("rows", index.bblocks),
+                               ("msrows", index.msrows)))
     vals = torch.zeros(reads_rev.shape, dtype=index.meta.pos_dtype,
                        device=dev)
     docs = torch.zeros_like(vals) if use_doc else None
@@ -895,6 +909,10 @@ def ms_scan_tp(index: ShardedBlockBits, tab: torch.Tensor,
     if kind == "cpu":
         return ms_scan_tp_reference(index, tab, reads_rev, lens, mode,
                                     use_doc)
+    _check_aligned("ms_scan_tp", [
+        (f"{label} shard {i}", t) for label, table in (
+            ("rows", index.bblocks), ("msrows", index.msrows))
+        for i, t in enumerate(table.shards)])
     m = index.meta
     vals = torch.zeros(reads_rev.shape, dtype=m.pos_dtype, device=dev)
     docs = torch.zeros_like(vals) if use_doc else None
@@ -1348,3 +1366,22 @@ def seeded_packed(seed: int, B: int, L: int, k: int):
                     for r, c in sorted(cells)], np.int32).reshape(-1, 3)
     rng.shuffle(exc)
     return packed2, packed4, exc, lens
+
+
+def ms_edge_reads(text: np.ndarray, L: int) -> list:
+    """K3 / K15's edge reads over an index text (uint8, longer than L +
+    600): substrings of every length at which a lane group's outputs split
+    (0, 1, G - 1, G and G + 1 for G = MS_GROUP), 1,023 and L; a read
+    whose last step jumps (its first byte differs from the text's byte
+    before the rest, so the last, partial group stores a jump-table read);
+    the pack = 2 terminator query (byte 1) inside a read; and ROADMAP
+    section C's read, whose W sorts after every index character. Lengths
+    past L are left out."""
+    G = MS_GROUP
+    lengths = sorted({0, 1, G - 1, G, G + 1, 1023, L})
+    reads = [text[37:37 + m].tobytes() for m in lengths if m <= L]
+    first = next(c for c in b"ACGT" if c != text[499])
+    return reads + [
+        bytes([first]) + text[500:700].tobytes(),
+        text[100:150].tobytes() + b"\x01" + text[200:250].tobytes(),
+        text[100:160].tobytes() + b"W" + text[200:260].tobytes()]

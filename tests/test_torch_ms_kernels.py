@@ -141,6 +141,56 @@ def test_wrappers_check_their_inputs(bad):
             kernels.binmax_values(ptrs, lens, 9, 0)
 
 
+@pytest.mark.parametrize("L", [1024, 1021])
+@pytest.mark.parametrize("mode, use_doc", [("ms", False), ("ms", True),
+                                           ("pml", True)])
+def test_ms_scan_on_the_edge_reads_equals_native(L, mode, use_doc):
+    """K3's plain version on the edge reads (the lengths around G = 8 and
+    L, the read whose last step jumps) equals the native engine: pointers,
+    PML lengths, doc ids."""
+    text, index, table, native = _ms_index(5, [1500, 1200])
+    reads = kernels.ms_edge_reads(text, L)[:-2]   # no terminator, no W
+    assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
+    tab, rev, _, lens = _stage(table, reads, L)
+    vals, docs = kernels.ms_scan(index, tab, rev, lens, mode, use_doc)
+    if mode == "ms":
+        wvals, _, wdocs = native.query_ms(reads, with_docs=True)
+    else:
+        wvals, wdocs = native.query_pml(reads, with_docs=True)
+    for i, m in enumerate(lens.tolist()):
+        assert np.array_equal(vals[i, :m].numpy(), wvals[i]), i
+        assert not vals[i, m:].any(), i
+        if use_doc:
+            assert np.array_equal(docs[i, :m].numpy(), wdocs[i]), i
+        else:
+            assert docs is None
+
+
+def test_ms_tables_must_be_16_byte_aligned():
+    """K3 / K15 read rows and msrows in 16-byte loads: a table that starts
+    off 16 bytes is refused before any launch."""
+    rows = torch.zeros(40, dtype=torch.int32)
+    kernels._check_aligned("ms_scan", (("rows", rows[4:]),))
+    with pytest.raises(ValueError, match="msrows is not 16-byte aligned"):
+        kernels._check_aligned("ms_scan", (("rows", rows[4:]),
+                                           ("msrows", rows[1:])))
+
+
+def test_edge_reads_cover_the_group_splits():
+    """ms_edge_reads: lengths 0, 1, G - 1, G, G + 1 for G = 8, 1,023 and
+    L; a read whose last step (its first byte) jumps; the terminator
+    query; section C's read."""
+    text = np.random.default_rng(7).choice(ACGT, 2000)
+    for L in (1024, 1021):
+        reads = kernels.ms_edge_reads(text, L)
+        lens = {len(r) for r in reads}
+        assert {0, 1, 7, 8, 9, L} <= lens
+        assert (1023 in lens) == (L >= 1023) and max(lens) == L
+        assert reads[-3][0] != text[499] and reads[-3][1:] == text[
+            500:700].tobytes()
+        assert b"\x01" in reads[-2] and b"W" in reads[-1]
+
+
 # ---------------------------------------------------------------------------
 # on the GPU: kernel == plain version, exactly
 # ---------------------------------------------------------------------------
@@ -182,6 +232,18 @@ def test_ms_kernels_equal_plain_versions_on_gpu(layout):
             assert torch.equal(a, b), (thr, bw)
     assert (kernels.ms_scan.launches, kernels.ms_extend.launches,
             kernels.binmax_values.launches) == (4, 1, 2)
+    # K3 on the edge reads (lengths around G = 8; B not a multiple of
+    # 128 / G), at L = 1,024 and 1,021 (a read stride off 32 bytes)
+    for L in (1024, 1021):
+        tab, rev, _, lens = _stage(table, kernels.ms_edge_reads(text, L), L,
+                                   "cuda")
+        for mode, use_doc in (("ms", False), ("ms", True), ("pml", True)):
+            want = kernels.ms_scan_reference(index, tab, rev, lens, mode,
+                                             use_doc)
+            got = kernels.ms_scan(index, tab, rev, lens, mode, use_doc)
+            torch.cuda.synchronize()
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(got, want)), (L, mode)
 
 
 @needs_cuda

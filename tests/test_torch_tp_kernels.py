@@ -163,6 +163,25 @@ def test_wrappers_check_their_shards(bad):
                 rev, lens, 7, 0)
 
 
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_ms_scan_tp_on_the_edge_reads_equals_its_twin(S):
+    """K15's plain version on K3 / K15's edge reads (the lengths around
+    G = 8 and L, the read whose last step jumps, the terminator query,
+    section C's read) equals K3's on the unsharded index in every mode."""
+    text, index, table = _ms_index(12, 9000, P=64)
+    assert index.meta.n % index.meta.P
+    sh = tp.shard_blockbits_ms(index, S)
+    tab, rev, _, lens = ranked_rows(table, kernels.ms_edge_reads(text, 1021),
+                                    1021, "cpu")
+    kernels.reset_launch_counts()
+    for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
+        got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
+        want = kernels.ms_scan(index, tab, rev, lens, mode, doc)
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(got, want)), (S, mode, doc)
+    assert kernels.ms_scan_tp.launches == 0
+
+
 def test_help_names_occ_and_the_sharded_index():
     """`run --help` lists occ as an engine and says what --tp-devices does:
     neither says "not in the port yet"."""
@@ -216,6 +235,19 @@ def test_block_bits_tp_kernels_on_gpu(layout):
                                                   fwd, lens, ptrs))
     assert (kernels.pml_classify_tp.launches, kernels.ms_scan_tp.launches,
             kernels.ms_extend_tp.launches) == (3, 12, 3)
+    # K15 on the edge reads (lengths around G = 8), at L = 1,024 and 1,021
+    for L in (1024, 1021):
+        tab, rev, _, lens = ranked_rows(table, kernels.ms_edge_reads(text, L),
+                                        L, "cuda")
+        for mode, doc in (("ms", False), ("ms", True), ("pml", True)):
+            sh = shards[4]
+            got = kernels.ms_scan_tp(sh, tab, rev, lens, mode, doc)
+            torch.cuda.synchronize()
+            for w in (kernels.ms_scan_tp_reference(sh, tab, rev, lens, mode,
+                                                   doc),
+                      kernels.ms_scan(index, tab, rev, lens, mode, doc)):
+                assert all(a is b is None or torch.equal(a, b)
+                           for a, b in zip(got, w)), (L, mode, doc)
 
 
 @needs_cuda
