@@ -32,13 +32,18 @@ Phases, each of which fails the script (exit != 0) on any fault:
      `layered_classify` and K4 on K7's pointers vs plain versions on small
      layered indexes: DNA of depth 2 and 3, two documents, general text
      (26 letters), -m digested text; DNA cases also vs the native engine;
+     K7 on the main path's layout (int32, W = 8, two documents) also on
+     the edge reads (kernels.ms_edge_reads without the terminator query)
+     at L = 1,024 and 1,021;
   3d. K9 `occ_scan` (pml, pml+doc, ms, ms+doc), K10 `occ_classify` and K4
      on K9's pointers vs plain versions on small occ-block indexes: DNA
      with N at P = 128 and P = 16, two documents (with a read longer than
      4,096), a 14-letter text (sigma 15, the layout's bound), each in every
      row layout 4d builds (PML only, with SA samples, with doc ids, with
      both); reads with bytes absent from the index and past its largest
-     character (W, Y); DNA cases also vs the native engine;
+     character (W, Y); DNA cases also vs the native engine; K9 on the main
+     path's layout (P = 128, samples and doc ids) also on the edge reads
+     at L = 1,024 and 1,021;
   3e. K11 `unpack2` and K12 `unpack4` (with and without its byte table) vs
      plain versions on seeded packed rows (exceptions, a row of 8,192);
      then a small -M -P index through the CLI: `run -P -c`, `run -M -c
@@ -432,6 +437,41 @@ def small_ms_phase(device, n=20000, num_reads=300):
           "exactly")
 
 
+def _group_edge_check(label, scan, plain, index, modes, text, device,
+                      table=None):
+    """K7 (table None: raw bytes) or K9 (query-rank codes through table)
+    against its plain version in each mode on the edge reads at L = 1,024
+    and 1,021; returns the note 3c / 3d print."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.blockbits import ranked_rows
+    from spumoni_tpu_torch.engine.layered import raw_rows
+
+    for L in (1024, 1021):
+        edge = kernels.ms_edge_reads(text, L, terminator=False)
+        if table is None:
+            rows = raw_rows(edge, L, device)[::2]   # reversed rows, lens
+        else:
+            tab, rev, _, lens = ranked_rows(table, edge, L, device)
+            rows = (tab, rev, lens)
+        for mode, use_doc in modes:
+            want = plain(index, *rows, mode, use_doc)
+            got = scan(index, *rows, mode, use_doc)
+            sync(device)
+            err = _max_err(got, want)
+            if err:
+                raise AssertionError(f"{label}: {scan.__name__} {mode} doc="
+                                     f"{use_doc} on the edge reads at L = "
+                                     f"{L} != plain (max |err| {err})")
+    return f"; edge reads at L = 1024, 1021, B={len(edge)}"
+
+
+#: the 3c and 3d cases whose K7 / K9 also run the edge reads: the main
+#: path's layouts (int32 fields of width 8 with doc ids; P = 128 rows with
+#: samples and doc ids)
+LAYERED_EDGE_CASE = "two-docs"
+OCC_EDGE_CASE = "two-docs-long"
+
+
 LAYERED_CASES = [
     # label, text length, alphabet, documents, -m digestion, position type
     ("dna-D2", 20000, b"ACGT", False, False, None),
@@ -489,6 +529,11 @@ def small_layered_phase(device, num_reads=300):
         if _max_err(res, kernels.layered_classify_reference(
                 index, rev, lens, 7, BIN_WIDTH)):
             raise AssertionError(f"{label}: layered_classify != plain")
+        edge = ""
+        if label == LAYERED_EDGE_CASE:
+            edge = _group_edge_check(label, kernels.layered_scan,
+                                     kernels.layered_scan_reference, index,
+                                     modes, text, device)
         checked = ""
         if alphabet == b"ACGT" and not digest:
             plen = kernels.layered_scan(index, rev, lens)[0].cpu().numpy()
@@ -502,8 +547,8 @@ def small_layered_phase(device, num_reads=300):
                                          f"engine")
             checked = " == native"
         print(f"{label:16s} D={m.depth} W={m.width} wide={m.wide} "
-              f"n={m.n} r={m.r} B={len(reads)}: K7 ({len(modes)} modes), "
-              f"K4 on K7 pointers{checked}, K8 == plain, exactly "
+              f"n={m.n} r={m.r} B={len(reads)}: K7 ({len(modes)} modes"
+              f"{edge}), K4 on K7 pointers{checked}, K8 == plain, exactly "
               f"({int(res[0].sum())} FOUND)")
 
 
@@ -591,6 +636,12 @@ def small_occ_phase(device, num_reads=300):
                 index.text, index.text_bound, fwd, lens, ptrs)):
             raise AssertionError(f"{label}: ms_extend on K9 pointers != "
                                  f"plain")
+        edge = ""
+        if label == OCC_EDGE_CASE:
+            full = seeded_occ(800 + ci, n, alphabet, docs, P)[1].to(device)
+            edge = _group_edge_check(
+                label, kernels.occ_scan, kernels.occ_scan_reference, full,
+                list(got), text, device, table)
         checked = ""
         if alphabet.startswith(b"ACGT"):
             # reads without bytes past the largest index character, on
@@ -616,7 +667,7 @@ def small_occ_phase(device, num_reads=300):
             checked = f", == native ({len(keep)} reads)"
         print(f"{label:16s} P={P} n={index.meta.n} B={len(reads)} "
               f"L={rev.shape[1]}: K9 (modes) and K10 on {', '.join(done)}, "
-              f"K4 on K9 pointers == plain, exactly{checked} "
+              f"K4 on K9 pointers == plain, exactly{checked}{edge} "
               f"({int(res[0].sum())} FOUND)")
 
 
@@ -1735,7 +1786,7 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
             args, src, replaces,
             _reads_work("ms_scan", (index.bblocks, index.msrows,
                                     *tables[label]), dependent=2))
-    results = [dict(_with_modes("ms_scan", modes), group=kernels.MS_GROUP)]
+    results = [dict(_with_modes("ms_scan", modes), group=kernels.GROUP)]
     results += [
         _time_kernel("ms_extend", kernels.ms_extend,
                      kernels.ms_extend_reference,
@@ -1838,7 +1889,7 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
         "layered_classify -m", kernels.layered_classify,
         kernels.layered_classify_reference, (*args, 7, BIN_WIDTH), src,
         k8_src, work("layered_classify", engine.index), shapes=False)
-    return [_with_modes("layered_scan", modes),
+    return [dict(_with_modes("layered_scan", modes), group=kernels.GROUP),
             _with_modes("layered_classify", {"-m": k8["-m"],
                                              "10-strain": k8["10-strain"]})]
 
@@ -1903,7 +1954,7 @@ def occ_timing_phase(device, ms_prefix, ms_reads, n_reads):
                 "spumoni_tpu/parallel/mesh.py:128",
                 _reads_work("occ_classify", cols))
         del engine, g, index, args, cols
-    return [_with_modes("occ_scan", timed), k10]
+    return [dict(_with_modes("occ_scan", timed), group=kernels.GROUP), k10]
 
 
 def staging_timing_phase(device, prefix, reads, n_reads):
@@ -2116,7 +2167,7 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
         r["twin_shapes"] = twin["shapes"]
         modes[label] = r
     results.append(dict(_with_modes("ms_scan_tp", modes),
-                        group=kernels.MS_GROUP))
+                        group=kernels.GROUP))
     ptrs = got[0]
     args = (sh.text, sh.text_bound, g["fwd_d"], lens, ptrs)
     r = _time_kernel("ms_extend_tp", kernels.ms_extend_tp,

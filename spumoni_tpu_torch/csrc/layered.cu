@@ -1,6 +1,7 @@
 // K7 `layered_scan`, K8 `layered_classify` and K14 `layered_classify_tp`:
-// the PML / MS / doc recurrence over the layered index (engine v2), one
-// thread per read, on NVIDIA Hopper (sm_90a).
+// the PML / MS / doc recurrence over the layered index (engine v2) on
+// NVIDIA Hopper (sm_90a): K7 with kGroup = 8 threads per read, K8 and K14
+// with one.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K7: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v2 (the step
@@ -30,17 +31,26 @@
 // rows clamp to the level's last row, a field probe clips to the JAX row
 // count (probe_bound), and a row past r reads as padding (start n, zeros).
 //
-// Bound: a step is D + 1 DEPENDENT random reads (one 64-entry level row
-// per level, then one field row; the next position comes from the field
-// row), so a lane is a pointer chase and the kernel is latency-bound. The
-// design answers with lanes in flight: one thread per read keeps (pos,
-// length, sample, doc) in registers for the whole read in one launch,
-// 128-thread blocks let a whole batch be resident, and charmeta (16 KB as
-// int32, 32 KB as int64) sits in shared memory, so a step's first read is
-// on chip. A level row is sorted, so "entries <= pos" is an upper-bound
-// search: 6 dependent probes inside the row's 256 / 512 bytes instead of
-// the TPU's 64-wide compare-count. Steps past a read's length are not run.
-// K14 reads each field row from its shard: one divide more per step.
+// Bound: a step is a chain of dependent random reads (the level rows of
+// the descent, one 64-entry row a level, each row's choice from the last
+// count; then one field row, from which the next position comes), so a
+// read is a pointer chase and each kernel is latency-bound. At the lanes
+// the runs launch (8,192 a value-run group, 32,768 a report-only batch)
+// the card is mostly empty, so the time is the chain's length in round
+// trips. charmeta (16 KB as int32, 32 KB as int64) sits in shared memory;
+// steps past a read's length are not run.
+//   K7 (layered_step.cuh) runs one round trip a level: its 8 lanes read a
+//   level row as 16-byte loads and sum their counts of entries <= pos by
+//   shuffle (the TPU's 64-wide compare-count), the top level's row is
+//   loaded a step ahead (it depends on the character only), and the field
+//   slots the mode reads are loaded at once and the sample or doc slot
+//   chosen after they land: D round trips a step (D - 1 levels, the field
+//   row). The group stores 8 consecutive outputs at once.
+//   K8 and K14 keep the one-thread step (step, step_tp below) until their
+//   own redesign: count_le's upper-bound search is up to 7 dependent loads
+//   a level (6 probes and the check of entry 63), so a step is up to 7 D + 1
+//   round trips. K14 reads each field row from its shard: one divide more
+//   per step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -51,30 +61,17 @@
 #include <cstdint>
 
 #include "binmax.cuh"
+#include "layered_step.cuh"
 #include "sharded.cuh"
 
 namespace {
 
+// the layout, Mode, Field, Levels, Scalars and Carry
+using namespace spn::layered;
+
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
-constexpr int kNode = 64;
-constexpr int kMaxDepth = 12;
-constexpr int kMetaCols = 16;
-
-enum Mode { kPml = 0, kPmlDoc = 1, kMs = 2, kMsDoc = 3 };
-enum Field { kStart, kLen, kCum, kThr, kEsamp, kSsamp, kEdoc, kSdoc };
-
-struct Levels {
-  const void* p[kMaxDepth];
-  long long rows[kMaxDepth];
-};
-
-struct Scalars {
-  long long rows;         // field rows (r + 1)
-  long long probe_bound;  // the JAX package's padded field-row count
-  int depth, width;
-  long long n, last_run_sample, last_run_edoc, first_run_sdoc;
-};
+constexpr int kGroup = 8;  // threads per read of K7
 
 // Entries of a sorted 64-entry row that are <= pos.
 template <typename T>
@@ -88,11 +85,6 @@ __device__ __forceinline__ int count_le(const T* __restrict__ row,
   if (m == kNode - 1 && (long long)__ldg(row + kNode - 1) <= pos) m = kNode;
   return m;
 }
-
-// Per-lane recurrence state.
-struct Carry {
-  long long pos, length, sample, doc;
-};
 
 // One backward step of make_layered_step_fn (layered.py:270-390) for byte c.
 template <typename T, int MODE>
@@ -218,25 +210,47 @@ layered_scan_kernel(const T* __restrict__ charmeta, Levels levels,
                     long long L, T* __restrict__ vals, T* __restrict__ docs) {
   constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;
   constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;
+  constexpr int G = kGroup;
+  using Lay = GroupLayout<T, MODE, G>;
   __shared__ T cm[256][kMetaCols];
   __shared__ const T* lv[kMaxDepth];
   __shared__ long long lv_rows[kMaxDepth];
   load_meta(cm, lv, lv_rows, charmeta, levels);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   long long len = lens[b];
   len = len < 0 ? 0 : len > L ? L : len;
   const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
-  T* ov = vals + b * L + len - 1;     // forward position len-1-t
-  T* od = kDoc ? docs + b * L + len - 1 : nullptr;
+  // forward position len-1-t: column -t of ov / od
+  spn::GroupSlots<T, G> ov = {vals + b * L + len - 1, 0};
+  spn::GroupSlots<T, G> od = {kDoc ? docs + b * L + len - 1 : nullptr, 0};
   Carry st = {s.n - 1, 0, s.last_run_sample, s.last_run_edoc};
+  // this step's character and top-level row share, and the next step's
+  // character: the next top row is loaded a step ahead
+  int c = len > 0 ? __ldg(rd) : 0;
+  int cn = len > 1 ? __ldg(rd + 1) : 0;
+  uint4 top[Lay::kRow], nxt[Lay::kRow];
+  if (len > 0)
+    load_level<T, MODE, G>(top_row(cm, lv, lv_rows, s.depth, c), lane, top);
   for (long long t = 0; t < len; ++t) {
-    step<T, MODE>(cm, lv, lv_rows, fields, s, __ldg(rd + t), st);
+    if (t + 1 < len)
+      load_level<T, MODE, G>(top_row(cm, lv, lv_rows, s.depth, cn), lane,
+                             nxt);
+    const int c2 = t + 2 < len ? __ldg(rd + t + 2) : 0;
+    group_step<T, MODE, G>(cm, lv, lv_rows, fields, s, c, top, lane, st);
     // MS pointers may go negative (the reference's unsigned underflow)
-    ov[-t] = (T)(kIsMs ? st.sample : st.length);
-    if (kDoc) od[-t] = (T)st.doc;
+    ov.put(t, (T)(kIsMs ? st.sample : st.length), lane);
+    if (kDoc) od.put(t, (T)st.doc, lane);
+#pragma unroll
+    for (int i = 0; i < Lay::kRow; ++i) top[i] = nxt[i];
+    c = cn;
+    cn = c2;
   }
+  ov.flush(len, lane);
+  if (kDoc) od.flush(len, lane);
 }
 
 template <typename T>
@@ -319,7 +333,8 @@ struct ScanArgs {
 
 template <typename T, int MODE>
 void launch_scan(const ScanArgs& a) {
-  layered_scan_kernel<T, MODE><<<grid_of(a.B), kThreads, 0, a.stream>>>(
+  layered_scan_kernel<T, MODE><<<grid_of(a.B * kGroup), kThreads, 0,
+                                 a.stream>>>(
       (const T*)a.charmeta, a.levels, (const T*)a.fields, a.s, a.reads,
       a.lens, a.B, a.L, (T*)a.vals, (T*)a.docs);
 }

@@ -75,6 +75,34 @@ __device__ __forceinline__ unsigned group_mask() {
   return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~(G - 1u));
 }
 
+// The sum of x over the lanes of this thread's group, in every lane.
+template <int G, typename X>
+__device__ __forceinline__ X group_sum(X x) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) x += __shfl_xor_sync(group_mask<G>(), x, o, G);
+  return x;
+}
+
+// The outputs of a group's steps, stored G at a time: the value of output
+// j (column -j of `out`) is kept by lane j % G and stored, one coalesced
+// store a group, once lane G - 1's output is in; flush() stores the last,
+// partial group. Every lane calls put() with the same j.
+template <typename T, int G>
+struct GroupSlots {
+  T* out;
+  T v;
+
+  __device__ __forceinline__ void put(long long j, T x, int lane) {
+    if ((int)(j & (G - 1)) == lane) v = x;
+    if ((j & (G - 1)) == G - 1) out[-(j - (G - 1) + lane)] = v;
+  }
+  // after the outputs 0 .. n - 1
+  __device__ __forceinline__ void flush(long long n, int lane) const {
+    const long long j0 = n & ~(long long)(G - 1);
+    if (j0 + lane < n) out[-(j0 + lane)] = v;
+  }
+};
+
 // What one MS / doc step decides: the new position, the branch and the
 // jump id a mismatch takes.
 struct MsProbe {

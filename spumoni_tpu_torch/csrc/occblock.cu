@@ -1,6 +1,6 @@
 // K9 `occ_scan` and K10 `occ_classify`: the PML / MS / doc recurrence over
-// the occ-block index (engine v3), one thread per read, on NVIDIA Hopper
-// (sm_90a).
+// the occ-block index (engine v3) on NVIDIA Hopper (sm_90a): K9 with kGroup
+// = 8 threads per read, K10 with one.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K9:  spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v3 (the step
@@ -30,14 +30,21 @@
 // lengths resolve in-step. A jump up from cand % P == 0 lands in the
 // previous block: pos_off = -1, whose character is nibble 0.
 //
-// Bound: a step is ONE dependent random row read (the next candidate comes
-// from it), so a lane is a pointer chase and the kernel is latency-bound.
-// One thread per read keeps the carry in registers for the whole read in
-// one launch (long reads included), 128-thread blocks let a whole batch be
-// resident, the per-character table sits in shared memory, and a step reads
-// only the row words it needs: the threshold, the checkpoint, the char
-// words up to the offset (a SWAR zero-nibble test and __popc per word) and,
-// when the previous step jumped, one sample and one doc word.
+// Bound: a step reads one row, chosen by the candidate the last step
+// computed, so a read is a pointer chase and each kernel is latency-bound.
+// At the lanes the runs launch (8,192 a value-run group, 32,768 a
+// report-only batch) the card is mostly empty, so the time is the number
+// of dependent round trips a step. The carry stays in registers for the
+// whole read in one launch (long reads included) and the per-character
+// table sits in shared memory.
+//   K9 (occ_step.cuh) issues every load of a step at once over its 8 lanes
+//   (the threshold, both sample and both doc candidates, the checkpoint,
+//   the char words up to the offset as 4-byte loads: the row stride is odd)
+//   and sums the masked counts by shuffle: one round trip a step at P =
+//   128. The group stores 8 consecutive outputs at once.
+//   K10 keeps the one-thread step (resolve, advance below) until its own
+//   redesign: the threshold, then a loop of dependent char-word loads (up
+//   to 17 at P = 128) and the checkpoint, several round trips a step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -49,52 +56,16 @@
 
 #include "binmax.cuh"
 #include "blockbits_pml.cuh"  // spn::CharTab, spn::load_char_tab
+#include "occ_step.cuh"
 
 namespace {
 
+// the row layout, Mode, Scalars, Carry, seed, zero_nibbles and row_of
+using namespace spn::occ;
+
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
-constexpr int kW0 = 16;  // first char word: after the 16 checkpoints
-constexpr uint32_t kNibLsb = 0x11111111u;
-
-enum Mode { kPml = 0, kPmlDoc = 1, kMs = 2, kMsDoc = 3 };
-
-struct Scalars {
-  long long nb;  // rows
-  int P, logP, W, T0, S0, D0;
-  int n, last_run_sample, last_run_edoc, first_run_sdoc;
-};
-
-// Per-lane carry of occ_initial_state (occblock.py:248-259).
-struct Carry {
-  int cand, prev_p, length, sample, doc;
-  bool pending, forced, was_match, was_empty;
-};
-
-__device__ __forceinline__ Carry seed(const Scalars& s) {
-  Carry c;
-  c.cand = s.n - 1;
-  c.prev_p = 0;
-  c.length = 0;
-  c.sample = s.last_run_sample + 1;  // was_match: resolves to the seed
-  c.doc = s.last_run_edoc;
-  c.pending = c.forced = c.was_empty = false;
-  c.was_match = true;
-  return c;
-}
-
-// Bit 4j of the result is set where nibble j of y is zero.
-__device__ __forceinline__ uint32_t zero_nibbles(uint32_t y) {
-  return ~(y | (y >> 1) | (y >> 2) | (y >> 3)) & kNibLsb;
-}
-
-// The row of the unresolved candidate, clamped (occblock.py:295-296).
-__device__ __forceinline__ const uint32_t* row_of(
-    const uint32_t* __restrict__ blocks, const Scalars& s, int cand) {
-  long long blk = cand >> s.logP;
-  blk = blk < 0 ? 0 : blk < s.nb - 1 ? blk : s.nb - 1;
-  return blocks + blk * s.W;
-}
+constexpr int kGroup = 8;  // threads per read of K9
 
 // Resolves the previous step's jump from row (cand's row) at offset off:
 // returns minus1 and the previous step's sample and doc id.
@@ -171,34 +142,39 @@ occ_scan_kernel(const uint32_t* __restrict__ blocks,
                 int32_t* __restrict__ docs) {
   constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;
   constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;
+  constexpr int G = kGroup;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   long long len = lens[b];
   len = len < 0 ? 0 : len > L ? L : len;
   const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
-  int32_t* ov = vals + b * L + len - 1;  // forward position len-1-t
-  int32_t* od = kDoc ? docs + b * L + len - 1 : nullptr;
+  // forward position len-1-j: column -j of ov / od
+  spn::GroupSlots<int32_t, G> ov = {vals + b * L + len - 1, 0};
+  spn::GroupSlots<int32_t, G> od = {kDoc ? docs + b * L + len - 1 : nullptr,
+                                    0};
   Carry st = seed(s);
   // lagging modes run one resolution past the last character
   const long long steps = len + ((kIsMs || kDoc) ? 1 : 0);
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's code
   for (long long t = 0; t < steps; ++t) {
-    const uint32_t* row = row_of(blocks, s, st.cand);
-    const int off = st.cand & (s.P - 1);
+    const int qc = t < len ? qn : -1;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
     int sample, doc;
-    const bool minus1 = resolve<MODE>(row, s, st, off, sample, doc);
-    if (t > 0) {  // read position t - 1: forward column len - t
-      if (kIsMs) ov[1 - t] = sample;
-      if (kDoc) od[1 - t] = doc;
+    group_step<MODE, G>(row_of(blocks, s, st.cand), s, tab, qc, lane, st,
+                        sample, doc);
+    if (t > 0) {  // read position t - 1's resolved sample and doc id
+      if (kIsMs) ov.put(t - 1, sample, lane);
+      if (kDoc) od.put(t - 1, doc, lane);
     }
-    if (t == len) break;
-    st.sample = sample;
-    st.doc = doc;
-    advance(row, tab, __ldg(rd + t), st.cand - minus1, off - minus1, st);
-    if (!kIsMs) ov[-t] = st.length;
+    if (!kIsMs && t < len) ov.put(t, st.length, lane);
   }
+  ov.flush(len, lane);
+  if (kDoc) od.flush(len, lane);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -267,7 +243,7 @@ struct ScanArgs {
 
 template <int MODE>
 void launch_scan(const ScanArgs& a) {
-  occ_scan_kernel<MODE><<<grid_of(a.B), kThreads, 0, a.stream>>>(
+  occ_scan_kernel<MODE><<<grid_of(a.B * kGroup), kThreads, 0, a.stream>>>(
       a.blocks, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.s, a.vals, a.docs);
 }
 

@@ -33,7 +33,9 @@ K1/K2/K13 live in `csrc/blockbits_pml.cu`, K3-K5/K15/K16 in
 `csrc/layered.cu`, K9/K10 in `csrc/occblock.cu` and K11/K12 in
 `csrc/staging.cu`, each behind a plain C interface (the bin-max carry of
 K2, K8 and K10 in `csrc/binmax.cuh`, the sharded row source in
-`csrc/sharded.cuh`).
+`csrc/sharded.cuh`; the steps of K3 / K15, K7 and K9, for GROUP threads
+per read, in `csrc/ms_step.cuh`, `csrc/layered_step.cuh` and
+`csrc/occ_step.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -68,7 +70,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
             "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
-            "ms_step.cuh", "occblock.cu", "sharded.cuh", "staging.cu")
+            "layered_step.cuh", "ms_step.cuh", "occ_step.cuh", "occblock.cu",
+            "sharded.cuh", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
@@ -300,15 +303,16 @@ pml_classify.launches = 0
 
 
 _MS_MODES = {("ms", False): 0, ("ms", True): 1, ("pml", True): 2}
-#: threads per read of K3 / K15 (csrc/blockbits_ms.cu kGroup): each step's
-#: loads split over 8 lanes, the fastest group at every lane count the runs
-#: launch (PERF.md section 6)
-MS_GROUP = 8
+#: threads per read of K3 / K15, K7 and K9 (kGroup in csrc/blockbits_ms.cu,
+#: layered.cu and occblock.cu): each step's loads split over 8 lanes, for
+#: K3 the fastest group at every lane count the runs launch (PERF.md
+#: section 6)
+GROUP = 8
 
 
 def _check_aligned(name, tables):
-    """K3 / K15 read rows and msrows with 16-byte loads where the layout
-    allows: every (label, tensor) must start 16-byte aligned."""
+    """K3 / K15 read rows and msrows, K7 level and field rows, with 16-byte
+    loads: every (label, tensor) must start 16-byte aligned."""
     for label, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
@@ -551,6 +555,13 @@ def _layered_head(index: LayeredIndex):
             m.width, int(m.wide), m.n]
 
 
+def layered_tables(index: LayeredIndex) -> list:
+    """(label, tensor) of the tables K7 reads with 16-byte loads: each
+    level, and the fields."""
+    return [(f"level {t}", lv) for t, lv in enumerate(index.levels)] + [
+        ("fields", index.fields)]
+
+
 def layered_scan(index: LayeredIndex, reads_rev: torch.Tensor,
                  lens: torch.Tensor, mode: str = "pml",
                  use_doc: bool = False):
@@ -565,6 +576,7 @@ def layered_scan(index: LayeredIndex, reads_rev: torch.Tensor,
     if kind == "cpu":
         return layered_scan_reference(index, reads_rev, lens, mode, use_doc)
     dev = reads_rev.device
+    _check_aligned("layered_scan", layered_tables(index))
     vals = torch.zeros(reads_rev.shape, dtype=m.pos_dtype, device=dev)
     docs = torch.zeros_like(vals) if use_doc else None
     if vals.numel() == 0:
@@ -1368,20 +1380,22 @@ def seeded_packed(seed: int, B: int, L: int, k: int):
     return packed2, packed4, exc, lens
 
 
-def ms_edge_reads(text: np.ndarray, L: int) -> list:
-    """K3 / K15's edge reads over an index text (uint8, longer than L +
-    600): substrings of every length at which a lane group's outputs split
-    (0, 1, G - 1, G and G + 1 for G = MS_GROUP), 1,023 and L; a read
-    whose last step jumps (its first byte differs from the text's byte
-    before the rest, so the last, partial group stores a jump-table read);
-    the pack = 2 terminator query (byte 1) inside a read; and ROADMAP
-    section C's read, whose W sorts after every index character. Lengths
-    past L are left out."""
-    G = MS_GROUP
+def ms_edge_reads(text: np.ndarray, L: int, terminator: bool = True) -> list:
+    """The edge reads of the group scans (K3 / K15, K7, K9) over a DNA
+    index text (uint8, longer than L + 600): substrings of every length at
+    which a lane group's outputs split (0, 1, G - 1, G and G + 1 for G =
+    GROUP), 1,023 and L; a read whose last step jumps (its first byte
+    differs from the text's byte before the rest, so the last, partial
+    group stores a jump's value); with terminator, block-bits' pack = 2
+    terminator query (byte 1) inside a read; and ROADMAP section C's read,
+    whose W sorts after every index character (a position past the BWT).
+    Lengths past L are left out."""
+    G = GROUP
     lengths = sorted({0, 1, G - 1, G, G + 1, 1023, L})
     reads = [text[37:37 + m].tobytes() for m in lengths if m <= L]
     first = next(c for c in b"ACGT" if c != text[499])
-    return reads + [
-        bytes([first]) + text[500:700].tobytes(),
-        text[100:150].tobytes() + b"\x01" + text[200:250].tobytes(),
-        text[100:160].tobytes() + b"W" + text[200:260].tobytes()]
+    reads.append(bytes([first]) + text[500:700].tobytes())
+    if terminator:
+        reads.append(text[100:150].tobytes() + b"\x01"
+                     + text[200:250].tobytes())
+    return reads + [text[100:160].tobytes() + b"W" + text[200:260].tobytes()]

@@ -1,0 +1,638 @@
+"""Times the scans that are being redesigned for the card at the lane
+counts the runs launch, each beside another tree's build of the same entry
+points, with K1, K2, K8 and K10 as controls.
+
+    python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
+        [--families ms,layered,occ] [--ablate] \
+        [--shapes 8192,32768,65536] [--out DIR]
+
+Run from the repository root on a machine with one NVIDIA GPU. It writes
+chip_smoke.py's inputs (10 strains, 65,536 reads of 1,024 bp) into
+chip_smoke_work/, builds phase 4b's MS + doc index (`build -i list -M -P
+-d -n`; with the layered family also 4c's `build -m -P`) and stages the
+reads once per engine; a launch at B lanes takes the first B of them
+(value runs launch 8,192, report-only runs 32,768, chip_smoke.py's tables
+65,536). Per shape, CUDA-event ms per call (a warm-up, then 5 calls) of
+each kernel in turns with the same entry point built from DIR's
+`spumoni_tpu_torch/csrc` (parent, current, parent), outputs equal (max
+|err| 0):
+
+  * controls, whose sources the redesigns leave alone: K1 `pml_scan` and
+    K2 `pml_classify` on the index's block-bits PML rows, K8
+    `layered_classify` on its layered PML tables (`--engine layered`), K10
+    `occ_classify` on its occ-block PML rows (`--engine occ`);
+  * family ms: K3 `ms_scan` in each mode (ms, ms+doc, pml+doc) and K15
+    `ms_scan_tp` on 4 shards (ms, ms+doc);
+  * family layered: K7 `layered_scan` in each mode (pml, pml+doc, ms,
+    ms+doc) on the MS + doc tables (D = 4, W = 8), and K7 pml on the -m
+    index at its digested reads' largest bucket (that bucket's lanes only);
+  * family occ: K9 `occ_scan` in each mode on the rows of the phase-4d run
+    that uses it (chip_smoke.OCC_TIMED: W = T0 + P, T0 + 3P, T0 + 3P,
+    T0 + 5P).
+
+With --ablate, each family's timing-only variants (`FAMILIES[...].
+ablations`), built from patched copies of DIR's sources, run beside the
+parent. They may give wrong answers (their max |err| is reported) and are
+never used for anything else. The patches are literal lines of one
+commit's sources (`FAMILIES[...].patches`): on any other parent --ablate
+stops with the line it did not find.
+
+A parent's entry point is called through this tree's wrapper: the script
+loads DIR's library in place of this tree's for the call
+(`kernels._libs`). So DIR's `spumoni_tpu_torch/engine/kernels.py` must
+declare the entry points the script calls (`ENTRY_POINTS`) with this
+tree's argument lists (its `_SIGNATURES`), or the script stops. Also
+writes the SASS of each family's kernels named in `sass_keys` (this
+tree's and the parent's) to the --out directory and prints their ptxas
+registers and spills and their load / shuffle counts. Everything goes to
+--out (JSON); the card's name and power limit head the output. PERF.md
+section 6's redesign numbers for K3 / K15 (PR 7) and K7 / K9 (PR 8) come
+from this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import contextlib
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..engine import kernels
+from ..parallel import tp
+
+SHARDS = 4
+#: library -> the entry points the script calls (through this tree's
+#: wrappers): the families' scans and the controls
+ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify"),
+                "blockbits_ms": ("spn_ms_scan", "spn_ms_scan_tp"),
+                "layered": ("spn_layered_scan", "spn_layered_classify"),
+                "occblock": ("spn_occ_scan", "spn_occ_classify")}
+
+
+class Family(NamedTuple):
+    library: str      # kernels.LIBRARIES key of the scans' source
+    sass_keys: tuple  # kernel names (substrings) whose SASS is kept
+    patches: str      # the commit whose sources `ablations` patch
+    ablations: dict   # label -> [(file, text, replacement)]
+
+
+# --- family ms: K3 / K15, ablations of the one-thread-a-read design -------
+_MS_NO_JUMPS = [
+    ("blockbits_ms.cu", "ov[-t] = (PosT)(jump_t[jidx] - (PosT)run);",
+     "ov[-t] = (PosT)(jidx - (PosT)run);"),
+    ("blockbits_ms.cu", "if (MODE != kMs) od[-t] = (PosT)jump_d[jidx];",
+     "if (MODE != kMs) od[-t] = (PosT)jidx;"),
+    ("blockbits_ms.cu", "ov[-t] = (PosT)(*jump_t.row(jidx, 1) - (PosT)run);",
+     "ov[-t] = (PosT)(jidx - (PosT)run);"),
+    ("blockbits_ms.cu", "if (MODE != kMs) od[-t] = (PosT)*jump_d.row(jidx, 1);",
+     "if (MODE != kMs) od[-t] = (PosT)jidx;")]
+_MS_ONE_WORD = [
+    ("blockbits_ms.cu", "for (int w = 0; w < wcut; ++w)",
+     "for (int w = 0; w < (wcut < 1 ? wcut : 1); ++w)"),
+    ("blockbits_pml.cuh", "for (int w = 0; w < wsel; ++w)",
+     "for (int w = 0; w < (wsel < 1 ? wsel : 1); ++w)")]
+
+# --- family layered: K7, ablations of the one-thread-a-read design --------
+_K7_ONE_PROBE = [
+    ("layered.cu", "for (int s = kNode / 2; s > 0; s >>= 1)",
+     "for (int s = kNode / 2; s > kNode / 4; s >>= 1)")]
+_K7_SLOTS_EARLY = [
+    ("layered.cu", "  const long long thr = pad ? 0 : (long long)__ldg(f + kThr);\n",
+     "  const long long thr = pad ? 0 : (long long)__ldg(f + kThr);\n"
+     "  const long long es_ = (long long)__ldg(f + kEsamp),\n"
+     "                  ss_ = (long long)__ldg(f + kSsamp),\n"
+     "                  ed_ = (long long)__ldg(f + kEdoc),\n"
+     "                  sd_ = (long long)__ldg(f + kSdoc);\n"),
+    ("layered.cu", "(long long)__ldg(f + (jump_down ? kSsamp : kEsamp))",
+     "(jump_down ? ss_ : es_)"),
+    ("layered.cu", "pad ? 0 : (long long)__ldg(f + (jump_down ? kSdoc : kEdoc))",
+     "pad ? 0 : (jump_down ? sd_ : ed_)")]
+#: (c): the top levels' rows of the characters the index holds, as many
+#: levels as fit 48 KB, copied into dynamic shared memory by each block
+_K7_STAGE_CODE = r"""
+constexpr int kAbBytes = 48 * 1024;
+struct AbStage {
+  int off[2][256], n[2][256], nst;
+};
+__device__ __forceinline__ AbStage& ab_stage_info() {
+  __shared__ AbStage st;
+  return st;
+}
+__device__ __forceinline__ unsigned char* ab_rows() {
+  extern __shared__ __align__(16) unsigned char ab_dyn[];
+  return ab_dyn;
+}
+
+template <typename T>
+__device__ __forceinline__ long long ab_rows_of(const T (*cm)[kMetaCols],
+                                                const long long* lv_rows,
+                                                int c, int t) {
+  return (c < 255 ? (long long)cm[c + 1][4 + t] : lv_rows[t]) -
+         (long long)cm[c][4 + t];
+}
+
+template <typename T>
+__device__ void ab_stage(const T (*cm)[kMetaCols], const T* const* lv,
+                         const long long* lv_rows, int depth) {
+  AbStage& a = ab_stage_info();
+  if (threadIdx.x == 0) {
+    long long used = 0;
+    a.nst = 0;
+    for (int k = 0; k < 2 && k < depth; ++k) {
+      const int t = depth - 1 - k;
+      long long need = 0;
+      for (int c = 0; c < 256; ++c)
+        if (cm[c][1] > 0) need += ab_rows_of(cm, lv_rows, c, t);
+      if ((used + need) * kNode * (long long)sizeof(T) > kAbBytes) break;
+      for (int c = 0; c < 256; ++c) {
+        const int n = cm[c][1] > 0 ? (int)ab_rows_of(cm, lv_rows, c, t) : 0;
+        a.off[k][c] = (int)used;
+        a.n[k][c] = n;
+        used += n;
+      }
+      a.nst = k + 1;
+    }
+  }
+  __syncthreads();
+  T* dst = (T*)ab_rows();
+  for (int k = 0; k < a.nst; ++k) {
+    const int t = depth - 1 - k;
+    for (int c = 0; c < 256; ++c)
+      for (int i = threadIdx.x; i < a.n[k][c] * kNode; i += blockDim.x)
+        dst[(long long)a.off[k][c] * kNode + i] =
+            lv[t][(long long)cm[c][4 + t] * kNode + i];
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ const T* ab_row(const T (*cm)[kMetaCols],
+                                           const T* const* lv, int depth,
+                                           int t, long long at, int c) {
+  const AbStage& a = ab_stage_info();
+  const int k = depth - 1 - t;
+  if (k < a.nst) {
+    const long long rel = at - (long long)cm[c][4 + t];
+    if (rel >= 0 && rel < a.n[k][c])
+      return (const T*)ab_rows() + (a.off[k][c] + rel) * kNode;
+  }
+  return lv[t] + at * kNode;
+}
+
+// Per-lane recurrence state.
+"""
+_K7_STAGE = [
+    ("layered.cu", "\n// Per-lane recurrence state.\n", _K7_STAGE_CODE),
+    # generic loads: a row may now lie in shared memory
+    ("layered.cu", "__ldg(row + m + s - 1)", "row[m + s - 1]"),
+    ("layered.cu", "__ldg(row + kNode - 1)", "row[kNode - 1]"),
+    ("layered.cu", "const T* row = lv[t] + at * kNode;",
+     "const T* row = ab_row(cm, lv, s.depth, t, at, c);"),
+    ("layered.cu",
+     "                    long long L, T* __restrict__ vals, "
+     "T* __restrict__ docs) {\n"
+     "  constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;\n"
+     "  constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;\n"
+     "  __shared__ T cm[256][kMetaCols];\n"
+     "  __shared__ const T* lv[kMaxDepth];\n"
+     "  __shared__ long long lv_rows[kMaxDepth];\n"
+     "  load_meta(cm, lv, lv_rows, charmeta, levels);\n"
+     "  __syncthreads();\n",
+     "                    long long L, T* __restrict__ vals, "
+     "T* __restrict__ docs) {\n"
+     "  constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;\n"
+     "  constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;\n"
+     "  __shared__ T cm[256][kMetaCols];\n"
+     "  __shared__ const T* lv[kMaxDepth];\n"
+     "  __shared__ long long lv_rows[kMaxDepth];\n"
+     "  load_meta(cm, lv, lv_rows, charmeta, levels);\n"
+     "  __syncthreads();\n"
+     "  ab_stage(cm, lv, lv_rows, s.depth);\n"),
+    ("layered.cu",
+     "void launch_scan(const ScanArgs& a) {\n"
+     "  layered_scan_kernel<T, MODE><<<grid_of(a.B), kThreads, 0, "
+     "a.stream>>>(",
+     "void launch_scan(const ScanArgs& a) {\n"
+     "  cudaFuncSetAttribute(layered_scan_kernel<T, MODE>,\n"
+     "                       cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+     "                       kAbBytes);\n"
+     "  layered_scan_kernel<T, MODE><<<grid_of(a.B), kThreads, kAbBytes, "
+     "a.stream>>>(")]
+
+# --- family occ: K9, ablations of the one-thread-a-read design ------------
+_K9_ONE_WORD = [
+    ("occblock.cu", "for (int w = 0; w < we; ++w)",
+     "for (int w = 0; w < (we < 1 ? we : 1); ++w)")]
+_K9_CANDIDATES_EARLY = [
+    ("occblock.cu", "  const bool minus1 =\n      st.forced ||",
+     "  const int sc0_ = kIsMs ? (int)__ldg(row + s.S0 + off) : 0;\n"
+     "  const int sc1_ = kIsMs ? (int)__ldg(row + s.S0 + s.P + off) : 0;\n"
+     "  const int dc0_ = kDoc ? (int)__ldg(row + s.D0 + off) : 0;\n"
+     "  const int dc1_ = kDoc ? (int)__ldg(row + s.D0 + s.P + off) : 0;\n"
+     "  const bool minus1 =\n      st.forced ||"),
+    ("occblock.cu", ": (int)__ldg(row + s.S0 + (minus1 ? s.P : 0) + off);",
+     ": (minus1 ? sc1_ : sc0_);"),
+    ("occblock.cu", "doc = (int)__ldg(row + s.D0 + (minus1 ? s.P : 0) + off);",
+     "doc = minus1 ? dc1_ : dc0_;")]
+
+FAMILIES = {
+    "ms": Family(
+        "blockbits_ms",
+        # dfdde28's ms+doc instance (its mode a template argument) and
+        # PR 7's (the mode a runtime argument); P = 512, pack = 2, not wide
+        ("ms_scan_kernelILi512ELi2ELb0ELi1E", "ms_scan_kernelILi512ELi2ELb0EE"),
+        "dfdde28",
+        {"a-no-jump-reads": _MS_NO_JUMPS,
+         "b-one-word-ranks": _MS_ONE_WORD,
+         "c-both": _MS_NO_JUMPS + _MS_ONE_WORD,
+         "d-32-thread-blocks": [("blockbits_ms.cu",
+                                 "constexpr int kThreads = 128;",
+                                 "constexpr int kThreads = 32;")]}),
+    "layered": Family(
+        "layered",
+        ("layered_scan_kernelIiLi3EE",),   # int32 positions, ms+doc
+        "7b00901",
+        {"a-one-level-probe": _K7_ONE_PROBE,
+         "b-slots-before-jump": _K7_SLOTS_EARLY,
+         "c-top-levels-in-smem": _K7_STAGE}),
+    "occ": Family(
+        "occblock",
+        ("occ_scan_kernelILi3EE",),        # ms+doc
+        "7b00901",
+        {"a-one-char-word": _K9_ONE_WORD,
+         "b-candidates-before-minus1": _K9_CANDIDATES_EARLY,
+         "c-both": _K9_ONE_WORD + _K9_CANDIDATES_EARLY}),
+}
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def parent_signatures(parent: str, libraries) -> dict:
+    """{library: {entry point: argtypes}} of ENTRY_POINTS as DIR's
+    kernels.py declares them (`_SIGNATURES`); stops unless they are this
+    tree's."""
+    path = os.path.join(parent, "spumoni_tpu_torch", "engine", "kernels.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    node = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "_SIGNATURES"
+                        for t in n.targets))
+    # its ctypes names (_P, _I32, ...) as this tree's kernels.py binds them
+    sigs = eval(compile(ast.Expression(node), path, "eval"),
+                dict(vars(kernels)))
+    out = {}
+    for lib in libraries:
+        ours = kernels._SIGNATURES[lib]
+        for fn in ENTRY_POINTS[lib]:
+            if sigs.get(lib, {}).get(fn) != ours[fn]:
+                raise SystemExit(f"time_scan: the parent's {fn} takes other "
+                                 f"arguments than this tree's; this script "
+                                 f"calls it through this tree's")
+        out[lib] = {fn: ours[fn] for fn in ENTRY_POINTS[lib]}
+    return out
+
+
+def build_variants(jobs, signatures) -> dict:
+    """nvcc of each job's library from a copy of a csrc directory (job =
+    (label, library, patches, csrc): 'parent' and 'current' unpatched),
+    all at once, into kernels.BUILD_DIR/lab-<label>-<library>/. Returns
+    {(label, library): (CDLL, .so path, nvcc's output)}."""
+    procs = {}
+    for label, library, patches, csrc in jobs:
+        d = os.path.join(kernels.BUILD_DIR, f"lab-{label}-{library}")
+        os.makedirs(d, exist_ok=True)
+        for name in os.listdir(csrc):
+            with open(os.path.join(csrc, name)) as f:
+                src = f.read()
+            for fname, old, new in patches:
+                if fname == name:
+                    if old not in src:
+                        raise RuntimeError(
+                            f"{label}: {old!r} not in {name} (the ablations "
+                            f"patch one commit's sources)")
+                    src = src.replace(old, new)
+            with open(os.path.join(d, name), "w") as f:
+                f.write(src)
+        so = os.path.join(d, f"lib{library}.so")
+        procs[label, library] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+             os.path.join(d, kernels.LIBRARIES[library])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in signatures[key[1]].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[key] = (lib, so, log)
+    return libs
+
+
+@contextlib.contextmanager
+def _library(name: str, lib):
+    """Inside the block, kernels.library(name) is `lib` (None: this
+    tree's), so the wrappers launch its entry points."""
+    kernels.library(name)
+    saved = kernels._libs[name]
+    if lib is not None:
+        kernels._libs[name] = lib
+    try:
+        yield
+    finally:
+        kernels._libs[name] = saved
+
+
+def _time(fn, reps=5):
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, out
+
+
+def _err(got, want) -> int:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want) if g is not None)
+
+
+def sass_of(so: str, key: str) -> str:
+    """The SASS of the one kernel of `so` whose name holds `key`."""
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", so], check=True,
+                         capture_output=True, text=True).stdout
+    funcs = out.split("\t\tFunction : ")
+    hits = [f for f in funcs[1:] if key in f.splitlines()[0]]
+    return hits[0] if hits else ""
+
+
+def ptxas_of(log: str, key: str) -> list:
+    """ptxas -v's lines (properties, registers) for the kernels whose name
+    holds `key`."""
+    lines = log.splitlines()
+    keep = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and key in ln:
+            keep += [ln.strip()] + [x.strip() for x in lines[i + 1:i + 4]
+                                    if "Compiling entry" not in x]
+    return keep
+
+
+def summarize_sass(sass: str) -> dict:
+    """Counts of global loads / stores / shuffles / branches in the SASS."""
+    ops = []
+    for ln in sass.splitlines():
+        parts = ln.split("*/")
+        if len(parts) > 1 and parts[1].strip().rstrip(" ;"):
+            op = parts[1].strip()
+            ops.append(op.split(" ", 1)[1] if op.startswith("@") else op)
+    count = lambda p: sum(1 for o in ops if o.startswith(p))  # noqa: E731
+    return dict(instructions=len(ops), ldg=count("LDG"), stg=count("STG"),
+                shfl=count("SHFL"), bra=count("BRA"), lds=count("LDS"))
+
+
+class Case(NamedTuple):
+    kernel: str
+    mode: str
+    family: str        # FAMILIES key, or 'control'
+    library: str
+    call: object       # call(B) -> outputs, B None for the case's own lanes
+    own_lanes: int = 0  # > 0: timed once, at these lanes (the -m bucket)
+
+
+def _cut(t, B):
+    return t if B is None else t[:B].contiguous()
+
+
+def _cases(families, dev, reads, shapes) -> list:
+    """The timed calls: the controls, then each family's modes, on the
+    engines and staged reads they run with in chip_smoke.py."""
+    import chip_smoke as cs
+    from .. import cli, pipeline
+    from ..io.fastx_batch import iter_packed_batches
+    from ..io.minimizers import digest_packed
+
+    ms_prefix = os.path.join(cs.WORK, "msidx")
+    top = max(shapes)
+    cases = []
+
+    def staged(engine):
+        g = cs._staged(engine, reads, top)
+        return g, lambda k, B: _cut(g[k], B)
+
+    pml = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev)
+    gp, cp = staged(pml)
+    cases += [
+        Case("pml_scan", "pml", "control", "blockbits_pml",
+             lambda B: kernels.pml_scan(pml.index, gp["tab"], cp("rev_d", B),
+                                        cp("lens_d", B))),
+        Case("pml_classify", "pml", "control", "blockbits_pml",
+             lambda B: kernels.pml_classify(pml.index, gp["tab"],
+                                            cp("rev_d", B), cp("lens_d", B),
+                                            7, cs.BIN_WIDTH))]
+    lay = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="layered")
+    _, cl = staged(lay)
+    cases.append(Case(
+        "layered_classify", "pml", "control", "layered",
+        lambda B: kernels.layered_classify(lay.index, cl("rev_d", B),
+                                           cl("lens_d", B), 7,
+                                           cs.BIN_WIDTH)))
+    occ = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="occ")
+    go, co = staged(occ)
+    cases.append(Case(
+        "occ_classify", "pml", "control", "occblock",
+        lambda B: kernels.occ_classify(occ.index, go["tab"], co("rev_d", B),
+                                       co("lens_d", B), 7, cs.BIN_WIDTH)))
+
+    if "ms" in families:
+        msx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True)
+        gm, cm = staged(msx)
+        sharded = tp.shard_blockbits_ms(msx.index, SHARDS)
+        for kernel, idx, wrapper, labels in (
+                ("ms_scan", msx.index, kernels.ms_scan,
+                 ("ms", "ms+doc", "pml+doc")),
+                ("ms_scan_tp", sharded, kernels.ms_scan_tp,
+                 ("ms", "ms+doc"))):
+            for label in labels:
+                mode, doc = label.split("+")[0], label.endswith("+doc")
+                cases.append(Case(
+                    kernel, label, "ms", "blockbits_ms",
+                    lambda B, idx=idx, w=wrapper, mode=mode, doc=doc: w(
+                        idx, gm["tab"], cm("rev_d", B), cm("lens_d", B),
+                        mode, doc)))
+    if "layered" in families:
+        lx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True,
+                        engine="layered")
+        _, clx = staged(lx)
+        for label in ("pml", "pml+doc", "ms", "ms+doc"):
+            mode, doc = label.split("+")[0], label.endswith("+doc")
+            cases.append(Case(
+                "layered_scan", label, "layered", "layered",
+                lambda B, mode=mode, doc=doc: kernels.layered_scan(
+                    lx.index, clx("rev_d", B), clx("lens_d", B), mode, doc)))
+        t0 = time.time()
+        cli.main(cs._build_args()["-m -P"])
+        mx = pipeline.make_engine(os.path.join(cs.WORK, "idx-m")
+                                  + ".bin.thrbv.spumoni", dev)
+        pk = digest_packed(next(iter_packed_batches(reads, 1 << 40,
+                                                    upper=True)), True, False)
+        gmx = cs._decoded(mx, max(mx.stage(pk, max_lanes=top),
+                                  key=lambda grp: len(grp["idxs"])))
+        print(f"-m index and its bucket (B={gmx['rev_d'].shape[0]}, "
+              f"L={gmx['rev_d'].shape[1]}) in {time.time() - t0:.1f} s",
+              flush=True)
+        cases.append(Case(
+            "layered_scan", "-m pml", "layered", "layered",
+            lambda B: kernels.layered_scan(mx.index, gmx["rev_d"],
+                                           gmx["lens_d"], "pml", False),
+            own_lanes=gmx["rev_d"].shape[0]))
+    if "occ" in families:
+        for label, path, mode, doc in cs.OCC_TIMED:
+            eng = occ if label == "pml" else cs._engine(
+                ms_prefix + path, dev, mode, use_doc=doc, engine="occ")
+            g, c = staged(eng)
+            cases.append(Case(
+                "occ_scan", label, "occ", "occblock",
+                lambda B, eng=eng, g=g, c=c, mode=mode, doc=doc:
+                kernels.occ_scan(eng.index, g["tab"], c("rev_d", B),
+                                 c("lens_d", B), mode, doc)))
+    return cases
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="a source tree of the design to compare with (its "
+                         "spumoni_tpu_torch/csrc and engine/kernels.py)")
+    ap.add_argument("--families", default="ms,layered,occ",
+                    help="comma-separated FAMILIES keys")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time each family's ablations")
+    ap.add_argument("--shapes", default="8192,32768,65536")
+    ap.add_argument("--out", default="scan_timing")
+    args = ap.parse_args(argv)
+    families = args.families.split(",")
+    if not set(families) <= set(FAMILIES):
+        ap.error(f"--families: choose from {', '.join(FAMILIES)}")
+    if not torch.cuda.is_available():
+        print("time_scan: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from .. import cli
+
+    smi = _smi()
+    print(f"{smi}; torch {torch.__version__} (CUDA {torch.version.cuda})",
+          flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    shapes = [int(x) for x in args.shapes.split(",")]
+    t0 = time.time()
+    kernels.build()
+    libraries = sorted({"blockbits_pml", "layered", "occblock"}
+                       | {FAMILIES[f].library for f in families})
+    parent_csrc = os.path.join(args.parent, "spumoni_tpu_torch", "csrc")
+    # this tree's family libraries once more, for their ptxas report (the
+    # cached build of kernels.build() has none)
+    jobs = [("parent", lib, (), parent_csrc) for lib in libraries] + [
+        ("current", FAMILIES[f].library, (), kernels._CSRC)
+        for f in families]
+    if args.ablate:
+        jobs += [(label, FAMILIES[f].library, patches, parent_csrc)
+                 for f in families
+                 for label, patches in FAMILIES[f].ablations.items()]
+    libs = build_variants(jobs, parent_signatures(args.parent, libraries))
+    print(f"kernels built in {time.time() - t0:.1f} s", flush=True)
+    report = dict(device=smi, torch=torch.__version__, shapes=shapes,
+                  parent=args.parent, families=families)
+    for f in families:
+        fam = FAMILIES[f]
+        for tree in ("current", "parent"):
+            so, log = libs[tree, fam.library][1:]
+            for key in fam.sass_keys:
+                sass = sass_of(so, key)
+                if not sass:
+                    continue
+                with open(os.path.join(args.out, f"{tree}_{key}.sass"),
+                          "w") as fh:
+                    fh.write(sass)
+                tp_key = key.replace("ms_scan_kernel", "ms_scan_tp_kernel")
+                ptx = ptxas_of(log, key) + (ptxas_of(log, tp_key)
+                                            if tp_key != key else [])
+                report[f"sass_{tree}_{key}"] = dict(summarize_sass(sass),
+                                                    ptxas=ptx)
+                print(f"{tree} {key}: {report[f'sass_{tree}_{key}']}",
+                      flush=True)
+
+    t0 = time.time()
+    cs.write_inputs(10)
+    cli.main(cs._build_args()["-M -P -d"])
+    print(f"inputs and MS index in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    cases = _cases(families, dev, os.path.join(cs.WORK, "reads.fa"), shapes)
+    print(f"engines and staged reads in {time.time() - t0:.1f} s",
+          flush=True)
+    results = []
+
+    def row(case, B, variant, ms, err=None, **kw):
+        r = dict(kernel=case.kernel, mode=case.mode, B=B, variant=variant,
+                 ms=ms, max_abs_err=err, **kw)
+        results.append(r)
+        print(json.dumps(r), flush=True)
+
+    def timed(case, lib, B):
+        with _library(case.library, lib):
+            return _time(lambda: case.call(B))
+
+    for B in shapes:
+        for case in cases:
+            if case.own_lanes and B != max(shapes):
+                continue
+            lanes = case.own_lanes or B
+            arg = None if case.own_lanes else B
+            parent = libs["parent", case.library][0]
+            p1, want = timed(case, parent, arg)
+            ms, got = timed(case, None, arg)
+            p2 = timed(case, parent, arg)[0]
+            err = _err(got, want)
+            row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2])
+            if err:
+                raise AssertionError(f"{case.kernel} {case.mode} B={lanes}: "
+                                     f"!= parent (max |err| {err})")
+            row(case, lanes, "current", ms, err)
+            if case.family in families and args.ablate:
+                for label in FAMILIES[case.family].ablations:
+                    lib = libs[label, case.library][0]
+                    ms, got = timed(case, lib, arg)
+                    row(case, lanes, label, ms, _err(got, want),
+                        patches=FAMILIES[case.family].patches)
+    report["results"] = results
+    with open(os.path.join(args.out, "results.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"{smi}\ntime_scan: done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

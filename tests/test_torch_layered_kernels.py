@@ -99,6 +99,44 @@ def test_layered_scan_checks_its_inputs(bad):
         kernels.layered_scan(index, rev, lens, mode, use_doc)
 
 
+@pytest.mark.parametrize("L", [1024, 1021])
+@pytest.mark.parametrize("mode", ["pml", "ms"])
+def test_layered_scan_on_the_edge_reads_equals_native(L, mode):
+    """K7's plain version on the edge reads (the lengths around its G = 8
+    lanes and L, the read whose last step jumps) equals the native engine:
+    PML lengths or MS pointers, and doc ids."""
+    text, index, native = seeded_layered(10, 3000, docs=True)
+    reads = kernels.ms_edge_reads(text, L, terminator=False)[:-1]  # no W
+    assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
+    rev, _, lens = raw_rows(reads, L)
+    vals, docs = kernels.layered_scan(index, rev, lens, mode, True)
+    if mode == "ms":
+        wvals, _, wdocs = native.query_ms(reads, with_docs=True)
+    else:
+        wvals, wdocs = native.query_pml(reads, with_docs=True)
+    for i, m in enumerate(lens.tolist()):
+        assert np.array_equal(vals[i, :m].numpy(), wvals[i]), i
+        assert np.array_equal(docs[i, :m].numpy(), wdocs[i]), i
+        assert not vals[i, m:].any() and not docs[i, m:].any(), i
+
+
+def test_layered_tables_must_be_16_byte_aligned():
+    """K7 reads level rows and field rows in 16-byte loads: its tables are
+    every level and the fields, and one that starts off 16 bytes is refused
+    before any launch."""
+    _, index, _ = seeded_layered(5, 2000)
+    tables = kernels.layered_tables(index)
+    assert [label for label, _ in tables] == [
+        f"level {t}" for t in range(index.meta.depth)] + ["fields"]
+    kernels._check_aligned("layered_scan", tables)
+    fields = index.fields
+    off = torch.zeros(fields.numel() + 1, dtype=fields.dtype)[1:].view(
+        fields.shape)
+    with pytest.raises(ValueError, match="fields is not 16-byte aligned"):
+        kernels._check_aligned("layered_scan", tables[:-1] + [("fields",
+                                                               off)])
+
+
 # ---------------------------------------------------------------------------
 # on the GPU: kernel == plain version, exactly
 # ---------------------------------------------------------------------------
@@ -148,3 +186,16 @@ def test_layered_kernels_equal_plain_versions_on_gpu(case):
         assert torch.equal(a, b)
     assert kernels.layered_scan.launches == len(modes) + 1
     assert kernels.layered_classify.launches == 1
+    # K7 on the edge reads (lengths around its G = 8 lanes; B not a multiple
+    # of 128 / G), at L = 1,024 and 1,021 (a read stride off 32 bytes)
+    for L in (1024, 1021):
+        rev, _, lens = raw_rows(kernels.ms_edge_reads(text, L,
+                                                      terminator=False),
+                                L, "cuda")
+        for mode, use_doc in modes:
+            want = kernels.layered_scan_reference(index, rev, lens, mode,
+                                                  use_doc)
+            got = kernels.layered_scan(index, rev, lens, mode, use_doc)
+            torch.cuda.synchronize()
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(got, want)), (L, mode, use_doc)

@@ -93,6 +93,27 @@ def test_occ_scan_checks_its_inputs(bad):
         kernels.occ_scan(index, tab, rev, lens, mode, use_doc)
 
 
+@pytest.mark.parametrize("L", [1024, 1021])
+@pytest.mark.parametrize("mode", ["pml", "ms"])
+def test_occ_scan_on_the_edge_reads_equals_native(L, mode):
+    """K9's plain version on the edge reads (the lengths around its G = 8
+    lanes and L, the read whose last step jumps) equals the native engine:
+    PML lengths or MS pointers, and doc ids."""
+    text, index, table, native = seeded_occ(10, 3000, docs=True)
+    reads = kernels.ms_edge_reads(text, L, terminator=False)[:-1]  # no W
+    assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
+    tab, rev, _, lens = ranked_rows(table, reads, L)
+    vals, docs = kernels.occ_scan(index, tab, rev, lens, mode, True)
+    if mode == "ms":
+        wvals, _, wdocs = native.query_ms(reads, with_docs=True)
+    else:
+        wvals, wdocs = native.query_pml(reads, with_docs=True)
+    for i, m in enumerate(lens.tolist()):
+        assert np.array_equal(vals[i, :m].numpy(), wvals[i]), i
+        assert np.array_equal(docs[i, :m].numpy(), wdocs[i]), i
+        assert not vals[i, m:].any() and not docs[i, m:].any(), i
+
+
 # ---------------------------------------------------------------------------
 # on the GPU: kernel == plain version, exactly
 # ---------------------------------------------------------------------------
@@ -150,3 +171,16 @@ def test_occ_kernels_equal_plain_versions_on_gpu(case):
         assert torch.equal(a, b)
     assert kernels.occ_scan.launches == len(modes) + m.has_samples
     assert kernels.occ_classify.launches == 1
+    # K9 on the edge reads (lengths around its G = 8 lanes; B not a multiple
+    # of 128 / G), at L = 1,024 and 1,021 (a read stride off 32 bytes)
+    for L in (1024, 1021):
+        tab, rev, _, lens = ranked_rows(
+            table, kernels.ms_edge_reads(text, L, terminator=False), L,
+            "cuda")
+        for mode, use_doc in modes:
+            want = kernels.occ_scan_reference(index, tab, rev, lens, mode,
+                                              use_doc)
+            got = kernels.occ_scan(index, tab, rev, lens, mode, use_doc)
+            torch.cuda.synchronize()
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(got, want)), (L, mode, use_doc)
