@@ -20,7 +20,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
   3. K1/K2 vs plain versions on small seeded indexes: every layout the
      main path can pick (P in {64, 256, 512}, pack in {2, 4}, wide or not),
      a repetitive text, a 7-letter alphabet, reads with N and bytes absent
-     from the index; equality is exact (integers, tolerance 0);
+     from the index; equality is exact (integers, tolerance 0); K1 on the
+     main path's layout also on kernels.ms_edge_reads (lengths 0, 1, 7, 8,
+     9 around its G = 8 threads a read, 1,023 and L; the terminator query;
+     the W read) at L = 1,024 and 1,021;
   3b. K3 (ms, ms+doc, pml+doc), K4, K5 and K6 vs plain versions the same
      way, on multi-document MS indexes of the same layouts; K3 with
      kernels.ms_edge_reads added (lengths 0, 1, 7, 8, 9 around its G = 8
@@ -32,9 +35,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
      `layered_classify` and K4 on K7's pointers vs plain versions on small
      layered indexes: DNA of depth 2 and 3, two documents, general text
      (26 letters), -m digested text; DNA cases also vs the native engine;
-     K7 on the main path's layout (int32, W = 8, two documents) also on
-     the edge reads (kernels.ms_edge_reads without the terminator query)
-     at L = 1,024 and 1,021;
+     K7 and K8 on the main path's layout (int32, W = 8, two documents)
+     also on the edge reads (kernels.ms_edge_reads without the terminator
+     query) at L = 1,024 and 1,021;
   3d. K9 `occ_scan` (pml, pml+doc, ms, ms+doc), K10 `occ_classify` and K4
      on K9's pointers vs plain versions on small occ-block indexes: DNA
      with N at P = 128 and P = 16, two documents (with a read longer than
@@ -297,9 +300,14 @@ def small_phase(device, n=20000, num_reads=300):
                               got, want):
             if not torch.equal(g, w):
                 raise AssertionError(f"{label}: pml_classify {name} differs")
+        edge = ""
+        if label == EDGE_CASE:
+            edge = _group_edge_check(label, kernels.pml_scan,
+                                     kernels.pml_scan_reference, index, [()],
+                                     text, device, table, terminator=True)
         print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
               f"wide={index.meta.wide} n={index.meta.n} B={len(reads)}: "
-              f"K1 == plain == native, K2 == plain, exactly "
+              f"K1 == plain == native{edge}, K2 == plain, exactly "
               f"({int(got[0].sum())} FOUND)")
 
 
@@ -330,8 +338,8 @@ def _scan_errs(scan, index, ref, ref_index, table, reads, L, device):
     return err
 
 
-#: the 3b case whose K3 also runs the edge reads at L = 1,021: the main
-#: path's layout
+#: the 3 / 3b case whose K1 / K3 also run the edge reads (K1 at L = 1,024
+#: and 1,021, K3 at L = 1,021): the main path's layout
 EDGE_CASE = "P512-pack2"
 
 
@@ -438,36 +446,38 @@ def small_ms_phase(device, n=20000, num_reads=300):
 
 
 def _group_edge_check(label, scan, plain, index, modes, text, device,
-                      table=None):
-    """K7 (table None: raw bytes) or K9 (query-rank codes through table)
-    against its plain version in each mode on the edge reads at L = 1,024
-    and 1,021; returns the note 3c / 3d print."""
+                      table=None, terminator=False):
+    """K7 / K8 (table None: raw bytes) or K1 / K9 (query-rank codes through
+    table) against its plain version on the edge reads at L = 1,024 and
+    1,021 (with the terminator query for K1), once for each of `modes`:
+    the arguments after the reads ((mode, use_doc); K8's (thr, bin_width);
+    () for K1). Returns the note 3 / 3c / 3d print."""
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
     from spumoni_tpu_torch.engine.layered import raw_rows
 
     for L in (1024, 1021):
-        edge = kernels.ms_edge_reads(text, L, terminator=False)
+        edge = kernels.ms_edge_reads(text, L, terminator=terminator)
         if table is None:
             rows = raw_rows(edge, L, device)[::2]   # reversed rows, lens
         else:
             tab, rev, _, lens = ranked_rows(table, edge, L, device)
             rows = (tab, rev, lens)
-        for mode, use_doc in modes:
-            want = plain(index, *rows, mode, use_doc)
-            got = scan(index, *rows, mode, use_doc)
+        for args in modes:
+            want = plain(index, *rows, *args)
+            got = scan(index, *rows, *args)
             sync(device)
             err = _max_err(got, want)
             if err:
-                raise AssertionError(f"{label}: {scan.__name__} {mode} doc="
-                                     f"{use_doc} on the edge reads at L = "
-                                     f"{L} != plain (max |err| {err})")
+                raise AssertionError(f"{label}: {scan.__name__} {args} on "
+                                     f"the edge reads at L = {L} != plain "
+                                     f"(max |err| {err})")
     return f"; edge reads at L = 1024, 1021, B={len(edge)}"
 
 
-#: the 3c and 3d cases whose K7 / K9 also run the edge reads: the main
-#: path's layouts (int32 fields of width 8 with doc ids; P = 128 rows with
-#: samples and doc ids)
+#: the 3c and 3d cases whose K7 / K8 and K9 also run the edge reads: the
+#: main path's layouts (int32 fields of width 8 with doc ids; P = 128 rows
+#: with samples and doc ids)
 LAYERED_EDGE_CASE = "two-docs"
 OCC_EDGE_CASE = "two-docs-long"
 
@@ -534,6 +544,9 @@ def small_layered_phase(device, num_reads=300):
             edge = _group_edge_check(label, kernels.layered_scan,
                                      kernels.layered_scan_reference, index,
                                      modes, text, device)
+            _group_edge_check(label, kernels.layered_classify,
+                              kernels.layered_classify_reference, index,
+                              [(7, BIN_WIDTH)], text, device)
         checked = ""
         if alphabet == b"ACGT" and not digest:
             plen = kernels.layered_scan(index, rev, lens)[0].cpu().numpy()
@@ -546,9 +559,10 @@ def small_layered_phase(device, num_reads=300):
                     raise AssertionError(f"{label}: read {i} != native "
                                          f"engine")
             checked = " == native"
+        k8 = "K8 (edge reads too)" if edge else "K8"
         print(f"{label:16s} D={m.depth} W={m.width} wide={m.wide} "
               f"n={m.n} r={m.r} B={len(reads)}: K7 ({len(modes)} modes"
-              f"{edge}), K4 on K7 pointers{checked}, K8 == plain, exactly "
+              f"{edge}), K4 on K7 pointers{checked}, {k8} == plain, exactly "
               f"({int(res[0].sum())} FOUND)")
 
 
@@ -1652,10 +1666,11 @@ def timing_phase(device, prefix, reads, n_reads):
     src = "spumoni_tpu_torch/csrc/blockbits_pml.cu"
     rows = (engine.index.bblocks,)
     return [
-        _time_kernel("pml_scan", kernels.pml_scan,
-                     kernels.pml_scan_reference, args, src,
-                     "spumoni_tpu/engine/scan_engine.py:145",
-                     _reads_work("pml_scan", rows)),
+        dict(_time_kernel("pml_scan", kernels.pml_scan,
+                          kernels.pml_scan_reference, args, src,
+                          "spumoni_tpu/engine/scan_engine.py:145",
+                          _reads_work("pml_scan", rows)),
+             group=kernels.GROUP),
         _time_kernel("pml_classify", kernels.pml_classify,
                      kernels.pml_classify_reference, (*args, 7, BIN_WIDTH),
                      src, "spumoni_tpu/parallel/mesh.py:128",
@@ -1890,8 +1905,9 @@ def layered_timing_phase(device, ms_prefix, ms_reads, m_prefix, m_reads,
         kernels.layered_classify_reference, (*args, 7, BIN_WIDTH), src,
         k8_src, work("layered_classify", engine.index), shapes=False)
     return [dict(_with_modes("layered_scan", modes), group=kernels.GROUP),
-            _with_modes("layered_classify", {"-m": k8["-m"],
-                                             "10-strain": k8["10-strain"]})]
+            dict(_with_modes("layered_classify",
+                             {"-m": k8["-m"], "10-strain": k8["10-strain"]}),
+                 group=kernels.CLASSIFY_GROUP)]
 
 
 def _occ_columns(index, mode, use_doc):

@@ -76,7 +76,7 @@ constexpr int kGroup = 8;  // threads per read of K3 / K15
 template <bool WIDE>
 using PosOf = typename std::conditional<WIDE, long long, int32_t>::type;
 
-// K3: a group of G threads per read steps it through spn::ms_probe, every
+// K3: a group of G threads per read steps it through spn::group_probe, every
 // lane carrying the same (pos, jump id, run); lane t % G reads step t's
 // jump-table entries, and the group stores G outputs at once a step later.
 template <int P, int PACK, bool WIDE>
@@ -116,7 +116,7 @@ ms_scan_kernel(const uint32_t* __restrict__ rows,
     const int qc = qn, code = cn;
     if (t + 1 < len) qn = __ldg(rd + t + 1);
     const long long blk = spn::block_of<P>(s, pos);
-    const spn::MsProbe pr = spn::ms_probe<P, PACK, WIDE, G>(
+    const spn::MsProbe pr = spn::group_probe<P, PACK, WIDE, G, true>(
         rows + blk * W, msrows + blk * WM, tab, s, pos, qc, code, lane);
     // the last group's outputs, after this step's row loads
     if (t > 0 && (t & (G - 1)) == 0) out.store(t - G + lane);
@@ -212,7 +212,7 @@ ms_scan_tp_kernel(const spn::ShardedRows<uint32_t> rows,
     if (t + 1 < len) qn = __ldg(rd + t + 1);
     // rows and msrows share rows_per_shard: one shard lookup for both
     const spn::ShardAt at = spn::shard_at(rows, spn::block_of<P>(s, pos));
-    const spn::MsProbe pr = spn::ms_probe<P, PACK, WIDE, G>(
+    const spn::MsProbe pr = spn::group_probe<P, PACK, WIDE, G, true>(
         rows.p[at.shard] + at.local * W, msrows.p[at.shard] + at.local * WM,
         tab, s, pos, qc, code, lane);
     // the last group's outputs, after this step's row loads

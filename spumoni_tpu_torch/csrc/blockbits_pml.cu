@@ -1,11 +1,11 @@
 // K1 `pml_scan`, K2 `pml_classify` and K13 `pml_classify_tp`: the PML
-// recurrence over the block-bits rows, one thread per read, on NVIDIA
-// Hopper (sm_90a).
+// recurrence over the block-bits rows on NVIDIA Hopper (sm_90a): K1 with
+// kGroup = 8 threads per read, K2 and K13 with one.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K1: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v4 (the v4
 //       step of engine/blockbits.py scanned over the read), plus the
-//       per-lane output flip of _flip_rows: K1 writes forward order.
+//       per-lane flip of _flip_rows: K1 writes forward order.
 //   K2: spumoni_tpu/parallel/mesh.py::fused_classify_kernel (the same scan
 //       with the windowed bin-max folded into the carry).
 //   K13: spumoni_tpu/parallel/tp.py::TpPmlClassifier._classify_fn, K2 over
@@ -13,17 +13,27 @@
 //       clamped to the padded row count as the JAX owner-masked read
 //       (engine/blockbits.py:707-725) clamps it; pad rows are zero.
 //
-// Bound: each step is one DEPENDENT random read of one index row (208 B at
-// P=256, 400 B at P=512 for pack=2) — the next position comes from this
-// row — so a lane is a pointer chase and the kernel is latency-bound. The
-// design answers with lanes in flight: one thread per read keeps (pos,
-// length) in registers through all of its steps in one launch, 128-thread
-// blocks let the whole batch (65,536 reads) be resident at once, and a step
-// touches only the row words it needs (checkpoint slot, char words up to
-// the offset, one up-bit word). The per-character table sits in shared
-// memory. Steps past a read's length are not run: their outputs are never
-// read (mesh.py:102-111, scan_engine.py:1966). K13 is K2's body with the
-// row read from its shard: one divide more per step.
+// Bound: each step is one DEPENDENT random read of one index row (400 B at
+// P = 512, pack = 2) — the next position comes from this row — so a lane
+// is a pointer chase and the kernel is latency-bound. At the lanes the runs
+// launch (8,192 a value-run group, 32,768 a report-only batch) the card is
+// mostly empty, so the time is the chain's length in round trips. The
+// per-character table sits in shared memory; steps past a read's length
+// are not run: their outputs are never read (mesh.py:102-111,
+// scan_engine.py:1966).
+//   K1 runs K3's step without the msrow run ranks (spn::group_probe in
+//   ms_step.cuh, RUNS false): the block's character words up to the offset
+//   as fixed, predicated 16-, 8- or 4-byte loads split over the group,
+//   issued at once with the checkpoint, up-bit and high-byte words, and
+//   summed by shuffle, so a step is one round trip where spn::probe's
+//   character-word loop made up to 31 dependent loads (P = 512, pack = 2).
+//   Each step's read byte is loaded a step ahead, and the group stores 8
+//   lengths at once (GroupSlots). The lane group is the one K3 / K15, K7
+//   and K9 take (K8 takes 4).
+//   K2 and K13 keep the one-thread step (spn::probe, blockbits_pml.cuh)
+//   until their own redesign, which A14's lost-time order (PERF.md section
+//   6) puts after K14, K16 and K4: they lose less a run than those. K13 is
+//   K2's body with the row read from its shard: one divide more per step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for a layout this
@@ -35,13 +45,18 @@
 
 #include "binmax.cuh"
 #include "blockbits_pml.cuh"
+#include "ms_step.cuh"
 #include "sharded.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
+constexpr int kGroup = 8;  // threads per read of K1
 
+// K1: a group of G threads per read steps it through spn::group_probe
+// without the run ranks, every lane carrying the same (pos, length); the
+// group stores G lengths at once (GroupSlots).
 template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 pml_scan_kernel(const uint32_t* __restrict__ rows,
@@ -49,24 +64,36 @@ pml_scan_kernel(const uint32_t* __restrict__ rows,
                 const uint8_t* __restrict__ reads,
                 const long long* __restrict__ lens, long long B, long long L,
                 int32_t* __restrict__ out, spn::IndexScalars s) {
+  constexpr int G = kGroup;
+  constexpr int W = spn::Layout<P, PACK, WIDE>::W;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   long long len = lens[b];
   len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd = reads + b * L;   // reversed read, left-aligned
-  int32_t* o = out + b * L + len - 1;  // forward position len-1-t
+  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
+  // forward position len-1-t: column -t
+  spn::GroupSlots<int32_t, G> o = {out + b * L + len - 1, 0};
   long long pos = s.n - 1;
   int32_t length = 0;
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's character ...
+  int cn = tab.code[qn];             // ... and its code
   for (long long t = 0; t < len; ++t) {
-    bool match;
-    pos = spn::pml_step<P, PACK, WIDE>(rows, tab, s, pos, __ldg(rd + t),
-                                       match);
-    length = match ? length + 1 : 0;
-    o[-t] = length;
+    const int qc = qn, code = cn;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
+    const spn::MsProbe pr = spn::group_probe<P, PACK, WIDE, G, false>(
+        rows + spn::block_of<P>(s, pos) * W, nullptr, tab, s, pos, qc, code,
+        lane);
+    length = pr.is_match ? length + 1 : 0;
+    o.put(t, length, lane);
+    pos = pr.new_pos;
+    cn = tab.code[qn];
   }
+  o.flush(len, lane);
 }
 
 template <int P, int PACK, bool WIDE>
@@ -159,19 +186,22 @@ struct Args {
   long long* sum_maxes;
 };
 
-unsigned grid_of(const Args& a) {
-  return (unsigned)((a.B + kThreads - 1) / kThreads);
+unsigned grid_of(long long threads) {
+  return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+// K1: kGroup threads per read, B * kGroup threads in blocks of kThreads.
 template <int P, int PACK, bool WIDE>
 void launch_scan(const Args& a) {
-  pml_scan_kernel<P, PACK, WIDE><<<grid_of(a), kThreads, 0, a.stream>>>(
+  pml_scan_kernel<P, PACK, WIDE>
+      <<<grid_of(a.B * kGroup), kThreads, 0, a.stream>>>(
       a.rows, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.out, a.s);
 }
 
 template <int P, int PACK, bool WIDE>
 void launch_classify(const Args& a) {
-  pml_classify_kernel<P, PACK, WIDE><<<grid_of(a), kThreads, 0, a.stream>>>(
+  pml_classify_kernel<P, PACK, WIDE>
+      <<<grid_of(a.B), kThreads, 0, a.stream>>>(
       a.rows, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.thr, a.bin_width,
       a.found, a.above, a.below, a.sum_maxes, a.s);
 }
@@ -179,7 +209,7 @@ void launch_classify(const Args& a) {
 template <int P, int PACK, bool WIDE>
 void launch_classify_tp(const Args& a) {
   pml_classify_tp_kernel<P, PACK, WIDE>
-      <<<grid_of(a), kThreads, 0, a.stream>>>(
+      <<<grid_of(a.B), kThreads, 0, a.stream>>>(
           a.shards, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.thr,
           a.bin_width, a.found, a.above, a.below, a.sum_maxes, a.s);
 }

@@ -1,7 +1,7 @@
 // K7 `layered_scan`, K8 `layered_classify` and K14 `layered_classify_tp`:
 // the PML / MS / doc recurrence over the layered index (engine v2) on
-// NVIDIA Hopper (sm_90a): K7 with kGroup = 8 threads per read, K8 and K14
-// with one.
+// NVIDIA Hopper (sm_90a): K7 with kGroup = 8 threads per read, K8 with
+// kClassifyGroup = 4, K14 with one.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K7: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v2 (the step
@@ -46,11 +46,21 @@
 //   slots the mode reads are loaded at once and the sample or doc slot
 //   chosen after they land: D round trips a step (D - 1 levels, the field
 //   row). The group stores 8 consecutive outputs at once.
-//   K8 and K14 keep the one-thread step (step, step_tp below) until their
-//   own redesign: count_le's upper-bound search is up to 7 dependent loads
-//   a level (6 probes and the check of entry 63), so a step is up to 7 D + 1
-//   round trips. K14 reads each field row from its shard: one divide more
-//   per step.
+//   K8 is K7's PML scan on the same group step with the bin-max carry in
+//   every lane (binmax.cuh): D round trips a step, no stores but the
+//   verdict, which lane 0 writes. Its runs launch it at 32,768 lanes (a
+//   report-only batch), where 4 threads a read beat 8: 32,768 groups of 8
+//   (56 registers) run in 1.7 waves, of 4 (64 registers) in one (PERF.md
+//   section 6); 8 are faster only at 8,192 lanes, where no run launches
+//   K8.
+//   K14 keeps the one-thread step (step_tp below) until its own redesign,
+//   next in A14's lost-time order (PERF.md section 6): count_le's
+//   upper-bound search is up to 7 dependent loads a level (6 probes and
+//   the check of entry 63), so a step is up to 7 D + 1 round trips, and
+//   it reads each field row from its shard: one divide more per step.
+//   K1, K3 / K15 and K9 take a lane group of 8 on their own steps
+//   (ms_step.cuh, occ_step.cuh); K2, K10, K13 and K14 still run one thread
+//   per read.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -71,7 +81,8 @@ using namespace spn::layered;
 
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
-constexpr int kGroup = 8;  // threads per read of K7
+constexpr int kGroup = 8;          // threads per read of K7
+constexpr int kClassifyGroup = 4;  // threads per read of K8
 
 // Entries of a sorted 64-entry row that are <= pos.
 template <typename T>
@@ -86,68 +97,10 @@ __device__ __forceinline__ int count_le(const T* __restrict__ row,
   return m;
 }
 
-// One backward step of make_layered_step_fn (layered.py:270-390) for byte c.
-template <typename T, int MODE>
-__device__ __forceinline__ void step(const T (*cm)[kMetaCols],
-                                     const T* const* lv,
-                                     const long long* lv_rows,
-                                     const T* __restrict__ fields,
-                                     const Scalars& s, int c, Carry& st) {
-  constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;
-  constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;
-  const long long F = cm[c][0], cnt = cm[c][1], lo0 = cm[c][2],
-                  hi0 = cm[c][3];
-  const long long pos = st.pos;
-  // 64-ary descent: rank = index within c of the last run start <= pos;
-  // no entry <= pos (dead) is possible only at the top level
-  long long rank = 0;
-  bool dead = false;
-  for (int t = s.depth - 1; t >= 0; --t) {
-    long long at = (long long)cm[c][4 + t] + rank;
-    at = at < lv_rows[t] - 1 ? at : lv_rows[t] - 1;
-    const T* row = lv[t] + at * kNode;
-    const int m = count_le(row, pos);
-    if (t == s.depth - 1) dead = m == 0;
-    rank = rank * kNode + (m > 0 ? m - 1 : 0);
-  }
-  // row k+1 holds run k and the next run's targets; a dead lane reads row
-  // lo0, whose threshold (run lo0's) is 0: the jump down the reference
-  // takes when rank(pos, c) == 0 (compute_ms_pml.cpp:259-268)
-  long long probe = dead ? lo0 : lo0 + rank + 1;
-  probe = probe < 0 ? 0 : probe < s.probe_bound - 1 ? probe
-                                                    : s.probe_bound - 1;
-  const bool pad = probe >= s.rows;
-  const T* f = fields + (pad ? 0 : probe) * s.width;
-  const long long start = pad ? s.n : (long long)__ldg(f + kStart);
-  const long long len = pad ? 0 : (long long)__ldg(f + kLen);
-  const long long cum = pad ? 0 : (long long)__ldg(f + kCum);
-  const long long thr = pad ? 0 : (long long)__ldg(f + kThr);
-  const bool is_match = !dead && pos < start + len;
-  const long long off = pos - start;
-  const long long rnk = dead ? 0 : cum + (off < len ? off : len);
-  const bool has_next = dead ? cnt > 0 : (rank + 1) < (hi0 - lo0);
-  const bool jump_down = !is_match && has_next && pos >= thr;
-  const bool empty = cnt == 0;
-
-  st.pos = empty ? F : (is_match || jump_down) ? F + rnk : F + rnk - 1;
-  st.length = is_match ? st.length + 1 : 0;
-  if (kIsMs)
-    st.sample = empty ? 0
-                : is_match ? st.sample - 1
-                : pad ? 0
-                : (long long)__ldg(f + (jump_down ? kSsamp : kEsamp));
-  if (kDoc) {
-    const long long jumped =
-        pad ? 0 : (long long)__ldg(f + (jump_down ? kSdoc : kEdoc));
-    if (kIsMs)  // an absent char resets the doc (compute_ms_pml.cpp:639)
-      st.doc = empty ? s.first_run_sdoc : is_match ? st.doc : jumped;
-    else        // ... and keeps it in PML mode (:303)
-      st.doc = (empty || is_match) ? st.doc : jumped;
-  }
-}
-
-// K14's step: step<T, kPml> with the field row read from its shard. The
-// two must stay the same recurrence (chip_smoke.py phase 3f and
+// K14's step: one thread's backward step of make_layered_step_fn
+// (layered.py:270-390) in PML mode for byte c, the 64-ary descent by
+// count_le, the field row read from its shard. It must stay the recurrence
+// of K8's group step (chip_smoke.py phase 3f and
 // tests/test_torch_tp_kernels.py hold K14 to K8).
 template <typename T>
 __device__ __forceinline__ void step_tp(const T (*cm)[kMetaCols],
@@ -253,6 +206,9 @@ layered_scan_kernel(const T* __restrict__ charmeta, Levels levels,
   if (kDoc) od.flush(len, lane);
 }
 
+// K8: K7's PML scan with the bin-max carry: a group of kClassifyGroup
+// threads per read steps it through group_step, every lane carrying the
+// same Carry and BinMax; lane 0 writes the verdict.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
@@ -264,23 +220,42 @@ layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
                         int32_t* __restrict__ above,
                         int32_t* __restrict__ below,
                         long long* __restrict__ sum_maxes) {
+  constexpr int G = kClassifyGroup;
+  using Lay = GroupLayout<T, kPml, G>;
   __shared__ T cm[256][kMetaCols];
   __shared__ const T* lv[kMaxDepth];
   __shared__ long long lv_rows[kMaxDepth];
   load_meta(cm, lv, lv_rows, charmeta, levels);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   const long long len64 = lens[b];
   const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
-  const uint8_t* rd = reads + b * L;
+  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
   spn::BinMax bins(len, bin_width, thr);
   Carry st = {s.n - 1, 0, s.last_run_sample, s.last_run_edoc};
+  // this step's character and top-level row share, and the next step's
+  // character: the next top row is loaded a step ahead
+  int c = len > 0 ? __ldg(rd) : 0;
+  int cn = len > 1 ? __ldg(rd + 1) : 0;
+  uint4 top[Lay::kRow], nxt[Lay::kRow];
+  if (len > 0)
+    load_level<T, kPml, G>(top_row(cm, lv, lv_rows, s.depth, c), lane, top);
   for (int t = 0; t < len; ++t) {
-    step<T, kPml>(cm, lv, lv_rows, fields, s, __ldg(rd + t), st);
+    if (t + 1 < len)
+      load_level<T, kPml, G>(top_row(cm, lv, lv_rows, s.depth, cn), lane,
+                             nxt);
+    const int c2 = t + 2 < len ? __ldg(rd + t + 2) : 0;
+    group_step<T, kPml, G>(cm, lv, lv_rows, fields, s, c, top, lane, st);
     bins.add(t, st.length);
+#pragma unroll
+    for (int i = 0; i < Lay::kRow; ++i) top[i] = nxt[i];
+    c = cn;
+    cn = c2;
   }
-  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+  if (lane == 0) bins.finish(found + b, above + b, below + b, sum_maxes + b);
 }
 
 // K14: K8 with the fields in shards.
@@ -425,14 +400,15 @@ extern "C" int spn_layered_classify(const void* charmeta,
       bin_width <= 0)
     return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned grid = grid_of(B * kClassifyGroup);
   if (wide)
-    layered_classify_kernel<long long><<<grid_of(B), kThreads, 0, st>>>(
+    layered_classify_kernel<long long><<<grid, kThreads, 0, st>>>(
         (const long long*)charmeta, levels, (const long long*)fields, s,
         (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
         (uint8_t*)found, (int32_t*)above, (int32_t*)below,
         (long long*)sum_maxes);
   else
-    layered_classify_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
+    layered_classify_kernel<int32_t><<<grid, kThreads, 0, st>>>(
         (const int32_t*)charmeta, levels, (const int32_t*)fields, s,
         (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
         (uint8_t*)found, (int32_t*)above, (int32_t*)below,

@@ -1,9 +1,10 @@
 // The layered index's layout and scalars (engine v2, shared by K7, K8 and
-// K14), and one step of K7 `layered_scan` for a group of G threads per read.
+// K14), and one step of K7 `layered_scan` and K8 `layered_classify` for a
+// group of G threads per read.
 //
-// K7's step computes what layered.cu's step<T, MODE> computes (the JAX
-// step engine/layered.py:270-390), from the same tables, with the loads of
-// each round trip issued at once and split over the group:
+// The step computes the JAX step (engine/layered.py:270-390; in PML mode
+// also layered.cu's one-thread step_tp, K14's), from the same tables, with
+// the loads of each round trip issued at once and split over the group:
 //   * a level's 64-entry row is read as 16-byte loads, kRow a lane (2 at
 //     int32, 4 at int64 with G = 8); each lane counts its entries <= pos
 //     and the group sums the counts with __shfl_xor_sync: the JAX step's
@@ -113,8 +114,7 @@ __device__ __forceinline__ const T* top_row(const T (*cm)[kMetaCols],
 }
 
 // One backward step of make_layered_step_fn for byte c by the group; `top`
-// is this lane's share of top_row(c), loaded by the caller. Equal to
-// layered.cu's step<T, MODE>.
+// is this lane's share of top_row(c), loaded by the caller.
 template <typename T, int MODE, int G>
 __device__ __forceinline__ void group_step(
     const T (*cm)[kMetaCols], const T* const* lv, const long long* lv_rows,

@@ -1,24 +1,27 @@
-// One MS / doc step of K3 `ms_scan` and K15 `ms_scan_tp` for a group of G
-// threads per read (G a power of two up to 8; both kernels take G = 8),
+// One block-bits step for a group of G threads per read (G a power of two
+// up to 8; every kernel takes G = 8): K1 `pml_scan`'s PML step, and with
+// the msrow run ranks K3 `ms_scan` and K15 `ms_scan_tp`'s MS / doc step;
 // and the step-late output slots.
 //
 // The step computes what spn::probe (blockbits_pml.cuh) and the msrow run
 // rank compute, from the same row layout, but issues every load of the step
-// at once: the block's character words and the code's run-start words as
-// fixed, unrolled, predicated loads of the widest vector (16, 8 or 4 bytes)
-// that the row and msrow strides and offsets keep aligned (MsStepLayout),
-// each lane of the group a slice of them, plus the occ checkpoint, the
-// up-bit word, the high-byte word (wide rows) and the msrow checkpoint. A
-// load past the position's offset is predicated off (no traffic); the
-// words are masked by the offset after they land. The lanes' two in-block
-// ranks and the code at the offset are summed across the group with
-// __shfl_xor_sync in one word; every lane then computes the same carry.
+// at once: the block's character words and, for K3 / K15, the code's
+// run-start words as fixed, unrolled, predicated loads of the widest vector
+// (16, 8 or 4 bytes) that the row and msrow strides and offsets keep
+// aligned (MsStepLayout), each lane of the group a slice of them, plus the
+// occ checkpoint, the up-bit word, the high-byte word (wide rows) and the
+// msrow checkpoint. A load past the position's offset is predicated off (no
+// traffic); the words are masked by the offset after they land. The lanes'
+// in-block ranks and the code at the offset are summed across the group
+// with __shfl_xor_sync in one word; every lane then computes the same
+// carry.
 //
 // MsSlots takes the jump-table reads off the chain: step t's lane t % G
 // issues jump_t / jump_d at the step's jump id and keeps them with the run
 // length; the group stores G consecutive outputs (one coalesced store per
 // table) once the next group's first step has issued its row loads, and
-// the last, partial group after the read's last step.
+// the last, partial group after the read's last step. GroupSlots does the
+// same for K1's lengths (and K7 / K9's values).
 
 #pragma once
 
@@ -103,8 +106,8 @@ struct GroupSlots {
   }
 };
 
-// What one MS / doc step decides: the new position, the branch and the
-// jump id a mismatch takes.
+// What one step decides: the new position, the branch and the jump id a
+// mismatch takes (with the run ranks; 0 without).
 struct MsProbe {
   long long new_pos;
   int jjump;
@@ -112,15 +115,14 @@ struct MsProbe {
 };
 
 // One step of the group at pos for query character qc (code = tab.code[qc])
-// on the block's row and msrow (row, mrow: block_of(pos)'s, unsharded or
-// from its shard). Equal to spn::probe plus run_rank's jump id.
-template <int P, int PACK, bool WIDE, int G>
-__device__ __forceinline__ MsProbe ms_probe(const uint32_t* __restrict__ row,
-                                            const uint32_t* __restrict__ mrow,
-                                            const CharTab& tab,
-                                            const IndexScalars& s,
-                                            long long pos, int qc, int code,
-                                            int lane) {
+// on the block's row (block_of(pos)'s, unsharded or from its shard). Equal
+// to spn::probe; with RUNS (K3 / K15) also to run_rank's jump id, from the
+// block's msrow `mrow`, which K1 (RUNS false) neither passes nor reads.
+template <int P, int PACK, bool WIDE, int G, bool RUNS>
+__device__ __forceinline__ MsProbe group_probe(
+    const uint32_t* __restrict__ row, const uint32_t* __restrict__ mrow,
+    const CharTab& tab, const IndexScalars& s, long long pos, int qc,
+    int code, int lane) {
   using Lay = Layout<P, PACK, WIDE>;
   using M = MsStepLayout<P, PACK, WIDE, G>;
   const int rk = code < Lay::NSLOTS - 1 ? code : Lay::NSLOTS - 1;
@@ -131,23 +133,25 @@ __device__ __forceinline__ MsProbe ms_probe(const uint32_t* __restrict__ row,
   // every load of the step, issued together
   uint32_t cw[M::CPL][M::VC];
   uint32_t rw[M::RPL][M::VR];
-  const uint32_t* bits = mrow + Lay::NSLOTS + rk * Lay::WPC;
+  const uint32_t* bits = RUNS ? mrow + Lay::NSLOTS + rk * Lay::WPC : mrow;
 #pragma unroll
   for (int i = 0; i < M::CPL; ++i) {
     const int q = lane + i * G;
     load_words<M::VC>(row + Lay::W0 + q * M::VC,
                       q < M::NCL && q * M::VC <= wsel, cw[i]);
   }
+  if constexpr (RUNS) {
 #pragma unroll
-  for (int i = 0; i < M::RPL; ++i) {
-    const int q = lane + i * G;
-    load_words<M::VR>(bits + q * M::VR, q < M::NRL && q * M::VR <= wcut,
-                      rw[i]);
+    for (int i = 0; i < M::RPL; ++i) {
+      const int q = lane + i * G;
+      load_words<M::VR>(bits + q * M::VR, q < M::NRL && q * M::VR <= wcut,
+                        rw[i]);
+    }
   }
   long long cp = (long long)__ldg(row + rk);
   const uint32_t hw = WIDE ? __ldg(row + Lay::H0 + (rk >> 2)) : 0u;
   const uint32_t upw = __ldg(row + Lay::T0 + rk * Lay::WPC + wcut);
-  const int mcp = (int)__ldg(mrow + rk);
+  const int mcp = RUNS ? (int)__ldg(mrow + rk) : 0;
 
   // this lane's share: codes rk before off, the code at off, run starts
   // of rk before off
@@ -166,14 +170,16 @@ __device__ __forceinline__ MsProbe ms_probe(const uint32_t* __restrict__ row,
         at = (int)((cw[i][k] >> sh) & ((1u << PACK) - 1u)) == rk;
     }
   }
+  if constexpr (RUNS) {
 #pragma unroll
-  for (int i = 0; i < M::RPL; ++i) {
+    for (int i = 0; i < M::RPL; ++i) {
 #pragma unroll
-    for (int k = 0; k < M::VR; ++k) {
-      const int wi = (lane + i * G) * M::VR + k;
-      const uint32_t m = wi < wcut ? 0xffffffffu
-                         : wi == wcut ? (1u << (off & 31)) - 1u : 0u;
-      runs += __popc(rw[i][k] & m);
+      for (int k = 0; k < M::VR; ++k) {
+        const int wi = (lane + i * G) * M::VR + k;
+        const uint32_t m = wi < wcut ? 0xffffffffu
+                           : wi == wcut ? (1u << (off & 31)) - 1u : 0u;
+        runs += __popc(rw[i][k] & m);
+      }
     }
   }
   if (G > 1) {
@@ -215,12 +221,15 @@ __device__ __forceinline__ MsProbe ms_probe(const uint32_t* __restrict__ row,
   const bool jump_up =
       !empty && !p.is_match && (A >= tab.Fnext[qc] || up_bit);
   p.new_pos = empty ? tab.F[qc] : A - (jump_up ? 1 : 0);
-  // the char-local run rank: msrow checkpoint plus run starts before off
-  int jdown = 2 * (tab.run_base[qc] + mcp + runs);
-  if (is_tq) jdown = (int)(2 * s.term_runidx);
-  // a jump up targets the previous run's END entry (jdown - 1)
-  const int jjump = jump_up ? jdown - 1 : jdown;
-  p.jjump = jjump < 0 ? 0 : jjump;
+  p.jjump = 0;
+  if constexpr (RUNS) {
+    // the char-local run rank: msrow checkpoint plus run starts before off
+    int jdown = 2 * (tab.run_base[qc] + mcp + runs);
+    if (is_tq) jdown = (int)(2 * s.term_runidx);
+    // a jump up targets the previous run's END entry (jdown - 1)
+    const int jjump = jump_up ? jdown - 1 : jdown;
+    p.jjump = jjump < 0 ? 0 : jjump;
+  }
   return p;
 }
 

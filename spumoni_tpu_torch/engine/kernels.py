@@ -33,9 +33,9 @@ K1/K2/K13 live in `csrc/blockbits_pml.cu`, K3-K5/K15/K16 in
 `csrc/layered.cu`, K9/K10 in `csrc/occblock.cu` and K11/K12 in
 `csrc/staging.cu`, each behind a plain C interface (the bin-max carry of
 K2, K8 and K10 in `csrc/binmax.cuh`, the sharded row source in
-`csrc/sharded.cuh`; the steps of K3 / K15, K7 and K9, for GROUP threads
-per read, in `csrc/ms_step.cuh`, `csrc/layered_step.cuh` and
-`csrc/occ_step.cuh`).
+`csrc/sharded.cuh`; the steps of K1 and K3 / K15, K7 and K8, and K9,
+for a group of threads per read, in `csrc/ms_step.cuh`,
+`csrc/layered_step.cuh` and `csrc/occ_step.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -256,6 +256,7 @@ def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
     FORWARD order (columns >= lens[b] are 0)."""
     if _check_inputs(index.bblocks, tab, reads_rev, lens) == "cpu":
         return pml_scan_reference(index, tab, reads_rev, lens)
+    _check_aligned("pml_scan", (("rows", index.bblocks),))
     out = torch.zeros(reads_rev.shape, dtype=torch.int32,
                       device=reads_rev.device)
     if out.numel() == 0:
@@ -303,16 +304,20 @@ pml_classify.launches = 0
 
 
 _MS_MODES = {("ms", False): 0, ("ms", True): 1, ("pml", True): 2}
-#: threads per read of K3 / K15, K7 and K9 (kGroup in csrc/blockbits_ms.cu,
-#: layered.cu and occblock.cu): each step's loads split over 8 lanes, for
-#: K3 the fastest group at every lane count the runs launch (PERF.md
-#: section 6)
+#: threads per read of K1, K3 / K15, K7 and K9 (kGroup in
+#: csrc/blockbits_pml.cu, blockbits_ms.cu, layered.cu and occblock.cu):
+#: each step's loads split over 8 lanes, for K3 the fastest group at every
+#: lane count the runs launch (PERF.md section 6)
 GROUP = 8
+#: threads per read of K8 (kClassifyGroup in csrc/layered.cu): faster than
+#: 8 at the 32,768 lanes its runs launch (PERF.md section 6)
+CLASSIFY_GROUP = 4
 
 
 def _check_aligned(name, tables):
-    """K3 / K15 read rows and msrows, K7 level and field rows, with 16-byte
-    loads: every (label, tensor) must start 16-byte aligned."""
+    """K1 / K3 / K15 read rows (and msrows), K7 / K8 level and field rows,
+    with 16-byte loads: every (label, tensor) must start 16-byte
+    aligned."""
     for label, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
@@ -556,8 +561,8 @@ def _layered_head(index: LayeredIndex):
 
 
 def layered_tables(index: LayeredIndex) -> list:
-    """(label, tensor) of the tables K7 reads with 16-byte loads: each
-    level, and the fields."""
+    """(label, tensor) of the tables K7 and K8 read with 16-byte loads:
+    each level, and the fields."""
     return [(f"level {t}", lv) for t, lv in enumerate(index.levels)] + [
         ("fields", index.fields)]
 
@@ -606,6 +611,7 @@ def layered_classify(index: LayeredIndex, reads_rev: torch.Tensor,
     if _check_layered(index, reads_rev, lens) == "cpu":
         return layered_classify_reference(index, reads_rev, lens,
                                           max_value_thr, bin_width)
+    _check_aligned("layered_classify", layered_tables(index))
     B = reads_rev.shape[0]
     dev = reads_rev.device
     found = torch.zeros(B, dtype=torch.bool, device=dev)

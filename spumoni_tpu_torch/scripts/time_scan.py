@@ -1,41 +1,51 @@
 """Times the scans that are being redesigned for the card at the lane
 counts the runs launch, each beside another tree's build of the same entry
-points, with K1, K2, K8 and K10 as controls.
+points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
-        [--families ms,layered,occ] [--ablate] \
+        [--families pml,classify,ms,layered,occ] [--ablate] \
         [--shapes 8192,32768,65536] [--out DIR]
 
 Run from the repository root on a machine with one NVIDIA GPU. It writes
 chip_smoke.py's inputs (10 strains, 65,536 reads of 1,024 bp) into
 chip_smoke_work/, builds phase 4b's MS + doc index (`build -i list -M -P
--d -n`; with the layered family also 4c's `build -m -P`) and stages the
-reads once per engine; a launch at B lanes takes the first B of them
-(value runs launch 8,192, report-only runs 32,768, chip_smoke.py's tables
-65,536). Per shape, CUDA-event ms per call (a warm-up, then 5 calls) of
-each kernel in turns with the same entry point built from DIR's
-`spumoni_tpu_torch/csrc` (parent, current, parent), outputs equal (max
-|err| 0):
+-d -n`; with the layered or classify family also 4c's `build -m -P`) and
+stages the reads once per engine; a launch at B lanes takes the first B
+of them (value runs launch 8,192, report-only runs 32,768, chip_smoke.py's
+tables 65,536). Per shape, CUDA-event ms per call (a warm-up, then 5
+calls) of each kernel in turns with the same entry point built from DIR's
+`spumoni_tpu_torch/csrc` (parent, current, current, parent; every turn is
+printed), outputs equal (max |err| 0):
 
-  * controls, whose sources the redesigns leave alone: K1 `pml_scan` and
-    K2 `pml_classify` on the index's block-bits PML rows, K8
-    `layered_classify` on its layered PML tables (`--engine layered`), K10
+  * controls (`CONTROLS`), timed whatever the families: K2 `pml_classify`
+    and K13 `pml_classify_tp` (4 shards) on the index's block-bits PML
+    rows, K3 `ms_scan` in each mode and K15 `ms_scan_tp` (ms+doc, 4
+    shards) on its MS + doc rows (K1's group probe shares their step,
+    csrc/ms_step.cuh), K7 `layered_scan` (pml, ms+doc) on its layered
+    MS + doc tables and K14 `layered_classify_tp` (4 shards) on its
+    layered PML tables (K8's kernel shares layered.cu and K7's step), K10
     `occ_classify` on its occ-block PML rows (`--engine occ`);
+  * family pml: K1 `pml_scan` on the block-bits PML rows;
+  * family classify: K8 `layered_classify` on the layered PML tables,
+    and on the -m index at its digested reads' largest bucket (that
+    bucket's lanes only);
   * family ms: K3 `ms_scan` in each mode (ms, ms+doc, pml+doc) and K15
     `ms_scan_tp` on 4 shards (ms, ms+doc);
   * family layered: K7 `layered_scan` in each mode (pml, pml+doc, ms,
     ms+doc) on the MS + doc tables (D = 4, W = 8), and K7 pml on the -m
-    index at its digested reads' largest bucket (that bucket's lanes only);
+    index's bucket;
   * family occ: K9 `occ_scan` in each mode on the rows of the phase-4d run
     that uses it (chip_smoke.OCC_TIMED: W = T0 + P, T0 + 3P, T0 + 3P,
     T0 + 5P).
 
-With --ablate, each family's timing-only variants (`FAMILIES[...].
-ablations`), built from patched copies of DIR's sources, run beside the
-parent. They may give wrong answers (their max |err| is reported) and are
-never used for anything else. The patches are literal lines of one
-commit's sources (`FAMILIES[...].patches`): on any other parent --ablate
-stops with the line it did not find.
+With --ablate, each family's timing-only variants run beside the parent:
+its ablations (`FAMILIES[...].ablations`), built from patched copies of
+DIR's sources, and its variants (`.variants`), built from patched copies
+of this tree's (K8's other lane group). An ablation may give wrong
+answers (its max |err| is reported) and is never used for anything else.
+An ablation's patches are literal lines of one commit's sources
+(`FAMILIES[...].patches`), a variant's of this tree's: on any other
+parent --ablate stops with the line it did not find.
 
 A parent's entry point is called through this tree's wrapper: the script
 loads DIR's library in place of this tree's for the call
@@ -46,8 +56,7 @@ writes the SASS of each family's kernels named in `sass_keys` (this
 tree's and the parent's) to the --out directory and prints their ptxas
 registers and spills and their load / shuffle counts. Everything goes to
 --out (JSON); the card's name and power limit head the output. PERF.md
-section 6's redesign numbers for K3 / K15 (PR 7) and K7 / K9 (PR 8) come
-from this script.
+section 6's redesign numbers come from this script.
 """
 
 from __future__ import annotations
@@ -71,17 +80,26 @@ from ..parallel import tp
 SHARDS = 4
 #: library -> the entry points the script calls (through this tree's
 #: wrappers): the families' scans and the controls
-ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify"),
+ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
+                                  "spn_pml_classify_tp"),
                 "blockbits_ms": ("spn_ms_scan", "spn_ms_scan_tp"),
-                "layered": ("spn_layered_scan", "spn_layered_classify"),
+                "layered": ("spn_layered_scan", "spn_layered_classify",
+                            "spn_layered_classify_tp"),
                 "occblock": ("spn_occ_scan", "spn_occ_classify")}
+#: (kernel, mode) of the controls, timed whatever the families
+CONTROLS = {("pml_classify", "pml"), ("pml_classify_tp", "pml"),
+            ("ms_scan", "ms"), ("ms_scan", "ms+doc"), ("ms_scan", "pml+doc"),
+            ("ms_scan_tp", "ms+doc"), ("layered_scan", "pml"),
+            ("layered_scan", "ms+doc"), ("layered_classify_tp", "pml"),
+            ("occ_classify", "pml")}
 
 
 class Family(NamedTuple):
     library: str      # kernels.LIBRARIES key of the scans' source
-    sass_keys: tuple  # kernel names (substrings) whose SASS is kept
+    sass_keys: tuple  # (library, kernel name substring) whose SASS is kept
     patches: str      # the commit whose sources `ablations` patch
     ablations: dict   # label -> [(file, text, replacement)]
+    variants: dict = {}  # label -> patches of this tree's sources
 
 
 # --- family ms: K3 / K15, ablations of the one-thread-a-read design -------
@@ -243,12 +261,46 @@ _K9_CANDIDATES_EARLY = [
     ("occblock.cu", "doc = (int)__ldg(row + s.D0 + (minus1 ? s.P : 0) + off);",
      "doc = minus1 ? dc1_ : dc0_;")]
 
+# --- family pml: K1, ablation of the one-thread-a-read design -------------
+_K1_ONE_WORD = [
+    ("blockbits_pml.cuh", "for (int w = 0; w < wsel; ++w)",
+     "for (int w = 0; w < (wsel < 1 ? wsel : 1); ++w)")]
+
+# --- family classify: K8, ablation of the one-thread-a-read design --------
+# (count_le stays in layered.cu for K14: the same line as K7's ablation)
+_K8_ONE_PROBE = _K7_ONE_PROBE
+#: K8's other lane group, patched into this tree's source
+_K8_G8 = [("layered.cu", "constexpr int kClassifyGroup = 4;",
+           "constexpr int kClassifyGroup = 8;")]
+
+#: the block-bits kernels at P = 512, pack = 2, not wide (the 10-strain
+#: index's layout)
+_P512 = "ILi512ELi2ELb0E"
+
 FAMILIES = {
+    "pml": Family(
+        "blockbits_pml",
+        (("blockbits_pml", f"pml_scan_kernel{_P512}E"),
+         ("blockbits_ms", f"ms_scan_kernel{_P512}E"),
+         ("blockbits_ms", f"ms_scan_tp_kernel{_P512}E")),
+        "53ecd9b",
+        {"k1-a-one-char-word": _K1_ONE_WORD}),
+    "classify": Family(
+        "layered",
+        (("layered", "layered_classify_kernelIiE"),   # int32 positions
+         ("layered", "layered_classify_kernelIxE"),   # int64
+         ("layered", "layered_classify_tp_kernelIiE"),
+         ("layered", "layered_scan_kernelIiLi0EE")),  # K7 pml
+        "53ecd9b",
+        {"k8-a-one-level-probe": _K8_ONE_PROBE},
+        {"k8-g8": _K8_G8}),
     "ms": Family(
         "blockbits_ms",
-        # dfdde28's ms+doc instance (its mode a template argument) and
-        # PR 7's (the mode a runtime argument); P = 512, pack = 2, not wide
-        ("ms_scan_kernelILi512ELi2ELb0ELi1E", "ms_scan_kernelILi512ELi2ELb0EE"),
+        # dfdde28's ms+doc instance (its mode a template argument),
+        # 7b00901's (the mode a runtime argument) and K15's
+        (("blockbits_ms", f"ms_scan_kernel{_P512}Li1E"),
+         ("blockbits_ms", f"ms_scan_kernel{_P512}E"),
+         ("blockbits_ms", f"ms_scan_tp_kernel{_P512}E")),
         "dfdde28",
         {"a-no-jump-reads": _MS_NO_JUMPS,
          "b-one-word-ranks": _MS_ONE_WORD,
@@ -258,14 +310,14 @@ FAMILIES = {
                                  "constexpr int kThreads = 32;")]}),
     "layered": Family(
         "layered",
-        ("layered_scan_kernelIiLi3EE",),   # int32 positions, ms+doc
+        (("layered", "layered_scan_kernelIiLi3EE"),),   # int32, ms+doc
         "7b00901",
         {"a-one-level-probe": _K7_ONE_PROBE,
          "b-slots-before-jump": _K7_SLOTS_EARLY,
          "c-top-levels-in-smem": _K7_STAGE}),
     "occ": Family(
         "occblock",
-        ("occ_scan_kernelILi3EE",),        # ms+doc
+        (("occblock", "occ_scan_kernelILi3EE"),),       # ms+doc
         "7b00901",
         {"a-one-char-word": _K9_ONE_WORD,
          "b-candidates-before-minus1": _K9_CANDIDATES_EARLY,
@@ -312,6 +364,8 @@ def build_variants(jobs, signatures) -> dict:
     {(label, library): (CDLL, .so path, nvcc's output)}."""
     procs = {}
     for label, library, patches, csrc in jobs:
+        if (label, library) in procs:
+            raise ValueError(f"two builds of {library} labelled {label}")
         d = os.path.join(kernels.BUILD_DIR, f"lab-{label}-{library}")
         os.makedirs(d, exist_ok=True)
         for name in os.listdir(csrc):
@@ -425,13 +479,33 @@ def _cut(t, B):
     return t if B is None else t[:B].contiguous()
 
 
-def _cases(families, dev, reads, shapes) -> list:
-    """The timed calls: the controls, then each family's modes, on the
-    engines and staged reads they run with in chip_smoke.py."""
+def _m_bucket(dev, reads, top):
+    """4c's -m index (built here) and its digested reads' largest bucket,
+    decoded: (engine, staged group)."""
     import chip_smoke as cs
     from .. import cli, pipeline
     from ..io.fastx_batch import iter_packed_batches
     from ..io.minimizers import digest_packed
+
+    t0 = time.time()
+    cli.main(cs._build_args()["-m -P"])
+    mx = pipeline.make_engine(os.path.join(cs.WORK, "idx-m")
+                              + ".bin.thrbv.spumoni", dev)
+    pk = digest_packed(next(iter_packed_batches(reads, 1 << 40, upper=True)),
+                       True, False)
+    g = cs._decoded(mx, max(mx.stage(pk, max_lanes=top),
+                            key=lambda grp: len(grp["idxs"])))
+    print(f"-m index and its bucket (B={g['rev_d'].shape[0]}, "
+          f"L={g['rev_d'].shape[1]}) in {time.time() - t0:.1f} s",
+          flush=True)
+    return mx, g
+
+
+def _cases(families, dev, reads, shapes) -> list:
+    """The timed calls: each family's kernels and the controls
+    (CONTROLS), on the engines and staged reads they run with in
+    chip_smoke.py."""
+    import chip_smoke as cs
 
     ms_prefix = os.path.join(cs.WORK, "msidx")
     top = max(shapes)
@@ -443,70 +517,72 @@ def _cases(families, dev, reads, shapes) -> list:
 
     pml = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev)
     gp, cp = staged(pml)
+    pml_tp = tp.shard_blockbits(pml.index, SHARDS)
     cases += [
-        Case("pml_scan", "pml", "control", "blockbits_pml",
+        Case("pml_scan", "pml", "pml", "blockbits_pml",
              lambda B: kernels.pml_scan(pml.index, gp["tab"], cp("rev_d", B),
                                         cp("lens_d", B))),
         Case("pml_classify", "pml", "control", "blockbits_pml",
              lambda B: kernels.pml_classify(pml.index, gp["tab"],
                                             cp("rev_d", B), cp("lens_d", B),
-                                            7, cs.BIN_WIDTH))]
+                                            7, cs.BIN_WIDTH)),
+        Case("pml_classify_tp", "pml", "control", "blockbits_pml",
+             lambda B: kernels.pml_classify_tp(pml_tp, gp["tab"],
+                                               cp("rev_d", B),
+                                               cp("lens_d", B), 7,
+                                               cs.BIN_WIDTH))]
+    msx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True)
+    gm, cm = staged(msx)
+    sharded = tp.shard_blockbits_ms(msx.index, SHARDS)
+    for kernel, idx, wrapper, labels in (
+            ("ms_scan", msx.index, kernels.ms_scan,
+             ("ms", "ms+doc", "pml+doc")),
+            ("ms_scan_tp", sharded, kernels.ms_scan_tp, ("ms", "ms+doc"))):
+        for label in labels:
+            mode, doc = label.split("+")[0], label.endswith("+doc")
+            cases.append(Case(
+                kernel, label, "ms", "blockbits_ms",
+                lambda B, idx=idx, w=wrapper, mode=mode, doc=doc: w(
+                    idx, gm["tab"], cm("rev_d", B), cm("lens_d", B), mode,
+                    doc)))
     lay = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="layered")
     _, cl = staged(lay)
-    cases.append(Case(
-        "layered_classify", "pml", "control", "layered",
-        lambda B: kernels.layered_classify(lay.index, cl("rev_d", B),
-                                           cl("lens_d", B), 7,
-                                           cs.BIN_WIDTH)))
+    lay_tp = tp.shard_layered(lay.index, SHARDS)
+    cases += [
+        Case("layered_classify", "pml", "classify", "layered",
+             lambda B: kernels.layered_classify(lay.index, cl("rev_d", B),
+                                                cl("lens_d", B), 7,
+                                                cs.BIN_WIDTH)),
+        Case("layered_classify_tp", "pml", "control", "layered",
+             lambda B: kernels.layered_classify_tp(lay_tp, cl("rev_d", B),
+                                                   cl("lens_d", B), 7,
+                                                   cs.BIN_WIDTH))]
+    lx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True,
+                    engine="layered")
+    _, clx = staged(lx)
+    for label in ("pml", "pml+doc", "ms", "ms+doc"):
+        mode, doc = label.split("+")[0], label.endswith("+doc")
+        cases.append(Case(
+            "layered_scan", label, "layered", "layered",
+            lambda B, mode=mode, doc=doc: kernels.layered_scan(
+                lx.index, clx("rev_d", B), clx("lens_d", B), mode, doc)))
+    if {"layered", "classify"} & set(families):
+        mx, gmx = _m_bucket(dev, reads, top)
+        cases += [
+            Case("layered_scan", "-m pml", "layered", "layered",
+                 lambda B: kernels.layered_scan(mx.index, gmx["rev_d"],
+                                                gmx["lens_d"], "pml", False),
+                 own_lanes=gmx["rev_d"].shape[0]),
+            Case("layered_classify", "-m pml", "classify", "layered",
+                 lambda B: kernels.layered_classify(
+                     mx.index, gmx["rev_d"], gmx["lens_d"], 7, cs.BIN_WIDTH),
+                 own_lanes=gmx["rev_d"].shape[0])]
     occ = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="occ")
     go, co = staged(occ)
     cases.append(Case(
         "occ_classify", "pml", "control", "occblock",
         lambda B: kernels.occ_classify(occ.index, go["tab"], co("rev_d", B),
                                        co("lens_d", B), 7, cs.BIN_WIDTH)))
-
-    if "ms" in families:
-        msx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True)
-        gm, cm = staged(msx)
-        sharded = tp.shard_blockbits_ms(msx.index, SHARDS)
-        for kernel, idx, wrapper, labels in (
-                ("ms_scan", msx.index, kernels.ms_scan,
-                 ("ms", "ms+doc", "pml+doc")),
-                ("ms_scan_tp", sharded, kernels.ms_scan_tp,
-                 ("ms", "ms+doc"))):
-            for label in labels:
-                mode, doc = label.split("+")[0], label.endswith("+doc")
-                cases.append(Case(
-                    kernel, label, "ms", "blockbits_ms",
-                    lambda B, idx=idx, w=wrapper, mode=mode, doc=doc: w(
-                        idx, gm["tab"], cm("rev_d", B), cm("lens_d", B),
-                        mode, doc)))
-    if "layered" in families:
-        lx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True,
-                        engine="layered")
-        _, clx = staged(lx)
-        for label in ("pml", "pml+doc", "ms", "ms+doc"):
-            mode, doc = label.split("+")[0], label.endswith("+doc")
-            cases.append(Case(
-                "layered_scan", label, "layered", "layered",
-                lambda B, mode=mode, doc=doc: kernels.layered_scan(
-                    lx.index, clx("rev_d", B), clx("lens_d", B), mode, doc)))
-        t0 = time.time()
-        cli.main(cs._build_args()["-m -P"])
-        mx = pipeline.make_engine(os.path.join(cs.WORK, "idx-m")
-                                  + ".bin.thrbv.spumoni", dev)
-        pk = digest_packed(next(iter_packed_batches(reads, 1 << 40,
-                                                    upper=True)), True, False)
-        gmx = cs._decoded(mx, max(mx.stage(pk, max_lanes=top),
-                                  key=lambda grp: len(grp["idxs"])))
-        print(f"-m index and its bucket (B={gmx['rev_d'].shape[0]}, "
-              f"L={gmx['rev_d'].shape[1]}) in {time.time() - t0:.1f} s",
-              flush=True)
-        cases.append(Case(
-            "layered_scan", "-m pml", "layered", "layered",
-            lambda B: kernels.layered_scan(mx.index, gmx["rev_d"],
-                                           gmx["lens_d"], "pml", False),
-            own_lanes=gmx["rev_d"].shape[0]))
     if "occ" in families:
         for label, path, mode, doc in cs.OCC_TIMED:
             eng = occ if label == "pml" else cs._engine(
@@ -517,7 +593,8 @@ def _cases(families, dev, reads, shapes) -> list:
                 lambda B, eng=eng, g=g, c=c, mode=mode, doc=doc:
                 kernels.occ_scan(eng.index, g["tab"], c("rev_d", B),
                                  c("lens_d", B), mode, doc)))
-    return cases
+    return [c for c in cases if c.family in families
+            or (c.kernel, c.mode) in CONTROLS]
 
 
 def main(argv=None) -> int:
@@ -550,40 +627,38 @@ def main(argv=None) -> int:
     shapes = [int(x) for x in args.shapes.split(",")]
     t0 = time.time()
     kernels.build()
-    libraries = sorted({"blockbits_pml", "layered", "occblock"}
-                       | {FAMILIES[f].library for f in families})
+    libraries = sorted(ENTRY_POINTS)
     parent_csrc = os.path.join(args.parent, "spumoni_tpu_torch", "csrc")
-    # this tree's family libraries once more, for their ptxas report (the
-    # cached build of kernels.build() has none)
+    # this tree's libraries of the SASS kept, once more, for their ptxas
+    # report (the cached build of kernels.build() has none)
+    sass = [key for f in families for key in FAMILIES[f].sass_keys]
     jobs = [("parent", lib, (), parent_csrc) for lib in libraries] + [
-        ("current", FAMILIES[f].library, (), kernels._CSRC)
-        for f in families]
+        ("current", lib, (), kernels._CSRC)
+        for lib in sorted({lib for lib, _ in sass})]
     if args.ablate:
-        jobs += [(label, FAMILIES[f].library, patches, parent_csrc)
-                 for f in families
-                 for label, patches in FAMILIES[f].ablations.items()]
+        for f in families:
+            fam = FAMILIES[f]
+            jobs += [(label, fam.library, patches, parent_csrc)
+                     for label, patches in fam.ablations.items()]
+            jobs += [(label, fam.library, patches, kernels._CSRC)
+                     for label, patches in fam.variants.items()]
     libs = build_variants(jobs, parent_signatures(args.parent, libraries))
     print(f"kernels built in {time.time() - t0:.1f} s", flush=True)
     report = dict(device=smi, torch=torch.__version__, shapes=shapes,
                   parent=args.parent, families=families)
-    for f in families:
-        fam = FAMILIES[f]
+    for lib, key in dict.fromkeys(sass):
         for tree in ("current", "parent"):
-            so, log = libs[tree, fam.library][1:]
-            for key in fam.sass_keys:
-                sass = sass_of(so, key)
-                if not sass:
-                    continue
-                with open(os.path.join(args.out, f"{tree}_{key}.sass"),
-                          "w") as fh:
-                    fh.write(sass)
-                tp_key = key.replace("ms_scan_kernel", "ms_scan_tp_kernel")
-                ptx = ptxas_of(log, key) + (ptxas_of(log, tp_key)
-                                            if tp_key != key else [])
-                report[f"sass_{tree}_{key}"] = dict(summarize_sass(sass),
-                                                    ptxas=ptx)
-                print(f"{tree} {key}: {report[f'sass_{tree}_{key}']}",
-                      flush=True)
+            so, log = libs[tree, lib][1:]
+            code = sass_of(so, key)
+            if not code:
+                continue
+            with open(os.path.join(args.out, f"{tree}_{key}.sass"),
+                      "w") as fh:
+                fh.write(code)
+            report[f"sass_{tree}_{key}"] = dict(summarize_sass(code),
+                                                ptxas=ptxas_of(log, key))
+            print(f"{tree} {key}: {report[f'sass_{tree}_{key}']}",
+                  flush=True)
 
     t0 = time.time()
     cs.write_inputs(10)
@@ -597,7 +672,8 @@ def main(argv=None) -> int:
 
     def row(case, B, variant, ms, err=None, **kw):
         r = dict(kernel=case.kernel, mode=case.mode, B=B, variant=variant,
-                 ms=ms, max_abs_err=err, **kw)
+                 family=case.family if case.family in families
+                 else "control", ms=ms, max_abs_err=err, **kw)
         results.append(r)
         print(json.dumps(r), flush=True)
 
@@ -613,20 +689,23 @@ def main(argv=None) -> int:
             arg = None if case.own_lanes else B
             parent = libs["parent", case.library][0]
             p1, want = timed(case, parent, arg)
-            ms, got = timed(case, None, arg)
+            c1, got = timed(case, None, arg)
+            c2 = timed(case, None, arg)[0]
             p2 = timed(case, parent, arg)[0]
             err = _err(got, want)
             row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2])
             if err:
                 raise AssertionError(f"{case.kernel} {case.mode} B={lanes}: "
                                      f"!= parent (max |err| {err})")
-            row(case, lanes, "current", ms, err)
+            row(case, lanes, "current", (c1 + c2) / 2, err, turns=[c1, c2])
             if case.family in families and args.ablate:
-                for label in FAMILIES[case.family].ablations:
+                fam = FAMILIES[case.family]
+                for label in (*fam.ablations, *fam.variants):
                     lib = libs[label, case.library][0]
                     ms, got = timed(case, lib, arg)
                     row(case, lanes, label, ms, _err(got, want),
-                        patches=FAMILIES[case.family].patches)
+                        patches=fam.patches if label in fam.ablations
+                        else "current")
     report["results"] = results
     with open(os.path.join(args.out, "results.json"), "w") as f:
         json.dump(report, f, indent=1)

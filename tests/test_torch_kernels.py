@@ -133,6 +133,37 @@ def test_wrappers_check_their_inputs(bad):
         kernels.pml_scan(index, tab, rev, lens)
 
 
+@pytest.mark.parametrize("L", [1024, 1021])
+def test_pml_scan_on_the_edge_reads_equals_native(L):
+    """K1's plain version on the edge reads (the lengths around its G = 8
+    lanes and L, the read whose last step jumps, the pack = 2 terminator
+    query) equals the native engine."""
+    text, index, table, native = _index(5, 3000)
+    reads = kernels.ms_edge_reads(text, L)[:-1]   # no W
+    assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
+    assert index.meta.pack == 2 and index.meta.term_pos >= 0
+    assert any(b"\x01" in r for r in reads)
+    tab, rev, lens = _stage(table, reads, L)
+    vals = kernels.pml_scan(index, tab, rev, lens)
+    for i, want in enumerate(native.query_pml(reads)):
+        m = int(lens[i])
+        assert m == len(want), i
+        assert np.array_equal(vals[i, :m].numpy(), want), i
+        assert not vals[i, m:].any(), i
+
+
+def test_pml_rows_must_be_16_byte_aligned():
+    """K1 reads the rows' character words in 16-byte loads: rows that start
+    off 16 bytes are refused before any launch."""
+    _, index, _, _ = _index(3, 2000)
+    rows = index.bblocks
+    off = torch.zeros(rows.numel() + 1, dtype=rows.dtype)[1:].view(
+        rows.shape)
+    kernels._check_aligned("pml_scan", (("rows", rows),))
+    with pytest.raises(ValueError, match="rows is not 16-byte aligned"):
+        kernels._check_aligned("pml_scan", (("rows", off),))
+
+
 def test_cuda_device_without_cuda_raises(tmp_path):
     """--device cuda on a machine without CUDA raises; it never computes
     on the CPU instead."""
@@ -210,3 +241,28 @@ def test_kernels_on_repetitive_text_and_alphabet_on_gpu():
         vals = kernels.pml_scan(index, tab, rev, lens).cpu().numpy()
         for i, w in enumerate(native.query_pml(reads)):
             assert np.array_equal(vals[i, :len(w)], w), (kw, i)
+
+
+# one layout of each load width of K1's group probe: 16-byte (W = 100),
+# 4-byte (W = 101) and 8-byte (W = 202) character-word loads
+_EDGE_LAYOUTS = [dict(P=512, pack=2, wide=False), dict(P=512, pack=2,
+                                                        wide=True),
+                 dict(P=512, pack=4, wide=True)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("layout", _EDGE_LAYOUTS,
+                         ids=lambda d: "P{P}-pack{pack}-wide{wide}".format(**d))
+def test_pml_scan_on_the_edge_reads_on_gpu(layout):
+    """K1 on the edge reads (lengths around its G = 8 lanes; B not a
+    multiple of 128 / G; the terminator query and the W read) at L = 1,024
+    and 1,021 (a read stride off 32 bytes) equals its plain version."""
+    text, index, table, _ = _index(12, 9000, **layout)
+    index = index.to("cuda")
+    for L in (1024, 1021):
+        tab, rev, lens = _stage(table, kernels.ms_edge_reads(text, L), L,
+                                "cuda")
+        want = kernels.pml_scan_reference(index, tab, rev, lens)
+        got = kernels.pml_scan(index, tab, rev, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), L

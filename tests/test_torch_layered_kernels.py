@@ -120,10 +120,32 @@ def test_layered_scan_on_the_edge_reads_equals_native(L, mode):
         assert not vals[i, m:].any() and not docs[i, m:].any(), i
 
 
+@pytest.mark.parametrize("L", [1024, 1021])
+def test_layered_classify_on_the_edge_reads_equals_native(L):
+    """K8's plain version on the edge reads (the lengths around its lanes
+    and L, the read whose last step jumps) equals classify/binmax.py over
+    the native engine's PML lengths; the empty read is NOT FOUND with no
+    bins."""
+    text, index, native = seeded_layered(10, 3000)
+    reads = kernels.ms_edge_reads(text, L, terminator=False)[:-1]  # no W
+    assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
+    rev, _, lens = raw_rows(reads, L)
+    found, above, below, summ = kernels.layered_classify(index, rev, lens,
+                                                         7, 150)
+    for i, want in enumerate(native.query_pml(reads)):
+        got = (bool(found[i]), int(above[i]), int(below[i]), int(summ[i]))
+        if not len(want):
+            assert got == (False, 0, 0, 0), i
+            continue
+        res = binmax.classify(want, 150, 7)
+        assert got == (res.status == "FOUND", res.bins_above,
+                       res.bins_below, int(res.bin_maxes.sum())), i
+
+
 def test_layered_tables_must_be_16_byte_aligned():
-    """K7 reads level rows and field rows in 16-byte loads: its tables are
-    every level and the fields, and one that starts off 16 bytes is refused
-    before any launch."""
+    """K7 and K8 read level rows and field rows in 16-byte loads: their
+    tables are every level and the fields, and one that starts off 16
+    bytes is refused before any launch."""
     _, index, _ = seeded_layered(5, 2000)
     tables = kernels.layered_tables(index)
     assert [label for label, _ in tables] == [
@@ -199,3 +221,25 @@ def test_layered_kernels_equal_plain_versions_on_gpu(case):
             torch.cuda.synchronize()
             assert all(a is b is None or torch.equal(a, b)
                        for a, b in zip(got, want)), (L, mode, use_doc)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", ["dna-D2", "int64-two-docs", "minimizer"])
+def test_layered_classify_on_the_edge_reads_on_gpu(case):
+    """K8 on the edge reads (lengths around its lanes; B not a multiple of
+    128 / G; the W read) at L = 1,024 and 1,021, with int32 and int64
+    positions and on a -m index, equals its plain version."""
+    kw = _GPU_CASES[case]
+    text, index, _ = seeded_layered(8, **kw)
+    index = index.to("cuda")
+    for L in (1024, 1021):
+        rev, _, lens = raw_rows(kernels.ms_edge_reads(text, L,
+                                                      terminator=False),
+                                L, "cuda")
+        for thr, bw in ((7, 150), (3, 8)):
+            want = kernels.layered_classify_reference(index, rev, lens, thr,
+                                                      bw)
+            got = kernels.layered_classify(index, rev, lens, thr, bw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                L, thr, bw)
