@@ -357,13 +357,45 @@ def _edge_check(label, index, table, text, device, L=1021):
     return f"; L = {L} edge reads, B={len(edge)}"
 
 
+#: text bound of kernels.seeded_extend's matrices (their text: 3,000 bytes)
+EXTEND_BOUND = 4096
+
+
+def _extend_check(device, L, wide, S=None):
+    """K4 (or K16 on the text in S shards) against its plain version on a
+    seeded pointer matrix that holds no MS pointers (kernels.seeded_extend:
+    random pointers, runs, pointers past the text and its bound, negative
+    pointers inside matches); returns the note 3b / 3f print."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.parallel import tp
+
+    text, reads, lens, ptrs = (torch.from_numpy(a).to(device) for a in
+                               kernels.seeded_extend(L, L, wide))
+    args = (reads, lens, ptrs)
+    if S is None:
+        got = kernels.ms_extend(text, EXTEND_BOUND, *args)
+        want = kernels.ms_extend_reference(text, EXTEND_BOUND, *args)
+    else:
+        sh = tp.shard_text(text, S)
+        got = kernels.ms_extend_tp(sh, EXTEND_BOUND, *args)
+        want = kernels.ms_extend_tp_reference(sh, EXTEND_BOUND, *args)
+    sync(device)
+    err = _max_err(got, want)
+    name = "K4" if S is None else f"K16 at S={S}"
+    if err:
+        raise AssertionError(f"{name} on seeded pointers at L = {L} != plain"
+                             f" (max |err| {err})")
+    return f"{name} on seeded pointers, L = {L}, B = {len(lens)}: == plain"
+
+
 def small_ms_phase(device, n=20000, num_reads=300):
     """3b: K3 in each mode (on seeded reads and ms_edge_reads; EDGE_CASE
     also at L = 1,021), K4, K5 and K6 against their plain versions; K3 and
     K4 also
     against the native engine on the seeded reads. The last case is
     ROADMAP section C's seed-5 index, on the edge reads alone (L = 1,024
-    and 1,021)."""
+    and 1,021); then K4 on a seeded matrix of pointers that are no MS
+    pointers at L = 1,021 (int32) and 1,024 (int64)."""
     phase("3b. K3-K6 vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
@@ -433,6 +465,8 @@ def small_ms_phase(device, n=20000, num_reads=300):
     print(f"seed5-3000       P={index.meta.P} pack={index.meta.pack} "
           f"n={index.meta.n}: K3 (3 modes) on the "
           f"edge reads at L = 1024 and 1021 == plain, exactly")
+    for L in (1021, 1024):
+        print(_extend_check(device, L, wide=L == 1024) + ", exactly")
     table, idx0 = chase.make_inputs(0, device)
     table, idx0 = table[:1024].contiguous(), (idx0[:1024] % 1024).contiguous()
     i0 = int(idx0[5, 7])
@@ -824,7 +858,8 @@ def small_tp_phase(device, num_reads=60, max_len=128):
     character (ROADMAP section C). Where n is a multiple of P, such a read
     reaches position n in a pad row, which the twins clamp to the last real
     row: there only the plain versions must agree (the JAX sharded path
-    differs from its replicated one the same way)."""
+    differs from its replicated one the same way). K16 also runs on a
+    seeded matrix of pointers that are no MS pointers at S = 3."""
     phase("3f. K13-K16 vs plain versions and unsharded twins on small "
           "sharded indexes")
     from spumoni_tpu_torch.engine import kernels
@@ -892,6 +927,7 @@ def small_tp_phase(device, num_reads=60, max_len=128):
               + ("; == plain at L = 1021" if ci == 0 else "")
               + f"; vs twins K2, K3, K4: max |err| {twin_err}"
               + ("" if twin_ok else " (position n in a pad row)"))
+    print(_extend_check(device, 1021, wide=False, S=3) + ", exactly")
     for ci, docs in enumerate((False, True)):
         text, index, _ = seeded_layered(1800 + ci, 20000, docs=docs)
         reads = _tp_reads(1900 + ci, text, num_reads, max_len)
@@ -1572,24 +1608,55 @@ def _steps(lens, L) -> int:
 
 
 def _reads_work(name, index_tensors, dependent=1, tab=True):
-    """work(args) of a scan whose arguments start (index, tab, reads, lens)
-    (tab=False: (index, reads, lens)): _scan_work on the call's reads."""
+    """work(args, outputs) of a scan whose arguments start (index, tab,
+    reads, lens) (tab=False: (index, reads, lens)): _scan_work on the
+    call's reads."""
     if tab:
-        return lambda a: _scan_work(name, index_tensors, a[2], a[3], a[1],
-                                    dependent)
-    return lambda a: _scan_work(name, index_tensors, a[1], a[2],
-                                dependent=dependent)
+        return lambda a, _: _scan_work(name, index_tensors, a[2], a[3], a[1],
+                                       dependent)
+    return lambda a, _: _scan_work(name, index_tensors, a[1], a[2],
+                                   dependent=dependent)
 
 
 def _extend_work(name, text_tensors):
-    """work(args) of K4 / K16 (text, text_bound, reads, lens, ptrs): each
-    step reads a read byte, a pointer and, at most once, a text sector."""
-    def work(a):
+    """work(args, outputs) of K4 / K16 (text, text_bound, reads, lens,
+    ptrs): each step reads a read byte and a pointer; of the text, the
+    sectors the carry compares on this call (_extend_text_bytes)."""
+    ntext = sum(t.numel() for t in text_tensors)
+
+    def work(a, out):
         steps = _steps(a[3], a[2].shape[1])
-        return (min(_nbytes(*text_tensors), steps * SECTOR) + steps
+        return (_extend_text_bytes(ntext, a[1], a[3], a[4], out[0]) + steps
                 + steps * a[4].element_size() + _nbytes(a[3]),
                 steps * STEP_OPS[name])
     return work
+
+
+def _extend_text_bytes(ntext, nt, lens, ptrs, lengths) -> int:
+    """The bytes of the distinct SECTOR-byte text sectors that the MS
+    extension's carry compares, given its output `lengths`: at position i,
+    ptrs[i] + l for l from the carried length (max(lengths[i - 1] - 1, 0),
+    0 at i = 0) up to lengths[i] (the failing test included), where
+    i + l < len, ptrs[i] >= 0 and ptrs[i] + l < min(ntext, nt) (past
+    ntext the text reads as 0 without a load): the union of these ranges,
+    counted on the device."""
+    B, L = ptrs.shape
+    p, o = ptrs.long(), lengths.long()
+    lens = lens.clamp(0, L)[:, None]
+    col = torch.arange(L, device=p.device)
+    lo = p + torch.cat([o.new_zeros(B, 1), (o[:, :-1] - 1).clamp(min=0)], 1)
+    hi = torch.minimum(p + o, p + lens - 1 - col).clamp(
+        max=min(ntext, nt) - 1)
+    keep = (col < lens) & (p >= 0) & (hi >= lo)
+    start, order = torch.sort(lo[keep] // SECTOR)
+    if not start.numel():
+        return 0
+    end = (hi[keep] // SECTOR + 1)[order]
+    # sorted by start: the sectors an interval adds are those past the
+    # furthest end of the intervals before it
+    reach = torch.cat([start[:1], torch.cummax(end, 0).values[:-1]])
+    return int((end - torch.maximum(start, reach)).clamp(min=0).sum()) \
+        * SECTOR
 
 
 def _bound(nbytes, ops) -> dict:
@@ -1682,9 +1749,9 @@ def _time_kernel(name, kern, plain, args, source, replaces, work,
     """CUDA-event ms per call of a kernel wrapper and of its plain version,
     in turns (plain, kernel warm-up + 5 timed calls, plain; with
     plain_turns=1 the second plain call is left out); fails unless the
-    outputs are equal (tolerance 0: integer outputs). work(args) = (input
-    bytes, operations) of a call, for the bound, to which the outputs are
-    added. With shapes, the kernel is also timed at LAUNCH_SHAPES
+    outputs are equal (tolerance 0: integer outputs). work(args, outputs)
+    = (input bytes, operations) of a call, for the bound, to which the
+    outputs are added. With shapes, the kernel is also timed at LAUNCH_SHAPES
     (_time_shapes)."""
     plain_ms1, want = _time_ms(lambda: plain(*args), 1)
     kern(*args)
@@ -1706,10 +1773,10 @@ def _time_kernel(name, kern, plain, args, source, replaces, work,
 
 
 def _call_bound(work, args, out) -> dict:
-    """_bound of a call on args: work(args) plus its outputs, each written
-    once."""
-    nbytes, ops = work(args)
+    """_bound of a call on args: work(args, outputs) plus its outputs, each
+    written once."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
+    nbytes, ops = work(args, outs)
     return _bound(nbytes + _nbytes(*outs), ops)
 
 
@@ -1812,7 +1879,7 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
                      kernels.binmax_values_reference,
                      (ms_len, lens, 7, BIN_WIDTH), src,
                      "spumoni_tpu/engine/scan_engine.py:1110",
-                     lambda a: (_steps(a[1], a[0].shape[1])
+                     lambda a, _: (_steps(a[1], a[0].shape[1])
                                 * a[0].element_size() + _nbytes(a[1]),
                                 _steps(a[1], a[0].shape[1])
                                 * STEP_OPS["binmax_values"]))]
@@ -2009,7 +2076,7 @@ def staging_timing_phase(device, prefix, reads, n_reads):
             f"unpack2 {label}", kernels.unpack2, kernels.unpack2_reference,
             (g["rev_p"], g["ranks2"], g["exc_d"], g["lens_d"]), src,
             "spumoni_tpu/engine/scan_engine.py:1189",
-            lambda a: (_nbytes(a[0], a[2], a[3]),
+            lambda a, _: (_nbytes(a[0], a[2], a[3]),
                        a[0].shape[0] * L * STEP_OPS["unpack2"]),
             # the exceptions name rows of the whole batch: no cut
             shapes=g["exc_d"] is None)
@@ -2020,7 +2087,7 @@ def staging_timing_phase(device, prefix, reads, n_reads):
         engine._stage_amap, False, 4)[0]).to(device)
     table = _alpha_table(g["alpha"])
     # K12 runs on 3e's paths only: no run's shape to time it at
-    def work4(a):
+    def work4(a, _):
         return _nbytes(a[0], a[1]), a[0].numel() * 2 * STEP_OPS["unpack4"]
 
     k12 = {"byte table": _time_kernel(
@@ -2272,6 +2339,14 @@ def _print_lost(results):
     for lost, name, p, v in rows:
         print(f"  {lost:9.3f} ms  {name} in {p}: {v['launches']} x "
               f"({v['ms']:.3f} - {v['bound_ms']:.4f}) at B={v['lanes']}")
+    total = {}
+    for lost, name, p, _ in rows:
+        total.setdefault(name, []).append((p, lost))
+    print("lost over every 10-strain run that launches it, each kernel:")
+    for name, runs in sorted(total.items(),
+                             key=lambda kv: -sum(x for _, x in kv[1])):
+        print(f"  {sum(x for _, x in runs):9.3f} ms  {name} in {len(runs)} "
+              f"runs: " + ", ".join(f"{p} {x:.2f}" for p, x in runs))
 
 
 def main(argv=None) -> int:

@@ -46,13 +46,25 @@
 //   the group stores G consecutive outputs at once after the next step's
 //   row loads have issued (the last, partial group after the read). The
 //   mode is a runtime argument.
-//   K4 is one thread per read walking at most 3 L (read byte, text byte)
-//   compares; each text read is a random access into the ~92 MB text.
+//   K4 is bound by the latency of its text reads: each is a random access
+//   into the ~92 MB text, past the 50 MB L2, and the carry chains them
+//   (one thread per read walked up to 3 L dependent compares, each behind
+//   a pointer load). K4 and K16 run one group walk (csrc/extend_step.cuh,
+//   spn::group_extend) that keeps extend_pointers_kernel's carry on any
+//   pointer matrix: kExtendGroup = 32 threads a read, each walking a chunk
+//   of the read from the pointers and bytes the group staged in shared
+//   memory, 16 text bytes a compare, then an exact lane-order fix-up of
+//   the chunks' carries. 32 was the fastest of 8, 16 and 32 at the lanes
+//   the runs launch (8,192 and 32,768) and at 65,536, and one 16-byte
+//   window a round trip beat two (time_scan's k4-w2), so only these are
+//   built.
 //   K5 is one warp per read: coalesced reads of the value row, a warp max
-//   per bin. Bandwidth-bound on the [B, L] matrix.
+//   per bin. Bandwidth-bound on the [B, L] matrix. K5 (and, in the other
+//   sources, K2, K10, K13 and K14) still take one thread or one warp a read.
 //   K15 / K16 are K3 / K4's bodies with each table read from its shard:
 //   K15 takes K3's step (ms_step.cuh) on the shard's row and msrow, one
-//   divide more per read, no collective.
+//   divide more per read, no collective; K16 takes K4's walk on the text's
+//   shards, one 32-bit divide a 16-byte word.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -64,6 +76,7 @@
 #include <type_traits>
 
 #include "blockbits_pml.cuh"
+#include "extend_step.cuh"
 #include "ms_step.cuh"
 #include "sharded.cuh"
 
@@ -72,6 +85,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
 constexpr int kGroup = 8;  // threads per read of K3 / K15
+constexpr int kExtendGroup = 32;  // threads per read of K4 / K16
 
 template <bool WIDE>
 using PosOf = typename std::conditional<WIDE, long long, int32_t>::type;
@@ -135,41 +149,18 @@ ms_scan_kernel(const uint32_t* __restrict__ rows,
   if (last < len) out.store(last);
 }
 
-template <typename PosT>
+// K4: spn::group_extend over the flat text, kExtendGroup threads a read;
+// STAGED: the block's rows in dynamic shared memory.
+template <typename PosT, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 ms_extend_kernel(const uint8_t* __restrict__ text, long long ntext,
                  long long nt, const uint8_t* __restrict__ reads,
-                 const long long* __restrict__ lens,
-                 const PosT* __restrict__ ptrs, long long B, long long L,
-                 PosT* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  long long len = lens[b];
-  len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd = reads + b * L;
-  const PosT* pp = ptrs + b * L;
-  PosT* o = out + b * L;
-  // two pointers: extend the match at i by one character, or emit its
-  // length and move to i+1 keeping max(l-1, 0) (MS are 1-Lipschitz)
-  long long i = 0, l = 0;
-  while (i < len) {
-    const long long ptr = (long long)pp[i];
-    const long long tpos = ptr + l;
-    bool ok = false;
-    // nt is the JAX package's zero-padded text length: past the text, a
-    // read byte is compared with 0
-    if (i + l < len && ptr >= 0 && tpos >= 0 && tpos < nt) {
-      const uint8_t tch = tpos < ntext ? __ldg(text + tpos) : (uint8_t)0;
-      ok = __ldg(rd + i + l) == tch;
-    }
-    if (ok) {
-      ++l;
-    } else {
-      o[i] = (PosT)l;
-      ++i;
-      l = l > 0 ? l - 1 : 0;
-    }
-  }
+                 const long long* __restrict__ lens, const PosT* ptrs,
+                 long long B, long long L, PosT* out) {
+  extern __shared__ __align__(16) uint8_t extend_smem[];
+  spn::group_extend<kExtendGroup, STAGED>(
+      spn::FlatText{text, ntext}, nt, reads, lens, ptrs, B, L, out,
+      extend_smem);
 }
 
 // K15: K3 with the tables in shards: the step's row and msrow from their
@@ -232,43 +223,17 @@ ms_scan_tp_kernel(const spn::ShardedRows<uint32_t> rows,
   if (last < len) out.store(last);
 }
 
-// K16: K4 with the text in shards.
-template <typename PosT>
+// K16: K4's walk over the text in shards.
+template <typename PosT, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 ms_extend_tp_kernel(const spn::ShardedRows<uint8_t> text, long long ntext,
                     long long nt, const uint8_t* __restrict__ reads,
-                    const long long* __restrict__ lens,
-                    const PosT* __restrict__ ptrs, long long B, long long L,
-                    PosT* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  long long len = lens[b];
-  len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd = reads + b * L;
-  const PosT* pp = ptrs + b * L;
-  PosT* o = out + b * L;
-  // two pointers: extend the match at i by one character, or emit its
-  // length and move to i+1 keeping max(l-1, 0) (MS are 1-Lipschitz)
-  long long i = 0, l = 0;
-  while (i < len) {
-    const long long ptr = (long long)pp[i];
-    const long long tpos = ptr + l;
-    bool ok = false;
-    // nt is the JAX package's zero-padded text length: past the text, a
-    // read byte is compared with 0
-    if (i + l < len && ptr >= 0 && tpos >= 0 && tpos < nt) {
-      const uint8_t tch =
-          tpos < ntext ? __ldg(text.row(tpos, 1)) : (uint8_t)0;
-      ok = __ldg(rd + i + l) == tch;
-    }
-    if (ok) {
-      ++l;
-    } else {
-      o[i] = (PosT)l;
-      ++i;
-      l = l > 0 ? l - 1 : 0;
-    }
-  }
+                    const long long* __restrict__ lens, const PosT* ptrs,
+                    long long B, long long L, PosT* out) {
+  extern __shared__ __align__(16) uint8_t extend_smem[];
+  spn::group_extend<kExtendGroup, STAGED>(
+      spn::ShardedText{text, ntext}, nt, reads, lens, ptrs, B, L, out,
+      extend_smem);
 }
 
 template <typename V>
@@ -466,26 +431,65 @@ extern "C" int spn_ms_scan_tp(const void* rows, const void* msrows, int S,
   return dispatch_scan(a) ? (int)cudaGetLastError() : kUnsupported;
 }
 
+namespace {
+
+// K4 / K16: B groups of kExtendGroup threads in blocks of kThreads, each
+// group's row staged in dynamic shared memory (`staged`) when the block's
+// rows fit the card's opt-in limit, else walked from device memory
+// (`direct`).
+template <typename PosT, typename Kernel, typename... Args>
+int launch_extend(Kernel staged, Kernel direct, long long B, long long L,
+                  cudaStream_t st, Args... args) {
+  const long long smem =
+      spn::extend_row_bytes<PosT>(L) * (kThreads / kExtendGroup);
+  int dev = 0, optin = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  const unsigned grid = grid_of(B * kExtendGroup);
+  if (smem > optin) {
+    direct<<<grid, kThreads, 0, st>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(staged,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  staged<<<grid, kThreads, (size_t)smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K4: text 16-byte aligned, ntext bytes.
 extern "C" int spn_ms_extend(const void* text, long long ntext, long long nt,
                              const void* reads, const void* lens,
                              const void* ptrs, long long B, long long L,
                              int wide, void* out, void* stream) {
   if (B == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* t = (const uint8_t*)text;
+  const uint8_t* rd = (const uint8_t*)reads;
+  const long long* ln = (const long long*)lens;
   if (wide)
-    ms_extend_kernel<long long><<<grid_of(B), kThreads, 0, st>>>(
-        (const uint8_t*)text, ntext, nt, (const uint8_t*)reads,
-        (const long long*)lens, (const long long*)ptrs, B, L,
+    return launch_extend<long long>(
+        ms_extend_kernel<long long, true>, ms_extend_kernel<long long, false>,
+        B, L, st, t, ntext, nt, rd, ln, (const long long*)ptrs, B, L,
         (long long*)out);
-  else
-    ms_extend_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
-        (const uint8_t*)text, ntext, nt, (const uint8_t*)reads,
-        (const long long*)lens, (const int32_t*)ptrs, B, L, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_extend<int32_t>(
+      ms_extend_kernel<int32_t, true>, ms_extend_kernel<int32_t, false>, B,
+      L, st, t, ntext, nt, rd, ln, (const int32_t*)ptrs, B, L,
+      (int32_t*)out);
 }
 
 // K16: the text as a host array of S shard pointers of bytes_per_shard
-// bytes each, zero past the text; ntext = S * bytes_per_shard.
+// bytes each (a multiple of 16, each shard 16-byte aligned), zero past the
+// text; ntext = S * bytes_per_shard < 2^36 (16-byte words counted in 32
+// bits).
 extern "C" int spn_ms_extend_tp(const void* text, int S,
                                 long long bytes_per_shard, long long nt,
                                 const void* reads, const void* lens,
@@ -493,18 +497,22 @@ extern "C" int spn_ms_extend_tp(const void* text, int S,
                                 int wide, void* out, void* stream) {
   if (B == 0) return 0;
   spn::ShardedRows<uint8_t> shards;
-  if (!spn::sharded_rows(shards, text, S, bytes_per_shard)) return kUnsupported;
   const long long ntext = S * bytes_per_shard;
+  if (bytes_per_shard % 16 || (ntext >> 36) ||
+      !spn::sharded_rows(shards, text, S, bytes_per_shard))
+    return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* rd = (const uint8_t*)reads;
+  const long long* ln = (const long long*)lens;
   if (wide)
-    ms_extend_tp_kernel<long long><<<grid_of(B), kThreads, 0, st>>>(
-        shards, ntext, nt, (const uint8_t*)reads, (const long long*)lens,
-        (const long long*)ptrs, B, L, (long long*)out);
-  else
-    ms_extend_tp_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
-        shards, ntext, nt, (const uint8_t*)reads, (const long long*)lens,
-        (const int32_t*)ptrs, B, L, (int32_t*)out);
-  return (int)cudaGetLastError();
+    return launch_extend<long long>(
+        ms_extend_tp_kernel<long long, true>,
+        ms_extend_tp_kernel<long long, false>, B, L, st, shards, ntext, nt,
+        rd, ln, (const long long*)ptrs, B, L, (long long*)out);
+  return launch_extend<int32_t>(
+      ms_extend_tp_kernel<int32_t, true>, ms_extend_tp_kernel<int32_t, false>,
+      B, L, st, shards, ntext, nt, rd, ln, (const int32_t*)ptrs, B, L,
+      (int32_t*)out);
 }
 
 extern "C" int spn_binmax_values(const void* vals, const void* lens,

@@ -35,7 +35,8 @@ K1/K2/K13 live in `csrc/blockbits_pml.cu`, K3-K5/K15/K16 in
 K2, K8 and K10 in `csrc/binmax.cuh`, the sharded row source in
 `csrc/sharded.cuh`; the steps of K1 and K3 / K15, K7 and K8, and K9,
 for a group of threads per read, in `csrc/ms_step.cuh`,
-`csrc/layered_step.cuh` and `csrc/occ_step.cuh`).
+`csrc/layered_step.cuh` and `csrc/occ_step.cuh`, and K4 / K16's group
+walk in `csrc/extend_step.cuh`).
 K4 takes a text and its bound, so both engines share it. Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
@@ -69,9 +70,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
-            "blockbits_ms.cu", "gather_chase.cu", "layered.cu",
-            "layered_step.cuh", "ms_step.cuh", "occ_step.cuh", "occblock.cu",
-            "sharded.cuh", "staging.cu")
+            "blockbits_ms.cu", "extend_step.cuh", "gather_chase.cu",
+            "layered.cu", "layered_step.cuh", "ms_step.cuh", "occ_step.cuh",
+            "occblock.cu", "sharded.cuh", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
@@ -316,8 +317,8 @@ CLASSIFY_GROUP = 4
 
 def _check_aligned(name, tables):
     """K1 / K3 / K15 read rows (and msrows), K7 / K8 level and field rows,
-    with 16-byte loads: every (label, tensor) must start 16-byte
-    aligned."""
+    K4 / K16 the text with 16-byte loads: every (label, tensor) must start
+    16-byte aligned."""
     for label, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
@@ -418,6 +419,7 @@ def ms_extend(text: torch.Tensor, text_bound: int, reads_fwd: torch.Tensor,
                          "tensor")
     if kind == "cpu":
         return ms_extend_reference(text, text_bound, reads_fwd, lens, ptrs)
+    _check_aligned("ms_extend", (("text", text),))
     out = torch.zeros_like(ptrs)
     if out.numel() == 0:
         return out
@@ -975,6 +977,10 @@ def ms_extend_tp(text: ShardedTable, text_bound: int,
     _check_shards("ms_extend_tp", (("text", text),), lens.device)
     if kind == "cpu":
         return ms_extend_tp_reference(text, text_bound, reads_fwd, lens, ptrs)
+    _check_aligned("ms_extend_tp", (("text", t) for t in text.shards))
+    if text.rows_per_shard % 16:
+        raise ValueError("ms_extend_tp: text shards must hold a multiple of "
+                         "16 bytes")
     out = torch.zeros_like(ptrs)
     if out.numel() == 0:
         return out
@@ -1384,6 +1390,72 @@ def seeded_packed(seed: int, B: int, L: int, k: int):
                     for r, c in sorted(cells)], np.int32).reshape(-1, 3)
     rng.shuffle(exc)
     return packed2, packed4, exc, lens
+
+
+#: read lengths of seeded_extend's rows: 0, 1, around each lane group K4 /
+#: K16 could take (8, 16, 32) and its doubles, L - 1 and L
+_EXTEND_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65)
+
+
+def seeded_extend(seed: int, L: int, wide: bool = False, B: int = 60,
+                  ntext: int = 3000, nt: int = 4096):
+    """Seeded inputs of K4 / K16 whose pointers are no MS pointers, as numpy
+    arrays: text [ntext] uint8 (ACGT; read as 0 from ntext up to the bound
+    nt), reads [B, L] uint8 (0 past each length), lens [B] int64 (0, 1,
+    7-9, 15-17, 31-33, 63-65, L - 1, L, then random) and pointers [B, L]
+    (int64 with wide, else int32). Rows take turns: a text substring with
+    5% of its bytes changed on its diagonal; random pointers in [-3,
+    nt + 3]; runs of consecutive pointers, each on the read's diagonal or
+    random; a read running off the text's end into 0 bytes (which match
+    the text past ntext) with pointers on its diagonal, into [ntext, nt),
+    just below nt and past it; an exact substring on its diagonal with
+    negative pointers inside the match, at every chunk start of a 32-lane
+    group among them."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    text = rng.choice(acgt, ntext)
+    padded = np.concatenate([text, np.zeros(L + 64, np.uint8)])
+    fixed = [m for m in _EXTEND_LENGTHS if m <= L] + [L - 1, L]
+    lens = np.concatenate([fixed, rng.integers(0, L + 1, max(
+        B - len(fixed), 0))])[:B].astype(np.int64)
+    reads = np.zeros((B, L), np.uint8)
+    ptrs = np.zeros((B, L), np.int64)
+    for b, m in enumerate(lens.tolist()):
+        kind = b % 5
+        q = int(rng.integers(0, ntext))
+        if kind == 3:   # off the text's end
+            q = ntext - int(rng.integers(0, min(m, 64) + 1))
+        row = padded[q:q + m].copy()
+        diag = q + np.arange(m)
+        if kind == 0:
+            hit = rng.random(m) < 0.05
+            row[hit] = rng.choice(acgt, int(hit.sum()))
+            p = diag
+        elif kind == 1:
+            p = rng.integers(-3, nt + 4, m)
+        elif kind == 2:
+            p = diag.copy()
+            j = 0
+            while j < m:
+                run = int(rng.integers(1, 41))
+                if rng.random() < 0.5:
+                    p[j:j + run] = int(rng.integers(-3, nt + 4)) + np.arange(
+                        min(run, m - j))
+                j += run
+        elif kind == 3:
+            p = diag.copy()
+            far = rng.random(m) < 0.2
+            p[far] = rng.integers(ntext, nt + 4, int(far.sum()))
+            edge = rng.random(m) < 0.1    # the walk crosses nt, or starts past
+            p[edge] = rng.integers(nt - 8, nt + 4, int(edge.sum()))
+        else:
+            p = diag.copy()
+            neg = rng.random(m) < 0.08
+            neg[::max(1, -(-m // 32))] = True
+            p[neg] = -rng.integers(1, 4, int(neg.sum()))
+        reads[b, :m] = row
+        ptrs[b, :m] = p
+    return text, reads, lens, ptrs.astype(np.int64 if wide else np.int32)
 
 
 def ms_edge_reads(text: np.ndarray, L: int, terminator: bool = True) -> list:

@@ -224,16 +224,22 @@ def shard_blockbits_ms(index: bb.BlockBitsIndex, S: int) -> ShardedBlockBits:
         raise ValueError("a sharded MS index needs the msrows, the SA-sample "
                          "jump table and the text (build -M)")
     text_len = int(index.text.shape[0])
-    rows512 = -(-text_len // TEXT_ROW) + 1
     return ShardedBlockBits(
         index.meta, ShardedTable.from_rows(index.bblocks, S),
         msrows=ShardedTable.from_rows(index.msrows, S),
         jump_t=ShardedTable.from_rows(index.jump_t, S),
         jump_d=None if index.jump_d is None
         else ShardedTable.from_rows(index.jump_d, S),
-        text=ShardedTable.from_rows(index.text, S, rows_per_shard=-(
-            -rows512 // S) * TEXT_ROW),
-        text_len=text_len)
+        text=shard_text(index.text, S), text_len=text_len)
+
+
+def shard_text(text: torch.Tensor, S: int) -> ShardedTable:
+    """The text in S shards as JAX's rows512 table holds it (tp.py:284-292):
+    whole 512-byte rows, one more than the text fills, zero-padded to a
+    multiple of S rows."""
+    rows512 = -(-int(text.shape[0]) // TEXT_ROW) + 1
+    return ShardedTable.from_rows(text, S, rows_per_shard=-(
+        -rows512 // S) * TEXT_ROW)
 
 
 def sharded_probe_bound(probe_bound: int, S: int) -> int:

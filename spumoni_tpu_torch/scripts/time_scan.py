@@ -3,7 +3,7 @@ counts the runs launch, each beside another tree's build of the same entry
 points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
-        [--families pml,classify,ms,layered,occ] [--ablate] \
+        [--families pml,classify,ms,layered,occ,extend] [--ablate] \
         [--shapes 8192,32768,65536] [--out DIR]
 
 Run from the repository root on a machine with one NVIDIA GPU. It writes
@@ -24,7 +24,8 @@ printed), outputs equal (max |err| 0):
     csrc/ms_step.cuh), K7 `layered_scan` (pml, ms+doc) on its layered
     MS + doc tables and K14 `layered_classify_tp` (4 shards) on its
     layered PML tables (K8's kernel shares layered.cu and K7's step), K10
-    `occ_classify` on its occ-block PML rows (`--engine occ`);
+    `occ_classify` on its occ-block PML rows (`--engine occ`), K5
+    `binmax_values` on the MS lengths of K3's ms pointers (K4's source);
   * family pml: K1 `pml_scan` on the block-bits PML rows;
   * family classify: K8 `layered_classify` on the layered PML tables,
     and on the -m index at its digested reads' largest bucket (that
@@ -36,13 +37,25 @@ printed), outputs equal (max |err| 0):
     index's bucket;
   * family occ: K9 `occ_scan` in each mode on the rows of the phase-4d run
     that uses it (chip_smoke.OCC_TIMED: W = T0 + P, T0 + 3P, T0 + 3P,
-    T0 + 5P).
+    T0 + 5P);
+  * family extend: K4 `ms_extend` on K3's ms pointers over the MS + doc
+    index (the pointers K7 and K9 give too) and K16 `ms_extend_tp` on the
+    same pointers over its text in 4 shards; also, each at its own lanes,
+    on long reads (the same strains, reads of 8,192 and 16,384 bp made as
+    chip_smoke.make_inputs makes the 1,024-bp ones; a run's batch of
+    batch_bases holds 4,096 and 2,048 of them) at int32 and int64
+    pointers (LONG_READS): the rows that take the opt-in shared memory or
+    the unstaged walk.
 
 With --ablate, each family's timing-only variants run beside the parent:
 its ablations (`FAMILIES[...].ablations`), built from patched copies of
 DIR's sources, and its variants (`.variants`), built from patched copies
-of this tree's (K8's other lane group). An ablation may give wrong
-answers (its max |err| is reported) and is never used for anything else.
+of this tree's (K8's other lane group; K4 / K16's other lane groups, two
+text windows a round trip, and the unstaged walk for rows past 48 KB). An ablation may give wrong answers (its max
+|err| is reported) and is never used for anything else. A redesign's
+baseline and attribution come first: add its family, with the ablations
+patched into the parent's sources, and run the script while this tree's
+sources are still the parent's.
 An ablation's patches are literal lines of one commit's sources
 (`FAMILIES[...].patches`), a variant's of this tree's: on any other
 parent --ablate stops with the line it did not find.
@@ -78,11 +91,19 @@ from ..engine import kernels
 from ..parallel import tp
 
 SHARDS = 4
+#: chip_smoke.py's strains (write_inputs), which make_inputs draws first
+#: from its seed: the long reads below are drawn over the same ones
+STRAINS, STRAIN_LEN = 10, 4_600_000
+#: K4 / K16's long-read shapes, (read length, lanes): a run's parse batch
+#: of RunConfig.batch_bases (33,554,432) bases holds batch_bases // L reads
+LONG_READS = ((8192, 4096), (16384, 2048))
 #: library -> the entry points the script calls (through this tree's
 #: wrappers): the families' scans and the controls
 ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
                                   "spn_pml_classify_tp"),
-                "blockbits_ms": ("spn_ms_scan", "spn_ms_scan_tp"),
+                "blockbits_ms": ("spn_ms_scan", "spn_ms_scan_tp",
+                                 "spn_ms_extend", "spn_ms_extend_tp",
+                                 "spn_binmax_values"),
                 "layered": ("spn_layered_scan", "spn_layered_classify",
                             "spn_layered_classify_tp"),
                 "occblock": ("spn_occ_scan", "spn_occ_classify")}
@@ -91,7 +112,7 @@ CONTROLS = {("pml_classify", "pml"), ("pml_classify_tp", "pml"),
             ("ms_scan", "ms"), ("ms_scan", "ms+doc"), ("ms_scan", "pml+doc"),
             ("ms_scan_tp", "ms+doc"), ("layered_scan", "pml"),
             ("layered_scan", "ms+doc"), ("layered_classify_tp", "pml"),
-            ("occ_classify", "pml")}
+            ("occ_classify", "pml"), ("binmax_values", "ms")}
 
 
 class Family(NamedTuple):
@@ -273,6 +294,66 @@ _K8_ONE_PROBE = _K7_ONE_PROBE
 _K8_G8 = [("layered.cu", "constexpr int kClassifyGroup = 4;",
            "constexpr int kClassifyGroup = 8;")]
 
+# --- family extend: K4 / K16, ablations of the one-thread-a-read walk -----
+#: (a) the text byte from the first 1,024 bytes of the text (L1): the
+#: share of the random text reads
+_K4_TEXT_L1 = [
+    ("blockbits_ms.cu",
+     "const uint8_t tch = tpos < ntext ? __ldg(text + tpos) : (uint8_t)0;",
+     "const uint8_t tch = __ldg(text + (tpos & 1023));"),
+    ("blockbits_ms.cu",
+     "tpos < ntext ? __ldg(text.row(tpos, 1)) : (uint8_t)0;",
+     "__ldg(text.row(tpos & 1023, 1));")]
+#: (b) and no pointer loads either (K4 and K16): what the read-byte loads,
+#: the stores and the loop cost
+_K4_NO_POINTERS = _K4_TEXT_L1 + [
+    ("blockbits_ms.cu", "const long long ptr = (long long)pp[i];",
+     "const long long ptr = i;")]
+#: (c) blocks of 32 threads: the reads of a launch spread over 4x the SMs
+_K4_SPREAD = [("blockbits_ms.cu", "constexpr int kThreads = 128;",
+               "constexpr int kThreads = 32;")]
+#: K4 / K16's other lane groups and two text windows a round trip, patched
+#: into this tree's source
+#: (the mask of a group smaller than the warp)
+_EXTEND_MASK = ("extend_step.cuh",
+                """  static_assert(G == 32, "one warp a read");
+  return 0xffffffffu;""",
+                "  return ((1u << G) - 1u) << ((threadIdx.x & 31u) & ~(G - 1u));")
+_K4_G8 = [("blockbits_ms.cu", "constexpr int kExtendGroup = 32;",
+           "constexpr int kExtendGroup = 8;"), _EXTEND_MASK]
+_K4_G16 = [("blockbits_ms.cu", "constexpr int kExtendGroup = 32;",
+            "constexpr int kExtendGroup = 16;"), _EXTEND_MASK]
+#: (the second window's 16 staged bytes past the row's end)
+_K4_W2 = [
+    ("extend_step.cuh",
+     """    const uint4 w1 = ta + 16 < tpos + cap ? text.word(ta + 16) : zero4();
+    uint64_t tlo, thi, rlo, rhi;
+    text16(w0, w1, (int)(t & 15), tlo, thi);
+    rd.get16(r + m, rlo, rhi);
+    const int f = first_diff(tlo ^ rlo, thi ^ rhi);
+    if (f >= cap - m) return cap;
+    m += f;
+    if (f < 16) return m;""",
+     """    const uint4 w1 = ta + 16 < tpos + cap ? text.word(ta + 16) : zero4();
+    const uint4 w2 = ta + 32 < tpos + cap ? text.word(ta + 32) : zero4();
+    uint64_t tlo, thi, rlo, rhi;
+    text16(w0, w1, (int)(t & 15), tlo, thi);
+    rd.get16(r + m, rlo, rhi);
+    int f = first_diff(tlo ^ rlo, thi ^ rhi);
+    text16(w1, w2, (int)(t & 15), tlo, thi);
+    rd.get16(r + m + 16, rlo, rhi);
+    const int f1 = first_diff(tlo ^ rlo, thi ^ rhi);
+    if (f == 16) f += f1;
+    if (f >= cap - m) return cap;
+    m += f;
+    if (f < 32) return m;"""),
+    ("extend_step.cuh", "(L + 16 + 24 + 15) / 16 * 16",
+     "(L + 16 + 40 + 15) / 16 * 16")]
+#: rows past the 48 KB of a default block walked from device memory, not
+#: staged in the opt-in shared memory (one block an SM at L = 8,192 int32)
+_K4_UNSTAGED_PAST_48K = [("blockbits_ms.cu", "if (smem > optin) {",
+                          "if (smem > 48 * 1024) {")]
+
 #: the block-bits kernels at P = 512, pack = 2, not wide (the 10-strain
 #: index's layout)
 _P512 = "ILi512ELi2ELb0E"
@@ -322,6 +403,23 @@ FAMILIES = {
         {"a-one-char-word": _K9_ONE_WORD,
          "b-candidates-before-minus1": _K9_CANDIDATES_EARLY,
          "c-both": _K9_ONE_WORD + _K9_CANDIDATES_EARLY}),
+    "extend": Family(
+        "blockbits_ms",
+        # 71e6123's one-thread walks (int32 pointers), this tree's staged
+        # group walks (int32; K4 also int64) and K4's unstaged ones
+        (("blockbits_ms", "ms_extend_kernelIiE"),
+         ("blockbits_ms", "ms_extend_tp_kernelIiE"),
+         ("blockbits_ms", "ms_extend_kernelIiLb1EE"),
+         ("blockbits_ms", "ms_extend_tp_kernelIiLb1EE"),
+         ("blockbits_ms", "ms_extend_kernelIxLb1EE"),
+         ("blockbits_ms", "ms_extend_kernelIiLb0EE"),
+         ("blockbits_ms", "ms_extend_kernelIxLb0EE")),
+        "71e6123",
+        {"k4-a-text-in-l1": _K4_TEXT_L1,
+         "k4-b-no-pointer-loads": _K4_NO_POINTERS,
+         "k4-c-32-thread-blocks": _K4_SPREAD},
+        {"k4-g8": _K4_G8, "k4-g16": _K4_G16, "k4-w2": _K4_W2,
+         "k4-unstaged-past-48k": _K4_UNSTAGED_PAST_48K}),
 }
 
 
@@ -545,6 +643,44 @@ def _cases(families, dev, reads, shapes) -> list:
                 lambda B, idx=idx, w=wrapper, mode=mode, doc=doc: w(
                     idx, gm["tab"], cm("rev_d", B), cm("lens_d", B), mode,
                     doc)))
+    # K3's ms pointers (this tree's build) and K4's lengths of them, at the
+    # largest shape: K4 / K16 and K5 take their first B rows
+    ptrs = kernels.ms_scan(msx.index, gm["tab"], gm["rev_d"], gm["lens_d"],
+                           "ms", False)[0]
+    mslen = kernels.ms_extend(msx.index.text, msx.index.text_bound,
+                              gm["fwd_d"], gm["lens_d"], ptrs)
+    cases += [
+        Case("ms_extend", "ms", "extend", "blockbits_ms",
+             lambda B: kernels.ms_extend(msx.index.text,
+                                         msx.index.text_bound,
+                                         cm("fwd_d", B), cm("lens_d", B),
+                                         _cut(ptrs, B))),
+        Case("ms_extend_tp", "ms", "extend", "blockbits_ms",
+             lambda B: kernels.ms_extend_tp(sharded.text, sharded.text_bound,
+                                            cm("fwd_d", B), cm("lens_d", B),
+                                            _cut(ptrs, B))),
+        Case("binmax_values", "ms", "control", "blockbits_ms",
+             lambda B: kernels.binmax_values(_cut(mslen, B), cm("lens_d", B),
+                                             7, cs.BIN_WIDTH))]
+    for L, lanes in LONG_READS if "extend" in families else ():
+        work = os.path.join(cs.WORK, f"long-{L}")
+        os.makedirs(work, exist_ok=True)
+        _, path = cs.make_inputs(work, STRAINS, STRAIN_LEN, lanes, L)
+        g = cs._staged(msx, path, lanes)
+        p32 = kernels.ms_scan(msx.index, g["tab"], g["rev_d"], g["lens_d"],
+                              "ms", False)[0]
+        for p in (p32, p32.long()):
+            label = f"ms L={L} " + ("int64" if p.dtype == torch.int64
+                                    else "int32")
+            cases += [
+                Case("ms_extend", label, "extend", "blockbits_ms",
+                     lambda B, g=g, p=p: kernels.ms_extend(
+                         msx.index.text, msx.index.text_bound, g["fwd_d"],
+                         g["lens_d"], p), own_lanes=lanes),
+                Case("ms_extend_tp", label, "extend", "blockbits_ms",
+                     lambda B, g=g, p=p: kernels.ms_extend_tp(
+                         sharded.text, sharded.text_bound, g["fwd_d"],
+                         g["lens_d"], p), own_lanes=lanes)]
     lay = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="layered")
     _, cl = staged(lay)
     lay_tp = tp.shard_layered(lay.index, SHARDS)
@@ -661,7 +797,7 @@ def main(argv=None) -> int:
                   flush=True)
 
     t0 = time.time()
-    cs.write_inputs(10)
+    cs.write_inputs(STRAINS, STRAIN_LEN)
     cli.main(cs._build_args()["-M -P -d"])
     print(f"inputs and MS index in {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()

@@ -12,6 +12,7 @@ import torch
 from spumoni_tpu.engine import blockbits as jbb
 from spumoni_tpu.engine.scan_engine import (ScanEngine as JaxScanEngine,
                                             binmax_values_kernel,
+                                            extend_pointers_kernel,
                                             query_batch_kernel_v4ms)
 from spumoni_tpu.index.format import build_dense_index, build_doc_arrays
 from spumoni_tpu.io.fastx_batch import PackedReads
@@ -199,6 +200,33 @@ def test_ms_extend_reference_equals_jax_staged_lengths(msdoc, wide):
         assert not got[i, m:].any(), i
         anomalous += bool((ptrs[i, :m] <= 0).any())
     assert anomalous >= 2          # the fallback path was exercised
+
+
+@pytest.mark.parametrize("L", [64, 1021])
+@pytest.mark.parametrize("wide", [False, True])
+def test_ms_extend_reference_equals_jax_kernel_on_any_pointers(L, wide):
+    """ms_extend_reference equals extend_pointers_kernel, the JAX two-pointer
+    carry, on pointer matrices that are no MS pointers
+    (kernels.seeded_extend, the GPU tests' inputs): random pointers in
+    [-3, nt + 3], runs of consecutive pointers, pointers into [ntext, nt)
+    and past nt, negative pointers inside matches, reads running into the
+    0 bytes past the text; lengths 0, 1, 7-9 and L among them."""
+    nt = 4096
+    text, reads, lens, ptrs = kernels.seeded_extend(11 + L, L, wide)
+    ntext = len(text)
+    assert (ptrs < 0).any() and ((ptrs >= ntext) & (ptrs < nt)).any()
+    assert (ptrs >= nt).any() and {0, 1, 7, 8, 9, L} <= set(lens.tolist())
+    want = np.asarray(extend_pointers_kernel(
+        np.pad(text, (0, nt - ntext)), reads, lens, ptrs, nt=nt))
+    got = kernels.ms_extend_reference(torch.from_numpy(text), nt,
+                                      torch.from_numpy(reads),
+                                      torch.from_numpy(lens),
+                                      torch.from_numpy(ptrs))
+    assert got.dtype == (torch.int64 if wide else torch.int32)
+    assert np.array_equal(got.numpy(), want)
+    # the carry emits a negative pointer's carried length, not 0
+    carried = (ptrs < 0) & (want > 0)
+    assert carried.any()
 
 
 def test_binmax_values_reference_equals_jax(msdoc):

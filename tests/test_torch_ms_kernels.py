@@ -247,6 +247,51 @@ def test_ms_kernels_equal_plain_versions_on_gpu(layout):
 
 
 @needs_cuda
+@pytest.mark.parametrize("L", [64, 1021, 1024, 8192])
+@pytest.mark.parametrize("wide", [False, True])
+def test_ms_extend_equals_plain_version_on_any_pointers_on_gpu(L, wide):
+    """K4 equals its plain version on pointer matrices that are no MS
+    pointers (kernels.seeded_extend; tests/test_torch_ms.py holds the plain
+    version to JAX on them): random pointers, runs, pointers into the 0
+    bytes past the text and past its bound, negative pointers inside
+    matches, lengths around every lane group. A text of 3,000 bytes ends in
+    a partial 16-byte word. At L = 8,192 the block's rows take more than
+    48 KB of shared memory (int32) or more than the card has (int64: the
+    rows are walked from device memory)."""
+    B = 20 if L == 8192 else 60
+    text, reads, lens, ptrs = (torch.from_numpy(a) for a in
+                               kernels.seeded_extend(11 + L, L, wide, B=B))
+    want = kernels.ms_extend_reference(text, 4096, reads, lens, ptrs)
+    kernels.reset_launch_counts()
+    got = kernels.ms_extend(text.cuda(), 4096, reads.cuda(), lens.cuda(),
+                            ptrs.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert kernels.ms_extend.launches == 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_ms_extend_on_the_edge_reads_on_gpu(wide):
+    """K4 on K3's MS pointers of the edge reads (lengths 0, 1, 7-9, 1,023
+    and L, N, the terminator query, section C's read) equals its plain
+    version at L = 1,024 and 1,021 (a pointer and read row stride off 16
+    bytes)."""
+    text, index, table, _ = _ms_index(8, [4000, 3000, 2000], P=512, pack=2,
+                                      wide=wide)
+    index = index.to("cuda")
+    for L in (1024, 1021):
+        tab, rev, fwd, lens = _stage(table, kernels.ms_edge_reads(text, L),
+                                     L, "cuda")
+        ptrs = kernels.ms_scan(index, tab, rev, lens, "ms", False)[0]
+        got = kernels.ms_extend(index.text, index.text_bound, fwd, lens,
+                                ptrs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.ms_extend_reference(
+            index.text, index.text_bound, fwd, lens, ptrs)), L
+
+
+@needs_cuda
 def test_gather_chase_equals_plain_version_on_gpu():
     table, idx0 = chase.make_inputs(0, "cuda")
     i0 = int(idx0[5, 7])

@@ -182,6 +182,21 @@ def test_ms_scan_tp_on_the_edge_reads_equals_its_twin(S):
     assert kernels.ms_scan_tp.launches == 0
 
 
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_ms_extend_tp_reference_on_any_pointers(S):
+    """K16's plain version over the text in S shards (tp.shard_text: whole
+    512-byte rows, zero past the text) equals K4's on pointer matrices that
+    are no MS pointers (kernels.seeded_extend), at int32 and int64."""
+    for wide in (False, True):
+        text, reads, lens, ptrs = (torch.from_numpy(a) for a in
+                                   kernels.seeded_extend(40 + S, 64, wide))
+        sh = tp.shard_text(text, S)
+        assert sh.rows_per_shard % 512 == 0 and sh.shape[0] >= len(text)
+        got = kernels.ms_extend_tp(sh, 4096, reads, lens, ptrs)
+        assert torch.equal(got, kernels.ms_extend_reference(
+            text, 4096, reads, lens, ptrs)), wide
+
+
 def test_help_names_occ_and_the_sharded_index():
     """`run --help` lists occ as an engine and says what --tp-devices does:
     neither says "not in the port yet"."""
@@ -265,3 +280,24 @@ def test_layered_tp_kernel_on_gpu():
                      kernels.layered_classify(index, rev, lens, 7, 150)):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), S
     assert kernels.layered_classify_tp.launches == 3
+
+
+@needs_cuda
+@pytest.mark.parametrize("S", [1, 3, 4])
+@pytest.mark.parametrize("wide", [False, True])
+def test_ms_extend_tp_on_any_pointers_on_gpu(S, wide):
+    """K16 equals K4 and its plain version on pointer matrices that are no
+    MS pointers (kernels.seeded_extend), at L = 64 and 1,021."""
+    for L in (64, 1021):
+        text, reads, lens, ptrs = (torch.from_numpy(a) for a in
+                                   kernels.seeded_extend(11 + L, L, wide))
+        sh = tp.shard_text(text, S)
+        want = kernels.ms_extend_tp_reference(sh, 4096, reads, lens, ptrs)
+        kernels.reset_launch_counts()
+        args = (reads.cuda(), lens.cuda(), ptrs.cuda())
+        got = kernels.ms_extend_tp(sh.to("cuda"), 4096, *args)
+        twin = kernels.ms_extend(text.cuda(), 4096, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), L
+        assert torch.equal(got, twin), L
+        assert kernels.ms_extend_tp.launches == 1
