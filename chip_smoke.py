@@ -23,7 +23,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
      from the index; equality is exact (integers, tolerance 0); K1 on the
      main path's layout also on kernels.ms_edge_reads (lengths 0, 1, 7, 8,
      9 around its G = 8 threads a read, 1,023 and L; the terminator query;
-     the W read) at L = 1,024 and 1,021;
+     the W read) at L = 1,024 and 1,021, and K2 on the same reads with the
+     bin-width corners added (kernels.classify_edge_reads: lengths 149,
+     150, 151, 299, 300, 301 at BIN_WIDTH = 150; B not a multiple of 128 /
+     G);
   3b. K3 (ms, ms+doc, pml+doc), K4, K5 and K6 vs plain versions the same
      way, on multi-document MS indexes of the same layouts; K3 with
      kernels.ms_edge_reads added (lengths 0, 1, 7, 8, 9 around its G = 8
@@ -58,7 +61,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
   3f. the sharded index (1, 3 and 4 shards): K13 and K15 (ms, ms+doc,
      pml+doc; K15 also at 4 shards on the edge reads:
      vs K3 at L = 1,024, vs its plain version at L = 1,021 on the main
-     path's layout) and K16 vs plain versions and vs their unsharded twins
+     path's layout; K13 at every shard count on K2's edge reads at L =
+     1,024 and 1,021 vs its plain version, on the main path's layout and
+     where n is a multiple of P) and K16 vs plain versions and vs their
+     unsharded twins
      K2, K3 and K4 on small MS + doc block-bits indexes, K14 vs its plain
      version and K8 on small layered indexes, with reads holding a byte
      past every index character (ROADMAP section C); max |err| 0 (where n
@@ -300,14 +306,18 @@ def small_phase(device, n=20000, num_reads=300):
                               got, want):
             if not torch.equal(g, w):
                 raise AssertionError(f"{label}: pml_classify {name} differs")
-        edge = ""
+        edge = edge2 = ""
         if label == EDGE_CASE:
             edge = _group_edge_check(label, kernels.pml_scan,
                                      kernels.pml_scan_reference, index, [()],
                                      text, device, table, terminator=True)
+            edge2 = _group_edge_check(label, kernels.pml_classify,
+                                      kernels.pml_classify_reference, index,
+                                      [(7, BIN_WIDTH)], text, device, table,
+                                      classify=True)
         print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
               f"wide={index.meta.wide} n={index.meta.n} B={len(reads)}: "
-              f"K1 == plain == native{edge}, K2 == plain, exactly "
+              f"K1 == plain == native{edge}, K2 == plain{edge2}, exactly "
               f"({int(got[0].sum())} FOUND)")
 
 
@@ -480,18 +490,21 @@ def small_ms_phase(device, n=20000, num_reads=300):
 
 
 def _group_edge_check(label, scan, plain, index, modes, text, device,
-                      table=None, terminator=False):
-    """K7 / K8 (table None: raw bytes) or K1 / K9 (query-rank codes through
-    table) against its plain version on the edge reads at L = 1,024 and
-    1,021 (with the terminator query for K1), once for each of `modes`:
-    the arguments after the reads ((mode, use_doc); K8's (thr, bin_width);
-    () for K1). Returns the note 3 / 3c / 3d print."""
+                      table=None, terminator=False, classify=False):
+    """K7 / K8 (table None: raw bytes) or K1 / K2 / K13 / K9 (query-rank
+    codes through table) against its plain version on the edge reads at
+    L = 1,024 and 1,021 (with the terminator query for K1; classify: K2 /
+    K13's, kernels.classify_edge_reads, with the bin-width corners), once
+    for each of `modes`: the arguments after the reads ((mode, use_doc);
+    K2 / K13 / K8's (thr, bin_width); () for K1). Returns the note 3 / 3c /
+    3d / 3f print."""
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
     from spumoni_tpu_torch.engine.layered import raw_rows
 
     for L in (1024, 1021):
-        edge = kernels.ms_edge_reads(text, L, terminator=terminator)
+        edge = (kernels.classify_edge_reads(text, L) if classify else
+                kernels.ms_edge_reads(text, L, terminator=terminator))
         if table is None:
             rows = raw_rows(edge, L, device)[::2]   # reversed rows, lens
         else:
@@ -918,6 +931,17 @@ def small_tp_phase(device, num_reads=60, max_len=128):
             raise AssertionError(f"{label}: K13 / K15 / K16 != plain (max "
                                  f"|err| {plain_err}; K15 on the edge reads "
                                  f"{edge_err}) or twins ({twin_err})")
+        # K13 at every S on K2 / K13's edge reads, against its plain
+        # version: the main path's layout, and n a multiple of P (the W
+        # read in a pad row)
+        k13_edge = ""
+        if ci == 0 or not twin_ok:
+            for sh in shards.values():
+                k13_edge = _group_edge_check(
+                    label, kernels.pml_classify_tp,
+                    kernels.pml_classify_tp_reference, sh, [(7, BIN_WIDTH)],
+                    text, device, table, classify=True)
+            k13_edge = f"; K13 at S={TP_SHARDS}{k13_edge}"
         print(f"{label:16s} P={index.meta.P} pack={index.meta.pack} "
               f"wide={index.meta.wide} n={index.meta.n} S={TP_SHARDS} "
               f"B={len(reads)}: K13, K15 (3 modes), K16 == plain, max |err| "
@@ -925,6 +949,7 @@ def small_tp_phase(device, num_reads=60, max_len=128):
               f" on the edge reads: " + ("== K3 at L = 1024" if twin_ok
                                          else "not run (pad row)")
               + ("; == plain at L = 1021" if ci == 0 else "")
+              + k13_edge
               + f"; vs twins K2, K3, K4: max |err| {twin_err}"
               + ("" if twin_ok else " (position n in a pad row)"))
     print(_extend_check(device, 1021, wide=False, S=3) + ", exactly")
@@ -1738,10 +1763,12 @@ def timing_phase(device, prefix, reads, n_reads):
                           "spumoni_tpu/engine/scan_engine.py:145",
                           _reads_work("pml_scan", rows)),
              group=kernels.GROUP),
-        _time_kernel("pml_classify", kernels.pml_classify,
-                     kernels.pml_classify_reference, (*args, 7, BIN_WIDTH),
-                     src, "spumoni_tpu/parallel/mesh.py:128",
-                     _reads_work("pml_classify", rows))]
+        dict(_time_kernel("pml_classify", kernels.pml_classify,
+                          kernels.pml_classify_reference,
+                          (*args, 7, BIN_WIDTH), src,
+                          "spumoni_tpu/parallel/mesh.py:128",
+                          _reads_work("pml_classify", rows)),
+             group=kernels.PML_CLASSIFY_GROUP)]
 
 
 def _time_kernel(name, kern, plain, args, source, replaces, work,
@@ -2196,7 +2223,7 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
     _time_twin(r, "pml_classify", kernels.pml_classify,
                (engine.index, *args[1:]), kernels.pml_classify_tp(*args),
                (kernels.pml_classify_tp, (cut[1], *args[1:])))
-    results.append(r)
+    results.append(dict(r, group=kernels.PML_CLASSIFY_GROUP))
     del engine, g, cut, args
 
     engine = _engine(ms_prefix + ".fa.thrbv.spumoni", device,

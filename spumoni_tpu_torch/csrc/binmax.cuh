@@ -1,7 +1,9 @@
 // The windowed bin-max classification folded into a right-to-left scan's
 // carry, per thread: the carry of spumoni_tpu/parallel/mesh.py::
-// _fused_classify_core, shared by K2 `pml_classify` (block-bits) and K8
-// `layered_classify` (layered engine).
+// _fused_classify_core, shared by K2 `pml_classify` / K13 (block-bits), K8
+// `layered_classify` (layered engine) and K10; K2, K13 and K8 keep it in
+// every lane of a read's group (the plain version: engine/kernels.py::
+// _binmax_fold).
 //
 // Bins are in forward coordinates; nbins = max(len / bin_width, 1), so the
 // short tail merges into the last bin (classify/binmax.py). The scan visits

@@ -60,7 +60,7 @@
 //   built.
 //   K5 is one warp per read: coalesced reads of the value row, a warp max
 //   per bin. Bandwidth-bound on the [B, L] matrix. K5 (and, in the other
-//   sources, K2, K10, K13 and K14) still take one thread or one warp a read.
+//   sources, K10 and K14) still take one warp or one thread a read.
 //   K15 / K16 are K3 / K4's bodies with each table read from its shard:
 //   K15 takes K3's step (ms_step.cuh) on the shard's row and msrow, one
 //   divide more per read, no collective; K16 takes K4's walk on the text's

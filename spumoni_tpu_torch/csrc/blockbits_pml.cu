@@ -1,6 +1,7 @@
 // K1 `pml_scan`, K2 `pml_classify` and K13 `pml_classify_tp`: the PML
-// recurrence over the block-bits rows on NVIDIA Hopper (sm_90a): K1 with
-// kGroup = 8 threads per read, K2 and K13 with one.
+// recurrence over the block-bits rows on NVIDIA Hopper (sm_90a), every
+// kernel a lane group per read on one step (spn::group_probe, ms_step.cuh):
+// K1 with kGroup = 8 threads per read, K2 and K13 with kClassifyGroup = 4.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K1: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v4 (the v4
@@ -12,6 +13,9 @@
 //       the sharded index: the rows in S shards (sharded.cuh), a block
 //       clamped to the padded row count as the JAX owner-masked read
 //       (engine/blockbits.py:707-725) clamps it; pad rows are zero.
+// Each equals its plain version in engine/kernels.py (pml_scan_reference,
+// pml_classify_reference, pml_classify_tp_reference: the recurrence of
+// engine/blockbits.py::pml_probe, and _binmax_fold's carry).
 //
 // Bound: each step is one DEPENDENT random read of one index row (400 B at
 // P = 512, pack = 2) — the next position comes from this row — so a lane
@@ -21,19 +25,22 @@
 // per-character table sits in shared memory; steps past a read's length
 // are not run: their outputs are never read (mesh.py:102-111,
 // scan_engine.py:1966).
-//   K1 runs K3's step without the msrow run ranks (spn::group_probe in
-//   ms_step.cuh, RUNS false): the block's character words up to the offset
-//   as fixed, predicated 16-, 8- or 4-byte loads split over the group,
-//   issued at once with the checkpoint, up-bit and high-byte words, and
-//   summed by shuffle, so a step is one round trip where spn::probe's
-//   character-word loop made up to 31 dependent loads (P = 512, pack = 2).
-//   Each step's read byte is loaded a step ahead, and the group stores 8
-//   lengths at once (GroupSlots). The lane group is the one K3 / K15, K7
-//   and K9 take (K8 takes 4).
-//   K2 and K13 keep the one-thread step (spn::probe, blockbits_pml.cuh)
-//   until their own redesign, which A14's lost-time order (PERF.md section
-//   6) puts after K14, K16 and K4: they lose less a run than those. K13 is
-//   K2's body with the row read from its shard: one divide more per step.
+//   The step is K3's without the msrow run ranks (spn::group_probe, RUNS
+//   false): the block's character words up to the offset as fixed,
+//   predicated 16-, 8- or 4-byte loads split over the group, issued at
+//   once with the checkpoint, up-bit and high-byte words, and summed by
+//   shuffle, so a step is one round trip (a one-thread step made up to 31
+//   dependent character-word loads at P = 512, pack = 2). Each step's read
+//   byte is loaded a step ahead.
+//   K1's group stores 8 lengths at once (GroupSlots); 8 lanes are the
+//   group K3 / K15, K7 and K9 take.
+//   K2 and K13 store nothing but the verdict: every lane carries the
+//   windowed bin-max (binmax.cuh) beside (pos, length), and lane 0 writes
+//   it, as K8 does on K7's step. Their runs launch them at 32,768 lanes (a
+//   report-only batch), where 4 lanes a read beat 8 (PERF.md section 6).
+//   K13 is K2's body with each step's row read from its shard through
+//   spn::shard_at (a 32-bit divide where the rows fit), as K15 reads its
+//   rows: the row source is the only difference.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for a layout this
@@ -52,7 +59,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
-constexpr int kGroup = 8;  // threads per read of K1
+constexpr int kGroup = 8;          // threads per read of K1
+constexpr int kClassifyGroup = 4;  // threads per read of K2 and K13
 
 // K1: a group of G threads per read steps it through spn::group_probe
 // without the run ranks, every lane carrying the same (pos, length); the
@@ -96,6 +104,65 @@ pml_scan_kernel(const uint32_t* __restrict__ rows,
   o.flush(len, lane);
 }
 
+// K2's rows: one table.
+struct FlatRows {
+  const uint32_t* p;
+
+  __device__ __forceinline__ const uint32_t* row(long long blk, int w) const {
+    return p + blk * w;
+  }
+};
+
+// K13's rows: S shards; a block's shard and its row there through
+// spn::shard_at, as K15 reads them. A reference to the kernel's parameter:
+// a copy of the pointer array, indexed by shard, would live in local
+// memory (a 136-byte stack frame, one more load on the step's chain).
+struct ShardRows {
+  const spn::ShardedRows<uint32_t>& s;
+
+  __device__ __forceinline__ const uint32_t* row(long long blk, int w) const {
+    const spn::ShardAt at = spn::shard_at(s, blk);
+    return s.p[at.shard] + at.local * w;
+  }
+};
+
+// K2 / K13: a group of kClassifyGroup threads per read steps it through
+// spn::group_probe without the run ranks, every lane carrying the same
+// (pos, length) and BinMax; lane 0 writes the verdict.
+template <int P, int PACK, bool WIDE, typename Rows>
+__device__ __forceinline__ void classify_reads(
+    const Rows& rows, const spn::CharTab& tab, const uint8_t* reads,
+    const long long* lens, long long B, long long L, long long thr,
+    int bin_width, uint8_t* found, int32_t* above, int32_t* below,
+    long long* sum_maxes, const spn::IndexScalars& s) {
+  constexpr int G = kClassifyGroup;
+  constexpr int W = spn::Layout<P, PACK, WIDE>::W;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
+  const long long len64 = lens[b];
+  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
+  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
+  spn::BinMax bins(len, bin_width, thr);
+  long long pos = s.n - 1;
+  int length = 0;
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's character ...
+  int cn = tab.code[qn];             // ... and its code
+  for (int t = 0; t < len; ++t) {
+    const int qc = qn, code = cn;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
+    const spn::MsProbe pr = spn::group_probe<P, PACK, WIDE, G, false>(
+        rows.row(spn::block_of<P>(s, pos), W), nullptr, tab, s, pos, qc,
+        code, lane);
+    length = pr.is_match ? length + 1 : 0;
+    bins.add(t, length);
+    pos = pr.new_pos;
+    cn = tab.code[qn];
+  }
+  if (lane == 0) bins.finish(found + b, above + b, below + b, sum_maxes + b);
+}
+
 template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 pml_classify_kernel(const uint32_t* __restrict__ rows,
@@ -109,26 +176,12 @@ pml_classify_kernel(const uint32_t* __restrict__ rows,
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  long long len64 = lens[b];
-  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
-  const uint8_t* rd = reads + b * L;
-  spn::BinMax bins(len, bin_width, thr);
-  long long pos = s.n - 1;
-  int length = 0;
-  for (int t = 0; t < len; ++t) {
-    bool match;
-    pos = spn::pml_step<P, PACK, WIDE>(rows, tab, s, pos, __ldg(rd + t),
-                                       match);
-    length = match ? length + 1 : 0;
-    bins.add(t, length);
-  }
-  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+  classify_reads<P, PACK, WIDE>(FlatRows{rows}, tab, reads, lens, B, L, thr,
+                                bin_width, found, above, below, sum_maxes,
+                                s);
 }
 
-// K13: K2 with the rows in shards; spn::pml_step reads the step's row
-// through the shard's base (ShardedRows::base).
+// K13: K2's body over the rows in shards.
 template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 pml_classify_tp_kernel(const spn::ShardedRows<uint32_t> rows,
@@ -141,26 +194,12 @@ pml_classify_tp_kernel(const spn::ShardedRows<uint32_t> rows,
                        int32_t* __restrict__ below,
                        long long* __restrict__ sum_maxes,
                        spn::IndexScalars s) {
-  constexpr int W = spn::Layout<P, PACK, WIDE>::W;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  long long len64 = lens[b];
-  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
-  const uint8_t* rd = reads + b * L;
-  spn::BinMax bins(len, bin_width, thr);
-  long long pos = s.n - 1;
-  int length = 0;
-  for (int t = 0; t < len; ++t) {
-    bool match;
-    pos = spn::pml_step<P, PACK, WIDE>(rows.base(spn::block_of<P>(s, pos), W),
-                                       tab, s, pos, __ldg(rd + t), match);
-    length = match ? length + 1 : 0;
-    bins.add(t, length);
-  }
-  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+  classify_reads<P, PACK, WIDE>(ShardRows{rows}, tab, reads, lens, B, L,
+                                thr, bin_width, found, above, below,
+                                sum_maxes, s);
 }
 
 struct Args {
@@ -198,10 +237,11 @@ void launch_scan(const Args& a) {
       a.rows, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.out, a.s);
 }
 
+// K2 / K13: kClassifyGroup threads per read.
 template <int P, int PACK, bool WIDE>
 void launch_classify(const Args& a) {
   pml_classify_kernel<P, PACK, WIDE>
-      <<<grid_of(a.B), kThreads, 0, a.stream>>>(
+      <<<grid_of(a.B * kClassifyGroup), kThreads, 0, a.stream>>>(
       a.rows, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.thr, a.bin_width,
       a.found, a.above, a.below, a.sum_maxes, a.s);
 }
@@ -209,7 +249,7 @@ void launch_classify(const Args& a) {
 template <int P, int PACK, bool WIDE>
 void launch_classify_tp(const Args& a) {
   pml_classify_tp_kernel<P, PACK, WIDE>
-      <<<grid_of(a.B), kThreads, 0, a.stream>>>(
+      <<<grid_of(a.B * kClassifyGroup), kThreads, 0, a.stream>>>(
           a.shards, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.thr,
           a.bin_width, a.found, a.above, a.below, a.sum_maxes, a.s);
 }

@@ -59,8 +59,8 @@
 //   the check of entry 63), so a step is up to 7 D + 1 round trips, and
 //   it reads each field row from its shard: one divide more per step.
 //   K1, K3 / K15 and K9 take a lane group of 8 on their own steps
-//   (ms_step.cuh, occ_step.cuh); K2, K10, K13 and K14 still run one thread
-//   per read.
+//   (ms_step.cuh, occ_step.cuh), K2 / K13 one of 4 on K1's; K10 and K14
+//   still run one thread per read.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this

@@ -1,11 +1,13 @@
 // One block-bits step for a group of G threads per read (G a power of two
-// up to 8; every kernel takes G = 8): K1 `pml_scan`'s PML step, and with
-// the msrow run ranks K3 `ms_scan` and K15 `ms_scan_tp`'s MS / doc step;
-// and the step-late output slots.
+// up to 8: K1, K3 and K15 take 8, K2 and K13 4): the PML step of K1
+// `pml_scan`, K2 `pml_classify` and K13 `pml_classify_tp`, and with the
+// msrow run ranks K3 `ms_scan` and K15 `ms_scan_tp`'s MS / doc step; and
+// the step-late output slots.
 //
-// The step computes what spn::probe (blockbits_pml.cuh) and the msrow run
-// rank compute, from the same row layout, but issues every load of the step
-// at once: the block's character words and, for K3 / K15, the code's
+// The step computes what the plain versions in engine/kernels.py compute
+// (engine/blockbits.py::pml_probe, and ms_probe's run rank), from the same
+// row layout (blockbits_pml.cuh), but issues every load of the step at
+// once: the block's character words and, for K3 / K15, the code's
 // run-start words as fixed, unrolled, predicated loads of the widest vector
 // (16, 8 or 4 bytes) that the row and msrow strides and offsets keep
 // aligned (MsStepLayout), each lane of the group a slice of them, plus the
@@ -116,8 +118,9 @@ struct MsProbe {
 
 // One step of the group at pos for query character qc (code = tab.code[qc])
 // on the block's row (block_of(pos)'s, unsharded or from its shard). Equal
-// to spn::probe; with RUNS (K3 / K15) also to run_rank's jump id, from the
-// block's msrow `mrow`, which K1 (RUNS false) neither passes nor reads.
+// to engine/blockbits.py::pml_probe; with RUNS (K3 / K15) also to
+// ms_probe's jump id, from the block's msrow `mrow`, which K1, K2 and K13
+// (RUNS false) neither pass nor read.
 template <int P, int PACK, bool WIDE, int G, bool RUNS>
 __device__ __forceinline__ MsProbe group_probe(
     const uint32_t* __restrict__ row, const uint32_t* __restrict__ mrow,
@@ -194,7 +197,7 @@ __device__ __forceinline__ MsProbe group_probe(
   }
   bool at_pos = at != 0;
 
-  // the rest is spn::probe's
+  // the rest is a one-thread step's (engine/blockbits.py::_probe)
   if (WIDE) cp |= (long long)((hw >> ((rk & 3) * 8)) & 0xFFu) << 32;
   int up_bit = (int)((upw >> (off & 31)) & 1u);
   const bool empty = tab.empty[qc] == 1;

@@ -7,9 +7,10 @@
 // engine/scan_engine.py:563-578): with every shard on the card that runs the
 // scan, the owner's row is read directly.
 //
-// The unsharded kernels (K2, K3, K4, K8) do not use this header: each
-// sharded kernel is its twin's body with the table reads through a
-// ShardedRows, and the twins stay as they were.
+// The unsharded kernels (K2, K3, K4, K8) read their tables directly: each
+// sharded kernel is its twin's body or step with the table reads through a
+// ShardedRows (K13 / K15 by spn::shard_at, ms_step.cuh; K16 by
+// ShardedText, extend_step.cuh; K14 by ShardedRows::row).
 //
 // A ShardedRows is passed to the kernel by value; its pointers sit in the
 // kernel's parameter space.
@@ -33,16 +34,6 @@ struct ShardedRows {
   __device__ __forceinline__ const T* row(long long r, int w) const {
     const long long s = r / rows_per_shard;
     return p[s] + (r - s * rows_per_shard) * w;
-  }
-
-  // The pointer b with b + r * w == row(r, w): what a helper that takes one
-  // unsharded table (spn::probe, run_rank) and reads row r of it is given,
-  // so that it reads row r of the shards unchanged. Computed on addresses:
-  // b may lie before the shard's allocation, only b + r * w is read.
-  __device__ __forceinline__ const T* base(long long r, int w) const {
-    const long long s = r / rows_per_shard;
-    return (const T*)((uintptr_t)p[s] -
-                      (uintptr_t)(s * rows_per_shard * w) * sizeof(T));
   }
 };
 

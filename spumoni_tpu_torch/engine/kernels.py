@@ -284,6 +284,7 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
     if _check_inputs(index.bblocks, tab, reads_rev, lens) == "cpu":
         return pml_classify_reference(index, tab, reads_rev, lens,
                                       max_value_thr, bin_width)
+    _check_aligned("pml_classify", (("rows", index.bblocks),))
     B = reads_rev.shape[0]
     dev = reads_rev.device
     found = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -313,12 +314,18 @@ GROUP = 8
 #: threads per read of K8 (kClassifyGroup in csrc/layered.cu): faster than
 #: 8 at the 32,768 lanes its runs launch (PERF.md section 6)
 CLASSIFY_GROUP = 4
+#: threads per read of K2 and K13 (kClassifyGroup in
+#: csrc/blockbits_pml.cu): faster than 8 at the 32,768 lanes their runs
+#: launch (K2 2.45 against 2.92 ms, K13 2.44 against 3.21) and at 65,536;
+#: 8 are faster only at 8,192, where no run launches them (PERF.md section
+#: 6, time_scan's bbclassify family)
+PML_CLASSIFY_GROUP = 4
 
 
 def _check_aligned(name, tables):
-    """K1 / K3 / K15 read rows (and msrows), K7 / K8 level and field rows,
-    K4 / K16 the text with 16-byte loads: every (label, tensor) must start
-    16-byte aligned."""
+    """K1 / K2 / K13 / K3 / K15 read rows (and msrows), K7 / K8 level and
+    field rows, K4 / K16 the text with 16-byte loads: every (label, tensor)
+    must start 16-byte aligned."""
     for label, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
@@ -842,6 +849,8 @@ def pml_classify_tp(index: ShardedBlockBits, tab: torch.Tensor,
     if kind == "cpu":
         return pml_classify_tp_reference(index, tab, reads_rev, lens,
                                          max_value_thr, bin_width)
+    _check_aligned("pml_classify_tp", [
+        (f"rows shard {i}", t) for i, t in enumerate(index.bblocks.shards)])
     B = reads_rev.shape[0]
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     above = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -1477,3 +1486,16 @@ def ms_edge_reads(text: np.ndarray, L: int, terminator: bool = True) -> list:
         reads.append(text[100:150].tobytes() + b"\x01"
                      + text[200:250].tobytes())
     return reads + [text[100:160].tobytes() + b"W" + text[200:260].tobytes()]
+
+
+#: read lengths at the corners of the bin-max carry for a bin width of 150:
+#: one bin, one with a tail merged into it, and where a second bin opens
+BIN_CORNERS = (149, 150, 151, 299, 300, 301)
+
+
+def classify_edge_reads(text: np.ndarray, L: int) -> list:
+    """The edge reads of the classify scans (K2 / K13): ms_edge_reads (with
+    the terminator query) and substrings of the BIN_CORNERS lengths that
+    fit in L."""
+    return ms_edge_reads(text, L) + [text[300:300 + m].tobytes()
+                                     for m in BIN_CORNERS if m <= L]

@@ -3,7 +3,8 @@ counts the runs launch, each beside another tree's build of the same entry
 points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
-        [--families pml,classify,ms,layered,occ,extend] [--ablate] \
+        [--families pml,bbclassify,classify,ms,layered,occ,extend] \
+        [--ablate] \
         [--shapes 8192,32768,65536] [--out DIR]
 
 Run from the repository root on a machine with one NVIDIA GPU. It writes
@@ -17,16 +18,18 @@ calls) of each kernel in turns with the same entry point built from DIR's
 `spumoni_tpu_torch/csrc` (parent, current, current, parent; every turn is
 printed), outputs equal (max |err| 0):
 
-  * controls (`CONTROLS`), timed whatever the families: K2 `pml_classify`
-    and K13 `pml_classify_tp` (4 shards) on the index's block-bits PML
-    rows, K3 `ms_scan` in each mode and K15 `ms_scan_tp` (ms+doc, 4
-    shards) on its MS + doc rows (K1's group probe shares their step,
-    csrc/ms_step.cuh), K7 `layered_scan` (pml, ms+doc) on its layered
-    MS + doc tables and K14 `layered_classify_tp` (4 shards) on its
-    layered PML tables (K8's kernel shares layered.cu and K7's step), K10
-    `occ_classify` on its occ-block PML rows (`--engine occ`), K5
-    `binmax_values` on the MS lengths of K3's ms pointers (K4's source);
+  * controls (`CONTROLS`), timed whatever the families: K1 `pml_scan` on
+    the index's block-bits PML rows, K3 `ms_scan` in each mode and K15
+    `ms_scan_tp` (ms+doc, 4 shards) on its MS + doc rows (K1, K2 and K13
+    share their step, csrc/ms_step.cuh), K7 `layered_scan` (pml, ms+doc)
+    on its layered MS + doc tables, K8 `layered_classify` (the bin-max
+    carry on K7's step) and K14 `layered_classify_tp` (4 shards) on its
+    layered PML tables, K10 `occ_classify` on its occ-block PML rows
+    (`--engine occ`), K5 `binmax_values` on the MS lengths of K3's ms
+    pointers (K4's source);
   * family pml: K1 `pml_scan` on the block-bits PML rows;
+  * family bbclassify: K2 `pml_classify` and K13 `pml_classify_tp` (4
+    shards) on the block-bits PML rows;
   * family classify: K8 `layered_classify` on the layered PML tables,
     and on the -m index at its digested reads' largest bucket (that
     bucket's lanes only);
@@ -50,9 +53,10 @@ printed), outputs equal (max |err| 0):
 With --ablate, each family's timing-only variants run beside the parent:
 its ablations (`FAMILIES[...].ablations`), built from patched copies of
 DIR's sources, and its variants (`.variants`), built from patched copies
-of this tree's (K8's other lane group; K4 / K16's other lane groups, two
-text windows a round trip, and the unstaged walk for rows past 48 KB). An ablation may give wrong answers (its max
-|err| is reported) and is never used for anything else. A redesign's
+of this tree's (K8's and K2 / K13's other lane group; K4 / K16's other
+lane groups, two text windows a round trip, and the unstaged walk for
+rows past 48 KB). An ablation may give wrong answers (its max |err| is
+reported) and is never used for anything else. A redesign's
 baseline and attribution come first: add its family, with the ablations
 patched into the parent's sources, and run the script while this tree's
 sources are still the parent's.
@@ -108,10 +112,10 @@ ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
                             "spn_layered_classify_tp"),
                 "occblock": ("spn_occ_scan", "spn_occ_classify")}
 #: (kernel, mode) of the controls, timed whatever the families
-CONTROLS = {("pml_classify", "pml"), ("pml_classify_tp", "pml"),
-            ("ms_scan", "ms"), ("ms_scan", "ms+doc"), ("ms_scan", "pml+doc"),
-            ("ms_scan_tp", "ms+doc"), ("layered_scan", "pml"),
-            ("layered_scan", "ms+doc"), ("layered_classify_tp", "pml"),
+CONTROLS = {("pml_scan", "pml"), ("ms_scan", "ms"), ("ms_scan", "ms+doc"),
+            ("ms_scan", "pml+doc"), ("ms_scan_tp", "ms+doc"),
+            ("layered_scan", "pml"), ("layered_scan", "ms+doc"),
+            ("layered_classify", "pml"), ("layered_classify_tp", "pml"),
             ("occ_classify", "pml"), ("binmax_values", "ms")}
 
 
@@ -294,6 +298,21 @@ _K8_ONE_PROBE = _K7_ONE_PROBE
 _K8_G8 = [("layered.cu", "constexpr int kClassifyGroup = 4;",
            "constexpr int kClassifyGroup = 8;")]
 
+# --- family bbclassify: K2 / K13, ablations of the one-thread-a-read scan -
+#: (a) spn::probe's character-word loop cut to one word (K2 and K13): the
+#: share of the dependent char-word loads
+_K2_ONE_WORD = _K1_ONE_WORD
+#: (b) no bin-max work (K2 and K13): only the last length is stored, in
+#: sum_maxes; what the carry costs
+_K2_NO_BINMAX = [
+    ("blockbits_pml.cu", "    bins.add(t, length);\n", ""),
+    ("blockbits_pml.cu",
+     "  bins.finish(found + b, above + b, below + b, sum_maxes + b);",
+     "  sum_maxes[b] = length;")]
+#: K2 / K13's other lane group, patched into this tree's source
+_K2_G8 = [("blockbits_pml.cu", "constexpr int kClassifyGroup = 4;",
+           "constexpr int kClassifyGroup = 8;")]
+
 # --- family extend: K4 / K16, ablations of the one-thread-a-read walk -----
 #: (a) the text byte from the first 1,024 bytes of the text (L1): the
 #: share of the random text reads
@@ -366,6 +385,14 @@ FAMILIES = {
          ("blockbits_ms", f"ms_scan_tp_kernel{_P512}E")),
         "53ecd9b",
         {"k1-a-one-char-word": _K1_ONE_WORD}),
+    "bbclassify": Family(
+        "blockbits_pml",
+        (("blockbits_pml", f"pml_classify_kernel{_P512}E"),
+         ("blockbits_pml", f"pml_classify_tp_kernel{_P512}E")),
+        "2576595",
+        {"k2-a-one-char-word": _K2_ONE_WORD,
+         "k2-b-no-binmax": _K2_NO_BINMAX},
+        {"k2-g8": _K2_G8}),
     "classify": Family(
         "layered",
         (("layered", "layered_classify_kernelIiE"),   # int32 positions
@@ -620,11 +647,11 @@ def _cases(families, dev, reads, shapes) -> list:
         Case("pml_scan", "pml", "pml", "blockbits_pml",
              lambda B: kernels.pml_scan(pml.index, gp["tab"], cp("rev_d", B),
                                         cp("lens_d", B))),
-        Case("pml_classify", "pml", "control", "blockbits_pml",
+        Case("pml_classify", "pml", "bbclassify", "blockbits_pml",
              lambda B: kernels.pml_classify(pml.index, gp["tab"],
                                             cp("rev_d", B), cp("lens_d", B),
                                             7, cs.BIN_WIDTH)),
-        Case("pml_classify_tp", "pml", "control", "blockbits_pml",
+        Case("pml_classify_tp", "pml", "bbclassify", "blockbits_pml",
              lambda B: kernels.pml_classify_tp(pml_tp, gp["tab"],
                                                cp("rev_d", B),
                                                cp("lens_d", B), 7,

@@ -20,7 +20,7 @@ from spumoni_tpu_torch.engine import blockbits as tbb
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.scan_engine import ScanEngine
 
-from test_torch_kernels import ACGT, _reads
+from test_torch_kernels import _EDGE_LAYOUTS, ACGT, _reads
 
 
 def _setup(seed, n, alphabet=ACGT, repeat=False):
@@ -195,6 +195,30 @@ def test_classify_reference_equals_jax_fused(dna, wide):
     got = kernels.pml_classify_reference(
         index, table.table_for_alphabet(alpha), torch.from_numpy(rev),
         torch.from_numpy(lens), 9, 150)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("layout", _EDGE_LAYOUTS,
+                         ids=lambda d: "P{P}-pack{pack}-wide{wide}".format(**d))
+def test_classify_reference_on_the_edge_reads_equals_jax_fused(layout):
+    """pml_classify_reference equals fused_classify_kernel on K2's edge
+    reads (kernels.classify_edge_reads: lengths around the lane group and
+    L, the terminator query, the W read, and the bin-width corners 149-151,
+    299-301) in each load width of the group probe."""
+    text, dense, _ = _setup(12, 9000)
+    arrays, meta, host = jbb.build_blockbits(dense, **layout)
+    index, table = tbb.build_blockbits(dense, **layout)
+    reads = kernels.classify_edge_reads(text, 1024)
+    alpha = tuple(sorted({0} | set(b"".join(reads))))
+    rev, lens = _rev_matrix(reads, 1024, host.rank_map(alpha))
+    want = fused_classify_kernel(arrays, rev, lens, 7, meta, "pml",
+                                 int(arrays.bblocks.shape[0]), 150,
+                                 host.planes_for_alphabet(alpha))
+    got = kernels.pml_classify_reference(
+        index, table.table_for_alphabet(alpha), torch.from_numpy(rev),
+        torch.from_numpy(lens), 7, 150)
+    assert int(got[0].sum()) > 0
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w), g.numpy())
 

@@ -266,3 +266,23 @@ def test_pml_scan_on_the_edge_reads_on_gpu(layout):
         got = kernels.pml_scan(index, tab, rev, lens)
         torch.cuda.synchronize()
         assert torch.equal(got, want), L
+
+
+@needs_cuda
+@pytest.mark.parametrize("layout", _EDGE_LAYOUTS,
+                         ids=lambda d: "P{P}-pack{pack}-wide{wide}".format(**d))
+def test_pml_classify_on_the_edge_reads_on_gpu(layout):
+    """K2 on its edge reads (kernels.classify_edge_reads: the lengths
+    around the lane group and L, the bin-width corners; B not a multiple of
+    128 / G) at L = 1,024 and 1,021 equals its plain version."""
+    text, index, table, _ = _index(12, 9000, **layout)
+    index = index.to("cuda")
+    kernels.reset_launch_counts()
+    for L in (1024, 1021):
+        tab, rev, lens = _stage(table, kernels.classify_edge_reads(text, L),
+                                L, "cuda")
+        want = kernels.pml_classify_reference(index, tab, rev, lens, 7, 150)
+        got = kernels.pml_classify(index, tab, rev, lens, 7, 150)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), L
+    assert kernels.pml_classify.launches == 2

@@ -5,9 +5,12 @@ anything else launches the CUDA kernel or raises, shards are checked, and on
 a GPU each kernel equals its plain version and its unsharded twin (K2, K8,
 K3, K4) exactly.
 
-This file imports neither JAX nor tests/conftest.py fixtures, so it also
-runs on a machine with a GPU and no JAX:
+This file imports neither JAX nor tests/conftest.py fixtures at the top,
+so it also runs on a machine with a GPU and no JAX:
     python -m pytest --noconftest tests/test_torch_tp_kernels.py
+There the one test that holds K13's plain version to the JAX package
+skips: it needs JAX and, past one shard, tests/conftest.py's virtual CPU
+devices.
 """
 
 import subprocess
@@ -183,6 +186,39 @@ def test_ms_scan_tp_on_the_edge_reads_equals_its_twin(S):
 
 
 @pytest.mark.parametrize("S", [1, 3, 4])
+def test_classify_tp_reference_on_the_edge_reads_equals_jax(S):
+    """K13's plain version on S shards equals JAX's TpPmlClassifier on a
+    1 x S mesh on K2 / K13's edge reads (kernels.classify_edge_reads: the
+    terminator query, the bin-width corners, and section C's W read). n is
+    a multiple of P, so at S = 4 the W read reaches position n in a pad
+    row."""
+    jax = pytest.importorskip("jax")
+    cpus = jax.devices("cpu")
+    if len(cpus) < S:
+        pytest.skip(f"needs {S} JAX CPU devices (tests/conftest.py)")
+    from spumoni_tpu.engine import blockbits as jbb
+    from spumoni_tpu.parallel import tp as jtp
+    from spumoni_tpu.index.format import build_dense_index
+    from spumoni_tpu.native import build_raw_index as jraw
+
+    text = np.random.default_rng(12).choice(ACGT, 9215)
+    dense = build_dense_index(jraw(text))
+    arrays, meta, host = jbb.build_blockbits(dense, P=512, pack=2)
+    index, table = build_blockbits(dense, P=512, pack=2)
+    assert index.meta.n % 512 == 0
+    reads = kernels.classify_edge_reads(text, 1024)
+    want = jtp.TpPmlClassifier(arrays, meta, jtp.make_tp_mesh(1, S, cpus),
+                               bin_width=150, max_value_thr=7,
+                               host=host).classify(reads)
+    tab, rev, _, lens = ranked_rows(table, reads, 1024, "cpu")
+    got = kernels.pml_classify_tp_reference(tp.shard_blockbits(index, S),
+                                            tab, rev, lens, 7, 150)
+    assert int(got[0].sum()) > 0
+    for key, g in zip(("found", "above", "below", "sum_maxes"), got):
+        assert np.array_equal(np.asarray(want[key]), g.numpy()), key
+
+
+@pytest.mark.parametrize("S", [1, 3, 4])
 def test_ms_extend_tp_reference_on_any_pointers(S):
     """K16's plain version over the text in S shards (tp.shard_text: whole
     512-byte rows, zero past the text) equals K4's on pointer matrices that
@@ -263,6 +299,31 @@ def test_block_bits_tp_kernels_on_gpu(layout):
                       kernels.ms_scan(index, tab, rev, lens, mode, doc)):
                 assert all(a is b is None or torch.equal(a, b)
                            for a, b in zip(got, w)), (L, mode, doc)
+
+
+@needs_cuda
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_pml_classify_tp_on_the_edge_reads_on_gpu(S):
+    """K13 on S shards equals its plain version on K2 / K13's edge reads
+    (kernels.classify_edge_reads) at L = 1,024 and 1,021, on the main
+    path's layout and on a 4-bit wide one; n is a multiple of P, so at S =
+    4 the W read reaches a pad row."""
+    kernels.reset_launch_counts()
+    for layout in (dict(P=512, pack=2, wide=False),
+                   dict(P=256, pack=4, wide=True)):
+        text, index, table = _ms_index(12, 9215, **layout)
+        assert index.meta.n % index.meta.P == 0
+        sh = tp.shard_blockbits(index, S).to("cuda")
+        for L in (1024, 1021):
+            tab, rev, _, lens = ranked_rows(
+                table, kernels.classify_edge_reads(text, L), L, "cuda")
+            want = kernels.pml_classify_tp_reference(sh, tab, rev, lens, 7,
+                                                     150)
+            got = kernels.pml_classify_tp(sh, tab, rev, lens, 7, 150)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (layout, L)
+    assert kernels.pml_classify_tp.launches == 4
 
 
 @needs_cuda
