@@ -491,13 +491,13 @@ def small_ms_phase(device, n=20000, num_reads=300):
 
 def _group_edge_check(label, scan, plain, index, modes, text, device,
                       table=None, terminator=False, classify=False):
-    """K7 / K8 (table None: raw bytes) or K1 / K2 / K13 / K9 (query-rank
-    codes through table) against its plain version on the edge reads at
-    L = 1,024 and 1,021 (with the terminator query for K1; classify: K2 /
-    K13's, kernels.classify_edge_reads, with the bin-width corners), once
-    for each of `modes`: the arguments after the reads ((mode, use_doc);
-    K2 / K13 / K8's (thr, bin_width); () for K1). Returns the note 3 / 3c /
-    3d / 3f print."""
+    """K7 / K8 (table None: raw bytes) or K1 / K2 / K13 / K9 / K10
+    (query-rank codes through table) against its plain version on the edge
+    reads at L = 1,024 and 1,021 (with the terminator query for K1;
+    classify: the classify scans', kernels.classify_edge_reads, with the
+    bin-width corners), once for each of `modes`: the arguments after the
+    reads ((mode, use_doc); K2 / K13 / K8 / K10's (thr, bin_width); () for
+    K1). Returns the note 3 / 3c / 3d / 3f print."""
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
     from spumoni_tpu_torch.engine.layered import raw_rows
@@ -527,6 +527,11 @@ def _group_edge_check(label, scan, plain, index, modes, text, device,
 #: with samples and doc ids)
 LAYERED_EDGE_CASE = "two-docs"
 OCC_EDGE_CASE = "two-docs-long"
+#: the 3d cases whose K10 also runs the classify edge reads (P = 16 and
+#: 128), and the P of 3d's extra K10 case, where a step's char words take
+#: a second round at either lane group
+K10_EDGE_CASES = ("dna-n-P16", "two-docs-long")
+K10_WIDE_P = 256
 
 
 LAYERED_CASES = [
@@ -634,7 +639,8 @@ def small_occ_phase(device, num_reads=300):
     two documents with a read longer than 4,096, sigma 15), in each row
     layout the main path builds (PML only, with SA samples, with doc ids,
     with both), on reads with N, bytes absent from the index and bytes past
-    its largest character, and DNA cases against the native engine."""
+    its largest character, and DNA cases against the native engine; K10
+    also on the classify edge reads at P = 16, 128 and K10_WIDE_P."""
     phase("3d. K9 / K10 (and K4 on K9's pointers) vs plain versions on small "
           "occ-block indexes")
     from spumoni_tpu_torch.engine import kernels
@@ -703,6 +709,11 @@ def small_occ_phase(device, num_reads=300):
             edge = _group_edge_check(
                 label, kernels.occ_scan, kernels.occ_scan_reference, full,
                 list(got), text, device, table)
+        if label in K10_EDGE_CASES:
+            edge += "; K10 on the classify" + _group_edge_check(
+                label, kernels.occ_classify, kernels.occ_classify_reference,
+                index, [(7, BIN_WIDTH)], text, device, table,
+                classify=True)[1:]
         checked = ""
         if alphabet.startswith(b"ACGT"):
             # reads without bytes past the largest index character, on
@@ -730,6 +741,14 @@ def small_occ_phase(device, num_reads=300):
               f"L={rev.shape[1]}: K9 (modes) and K10 on {', '.join(done)}, "
               f"K4 on K9 pointers == plain, exactly{checked}{edge} "
               f"({int(res[0].sum())} FOUND)")
+    text, index, table, _ = seeded_occ(850, 20000, b"ACGT", False,
+                                       K10_WIDE_P)
+    edge = _group_edge_check(
+        "K10 wide P", kernels.occ_classify, kernels.occ_classify_reference,
+        index.to(device), [(7, BIN_WIDTH)], text, device, table,
+        classify=True)
+    print(f"{'dna-P' + str(K10_WIDE_P):16s} P={K10_WIDE_P} n={index.meta.n}"
+          f": K10 on the classify{edge[1:]}, == plain, exactly")
 
 
 #: 3e's CLI runs on its small index: (path, flags, output files)
@@ -867,7 +886,8 @@ def small_tp_phase(device, num_reads=60, max_len=128):
     """3f: on small MS + doc block-bits indexes cut into 1, 3 and 4 shards,
     K13, K15 in its three modes and K16 against their plain versions and
     their unsharded twins K2, K3 and K4; on small layered indexes K14
-    against its plain version and K8. The reads hold bytes past every index
+    against its plain version and K8, also on the classify edge reads
+    (_k14_edge_check). The reads hold bytes past every index
     character (ROADMAP section C). Where n is a multiple of P, such a read
     reaches position n in a pad row, which the twins clamp to the last real
     row: there only the plain versions must agree (the JAX sharded path
@@ -975,6 +995,53 @@ def small_tp_phase(device, num_reads=60, max_len=128):
         print(f"layered{'-docs' if docs else '':9s} D={m.depth} W={m.width} "
               f"r={m.r} S={TP_SHARDS} (bound {m.probe_bound} at S=3) "
               f"B={len(reads)}: K14 == plain == K8, max |err| 0")
+    _k14_edge_check(device)
+
+
+def _k14_edge_check(device):
+    """3f: K14 at every S of TP_SHARDS on kernels.classify_edge_reads at
+    L = 1,024 and 1,021, against its plain version and its twin K8, at
+    int32 and int64 positions: on a 4,095-base index without samples (W =
+    4, seed 12), whose W read probes past the real field rows into a pad
+    row, and on a two-document index with samples (W = 8)."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.layered import (build_layered, raw_rows,
+                                                  seeded_layered)
+    from spumoni_tpu_torch.index import format as fmt
+    from spumoni_tpu_torch.native import build_raw_index
+    from spumoni_tpu_torch.parallel import tp
+
+    ptext = np.random.default_rng(12).choice(ACGT, 4095)
+    pdense = fmt.build_dense_index(build_raw_index(ptext))
+    for dtype in (np.int32, np.int64):
+        for label, (text, index) in (
+                ("pad-row", (ptext, build_layered(pdense, dtype=dtype))),
+                ("two-docs", seeded_layered(1850, 9000, docs=True,
+                                            dtype=dtype)[:2])):
+            errs = []
+            flat = index.to(device)
+            for S in TP_SHARDS:
+                sh = tp.shard_layered(index, S).to(device)
+                for L in (1024, 1021):
+                    rev, _, lens = raw_rows(
+                        kernels.classify_edge_reads(text, L), L, device)
+                    got = kernels.layered_classify_tp(sh, rev, lens, 7,
+                                                      BIN_WIDTH)
+                    sync(device)
+                    plain = kernels.layered_classify_tp_reference(
+                        sh, rev, lens, 7, BIN_WIDTH)
+                    twin = kernels.layered_classify(flat, rev, lens, 7,
+                                                    BIN_WIDTH)
+                    errs += [_max_err(got, plain), _max_err(got, twin)]
+            if any(errs):
+                raise AssertionError(f"K14 {label} {np.dtype(dtype).name} on "
+                                     f"the edge reads != plain or K8 (max "
+                                     f"|err| {errs})")
+            m = index.meta
+            print(f"{label + ' ' + np.dtype(dtype).name:16s} W={m.width} "
+                  f"wide={m.wide} r={m.r} S={TP_SHARDS}: K14 on the "
+                  f"classify edge reads at L = 1024, 1021 == plain == K8, "
+                  f"max |err| 0")
 
 
 # ---------------------------------------------------------------------------
@@ -2064,7 +2131,8 @@ def occ_timing_phase(device, ms_prefix, ms_reads, n_reads):
                 "spumoni_tpu/parallel/mesh.py:128",
                 _reads_work("occ_classify", cols))
         del engine, g, index, args, cols
-    return [dict(_with_modes("occ_scan", timed), group=kernels.GROUP), k10]
+    return [dict(_with_modes("occ_scan", timed), group=kernels.GROUP),
+            dict(k10, group=kernels.OCC_CLASSIFY_GROUP)]
 
 
 def staging_timing_phase(device, prefix, reads, n_reads):
@@ -2247,7 +2315,7 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
     _time_twin(r, "layered_classify", kernels.layered_classify,
                (engine.index, *args[1:]), kernels.layered_classify_tp(*args),
                (kernels.layered_classify_tp, (cut[1], *args[1:])))
-    results.append(r)
+    results.append(dict(r, group=kernels.CLASSIFY_GROUP))
     del engine, g, cut, args
 
     engine = _engine(ms_prefix + ".fa.thrbv.ms", device, "ms",

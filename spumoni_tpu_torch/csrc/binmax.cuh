@@ -1,8 +1,9 @@
 // The windowed bin-max classification folded into a right-to-left scan's
 // carry, per thread: the carry of spumoni_tpu/parallel/mesh.py::
 // _fused_classify_core, shared by K2 `pml_classify` / K13 (block-bits), K8
-// `layered_classify` (layered engine) and K10; K2, K13 and K8 keep it in
-// every lane of a read's group (the plain version: engine/kernels.py::
+// `layered_classify` / K14 (layered engine) and K10 `occ_classify`
+// (occ-block engine); each keeps it in every lane of a read's group, and
+// lane 0 writes the verdict (the plain version: engine/kernels.py::
 // _binmax_fold).
 //
 // Bins are in forward coordinates; nbins = max(len / bin_width, 1), so the

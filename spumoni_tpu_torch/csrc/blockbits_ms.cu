@@ -59,8 +59,7 @@
 //   window a round trip beat two (time_scan's k4-w2), so only these are
 //   built.
 //   K5 is one warp per read: coalesced reads of the value row, a warp max
-//   per bin. Bandwidth-bound on the [B, L] matrix. K5 (and, in the other
-//   sources, K10 and K14) still take one warp or one thread a read.
+//   per bin. Bandwidth-bound on the [B, L] matrix.
 //   K15 / K16 are K3 / K4's bodies with each table read from its shard:
 //   K15 takes K3's step (ms_step.cuh) on the shard's row and msrow, one
 //   divide more per read, no collective; K16 takes K4's walk on the text's

@@ -1,7 +1,8 @@
 // K7 `layered_scan`, K8 `layered_classify` and K14 `layered_classify_tp`:
 // the PML / MS / doc recurrence over the layered index (engine v2) on
-// NVIDIA Hopper (sm_90a): K7 with kGroup = 8 threads per read, K8 with
-// kClassifyGroup = 4, K14 with one.
+// NVIDIA Hopper (sm_90a), every kernel a lane group per read on one step
+// (spn::layered::group_step, layered_step.cuh): K7 with kGroup = 8 threads
+// per read, K8 and K14 with kClassifyGroup = 4.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K7: spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v2 (the step
@@ -12,8 +13,8 @@
 //       layered step: K7's PML scan with the windowed bin-max folded into
 //       the carry (binmax.cuh, shared with K2).
 //   K14: spumoni_tpu/parallel/tp.py::TpPmlClassifier._classify_fn with the
-//       layered step: K8 with `fields` in S shards (sharded.cuh), the probe
-//       clipped to the JAX sharded table's padded row count
+//       layered step: K8's body with `fields` in S shards (sharded.cuh),
+//       the probe clipped to the JAX sharded table's padded row count
 //       (engine/layered.py:327-342) instead of the replicated one.
 //
 // Layout (spumoni_tpu_torch/engine/layered.py; T = int32 or int64):
@@ -46,21 +47,19 @@
 //   slots the mode reads are loaded at once and the sample or doc slot
 //   chosen after they land: D round trips a step (D - 1 levels, the field
 //   row). The group stores 8 consecutive outputs at once.
-//   K8 is K7's PML scan on the same group step with the bin-max carry in
-//   every lane (binmax.cuh): D round trips a step, no stores but the
-//   verdict, which lane 0 writes. Its runs launch it at 32,768 lanes (a
-//   report-only batch), where 4 threads a read beat 8: 32,768 groups of 8
-//   (56 registers) run in 1.7 waves, of 4 (64 registers) in one (PERF.md
-//   section 6); 8 are faster only at 8,192 lanes, where no run launches
-//   K8.
-//   K14 keeps the one-thread step (step_tp below) until its own redesign,
-//   next in A14's lost-time order (PERF.md section 6): count_le's
-//   upper-bound search is up to 7 dependent loads a level (6 probes and
-//   the check of entry 63), so a step is up to 7 D + 1 round trips, and
-//   it reads each field row from its shard: one divide more per step.
+//   K8 and K14 are K7's PML scan on the same group step with the bin-max
+//   carry in every lane (binmax.cuh): D round trips a step, no stores but
+//   the verdict, which lane 0 writes. They share one body,
+//   classify_reads, whose field-row source is the only difference: K14
+//   reads each row from its shard through spn::shard_at (FlatFields,
+//   ShardFields in layered_step.cuh), as K13 and K15 read theirs. Their
+//   runs launch them at 32,768 lanes (a report-only batch), where 4
+//   threads a read beat 8 (PERF.md section 6): for K8 32,768 groups of 8
+//   (56 registers) run in 1.7 waves, of 4 (64 registers) in one; 8 are
+//   faster only at 8,192 lanes, where no run launches them.
 //   K1, K3 / K15 and K9 take a lane group of 8 on their own steps
-//   (ms_step.cuh, occ_step.cuh), K2 / K13 one of 4 on K1's; K10 and K14
-//   still run one thread per read.
+//   (ms_step.cuh, occ_step.cuh), K2 / K13 and K10 one of 4 on K1's and
+//   K9's.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -82,62 +81,7 @@ using namespace spn::layered;
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
 constexpr int kGroup = 8;          // threads per read of K7
-constexpr int kClassifyGroup = 4;  // threads per read of K8
-
-// Entries of a sorted 64-entry row that are <= pos.
-template <typename T>
-__device__ __forceinline__ int count_le(const T* __restrict__ row,
-                                        long long pos) {
-  int m = 0;
-#pragma unroll
-  for (int s = kNode / 2; s > 0; s >>= 1)
-    if ((long long)__ldg(row + m + s - 1) <= pos) m += s;
-  // the probes reach 63 at most; a full row of entries <= pos is 64
-  if (m == kNode - 1 && (long long)__ldg(row + kNode - 1) <= pos) m = kNode;
-  return m;
-}
-
-// K14's step: one thread's backward step of make_layered_step_fn
-// (layered.py:270-390) in PML mode for byte c, the 64-ary descent by
-// count_le, the field row read from its shard. It must stay the recurrence
-// of K8's group step (chip_smoke.py phase 3f and
-// tests/test_torch_tp_kernels.py hold K14 to K8).
-template <typename T>
-__device__ __forceinline__ void step_tp(const T (*cm)[kMetaCols],
-                                        const T* const* lv,
-                                        const long long* lv_rows,
-                                        const spn::ShardedRows<T>& fields,
-                                        const Scalars& s, int c, Carry& st) {
-  const long long F = cm[c][0], cnt = cm[c][1], lo0 = cm[c][2],
-                  hi0 = cm[c][3];
-  const long long pos = st.pos;
-  long long rank = 0;
-  bool dead = false;
-  for (int t = s.depth - 1; t >= 0; --t) {
-    long long at = (long long)cm[c][4 + t] + rank;
-    at = at < lv_rows[t] - 1 ? at : lv_rows[t] - 1;
-    const T* row = lv[t] + at * kNode;
-    const int m = count_le(row, pos);
-    if (t == s.depth - 1) dead = m == 0;
-    rank = rank * kNode + (m > 0 ? m - 1 : 0);
-  }
-  long long probe = dead ? lo0 : lo0 + rank + 1;
-  probe = probe < 0 ? 0 : probe < s.probe_bound - 1 ? probe
-                                                    : s.probe_bound - 1;
-  const bool pad = probe >= s.rows;
-  const T* f = fields.row(pad ? 0 : probe, s.width);
-  const long long start = pad ? s.n : (long long)__ldg(f + kStart);
-  const long long len = pad ? 0 : (long long)__ldg(f + kLen);
-  const long long cum = pad ? 0 : (long long)__ldg(f + kCum);
-  const long long thr = pad ? 0 : (long long)__ldg(f + kThr);
-  const bool is_match = !dead && pos < start + len;
-  const long long off = pos - start;
-  const long long rnk = dead ? 0 : cum + (off < len ? off : len);
-  const bool has_next = dead ? cnt > 0 : (rank + 1) < (hi0 - lo0);
-  const bool jump_down = !is_match && has_next && pos >= thr;
-  st.pos = cnt == 0 ? F : (is_match || jump_down) ? F + rnk : F + rnk - 1;
-  st.length = is_match ? st.length + 1 : 0;
-}
+constexpr int kClassifyGroup = 4;  // threads per read of K8 and K14
 
 // charmeta and the level pointers and row counts into shared memory (all
 // threads of the block take part; the caller synchronises).
@@ -193,7 +137,8 @@ layered_scan_kernel(const T* __restrict__ charmeta, Levels levels,
       load_level<T, MODE, G>(top_row(cm, lv, lv_rows, s.depth, cn), lane,
                              nxt);
     const int c2 = t + 2 < len ? __ldg(rd + t + 2) : 0;
-    group_step<T, MODE, G>(cm, lv, lv_rows, fields, s, c, top, lane, st);
+    group_step<T, MODE, G>(cm, lv, lv_rows, FlatFields<T>{fields}, s, c,
+                           top, lane, st);
     // MS pointers may go negative (the reference's unsigned underflow)
     ov.put(t, (T)(kIsMs ? st.sample : st.length), lane);
     if (kDoc) od.put(t, (T)st.doc, lane);
@@ -206,27 +151,19 @@ layered_scan_kernel(const T* __restrict__ charmeta, Levels levels,
   if (kDoc) od.flush(len, lane);
 }
 
-// K8: K7's PML scan with the bin-max carry: a group of kClassifyGroup
-// threads per read steps it through group_step, every lane carrying the
-// same Carry and BinMax; lane 0 writes the verdict.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
-                        const T* __restrict__ fields, Scalars s,
-                        const uint8_t* __restrict__ reads,
-                        const long long* __restrict__ lens, long long B,
-                        long long L, long long thr, int bin_width,
-                        uint8_t* __restrict__ found,
-                        int32_t* __restrict__ above,
-                        int32_t* __restrict__ below,
-                        long long* __restrict__ sum_maxes) {
+// K8 / K14: K7's PML scan with the bin-max carry: a group of
+// kClassifyGroup threads per read steps it through group_step, every lane
+// carrying the same Carry and BinMax; lane 0 writes the verdict. The field
+// rows come from `fields` (FlatFields: K8, ShardFields: K14).
+template <typename T, typename Fields>
+__device__ __forceinline__ void classify_reads(
+    const T (*cm)[kMetaCols], const T* const* lv, const long long* lv_rows,
+    const Fields& fields, const Scalars& s, const uint8_t* reads,
+    const long long* lens, long long B, long long L, long long thr,
+    int bin_width, uint8_t* found, int32_t* above, int32_t* below,
+    long long* sum_maxes) {
   constexpr int G = kClassifyGroup;
   using Lay = GroupLayout<T, kPml, G>;
-  __shared__ T cm[256][kMetaCols];
-  __shared__ const T* lv[kMaxDepth];
-  __shared__ long long lv_rows[kMaxDepth];
-  load_meta(cm, lv, lv_rows, charmeta, levels);
-  __syncthreads();
   const long long b =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (b >= B) return;  // the whole group leaves together
@@ -258,7 +195,28 @@ layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
   if (lane == 0) bins.finish(found + b, above + b, below + b, sum_maxes + b);
 }
 
-// K14: K8 with the fields in shards.
+// K8: the body over one field table.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+layered_classify_kernel(const T* __restrict__ charmeta, Levels levels,
+                        const T* __restrict__ fields, Scalars s,
+                        const uint8_t* __restrict__ reads,
+                        const long long* __restrict__ lens, long long B,
+                        long long L, long long thr, int bin_width,
+                        uint8_t* __restrict__ found,
+                        int32_t* __restrict__ above,
+                        int32_t* __restrict__ below,
+                        long long* __restrict__ sum_maxes) {
+  __shared__ T cm[256][kMetaCols];
+  __shared__ const T* lv[kMaxDepth];
+  __shared__ long long lv_rows[kMaxDepth];
+  load_meta(cm, lv, lv_rows, charmeta, levels);
+  __syncthreads();
+  classify_reads<T>(cm, lv, lv_rows, FlatFields<T>{fields}, s, reads, lens,
+                    B, L, thr, bin_width, found, above, below, sum_maxes);
+}
+
+// K14: the body over the fields in shards.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 layered_classify_tp_kernel(const T* __restrict__ charmeta, Levels levels,
@@ -275,18 +233,8 @@ layered_classify_tp_kernel(const T* __restrict__ charmeta, Levels levels,
   __shared__ long long lv_rows[kMaxDepth];
   load_meta(cm, lv, lv_rows, charmeta, levels);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const long long len64 = lens[b];
-  const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
-  const uint8_t* rd = reads + b * L;
-  spn::BinMax bins(len, bin_width, thr);
-  Carry st = {s.n - 1, 0, s.last_run_sample, s.last_run_edoc};
-  for (int t = 0; t < len; ++t) {
-    step_tp<T>(cm, lv, lv_rows, fields, s, __ldg(rd + t), st);
-    bins.add(t, st.length);
-  }
-  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+  classify_reads<T>(cm, lv, lv_rows, ShardFields<T>{fields}, s, reads, lens,
+                    B, L, thr, bin_width, found, above, below, sum_maxes);
 }
 
 unsigned grid_of(long long threads) {
@@ -439,14 +387,15 @@ extern "C" int spn_layered_classify_tp(const void* charmeta,
   if (!spn::sharded_rows(shards, fields, S, rows_per_shard))
     return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned grid = grid_of(B * kClassifyGroup);
   if (wide)
-    layered_classify_tp_kernel<long long><<<grid_of(B), kThreads, 0, st>>>(
+    layered_classify_tp_kernel<long long><<<grid, kThreads, 0, st>>>(
         (const long long*)charmeta, levels, spn::retype<long long>(shards), s,
         (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
         (uint8_t*)found, (int32_t*)above, (int32_t*)below,
         (long long*)sum_maxes);
   else
-    layered_classify_tp_kernel<int32_t><<<grid_of(B), kThreads, 0, st>>>(
+    layered_classify_tp_kernel<int32_t><<<grid, kThreads, 0, st>>>(
         (const int32_t*)charmeta, levels, spn::retype<int32_t>(shards), s,
         (const uint8_t*)reads, (const long long*)lens, B, L, thr, bin_width,
         (uint8_t*)found, (int32_t*)above, (int32_t*)below,

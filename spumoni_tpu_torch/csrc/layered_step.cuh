@@ -1,16 +1,17 @@
 // The layered index's layout and scalars (engine v2, shared by K7, K8 and
-// K14), and one step of K7 `layered_scan` and K8 `layered_classify` for a
-// group of G threads per read.
+// K14), and one step of K7 `layered_scan`, K8 `layered_classify` and K14
+// `layered_classify_tp` for a group of G threads per read, templated on
+// where a field row comes from (FlatFields: one table, K7 / K8;
+// ShardFields: the table in shards, K14).
 //
-// The step computes the JAX step (engine/layered.py:270-390; in PML mode
-// also layered.cu's one-thread step_tp, K14's), from the same tables, with
-// the loads of each round trip issued at once and split over the group:
+// The step computes the JAX step (engine/layered.py:270-390), from the same
+// tables, with the loads of each round trip issued at once and split over
+// the group:
 //   * a level's 64-entry row is read as 16-byte loads, kRow a lane (2 at
 //     int32, 4 at int64 with G = 8); each lane counts its entries <= pos
 //     and the group sums the counts with __shfl_xor_sync: the JAX step's
 //     compare-count (`jnp.sum(rows <= pos)`), one round trip a level where
-//     the one-thread design's upper-bound search made up to 7 dependent
-//     probes;
+//     a one-thread upper-bound search makes up to 7 dependent probes;
 //   * the top level's row depends only on the step's character (rank 0),
 //     so the caller loads it a step ahead, off the chain;
 //   * the field row's slots the mode reads (4, or 8 with samples or doc
@@ -24,7 +25,8 @@
 
 #include <cstdint>
 
-#include "ms_step.cuh"  // spn::group_sum
+#include "ms_step.cuh"  // spn::group_sum, spn::shard_at
+#include "sharded.cuh"
 
 namespace spn {
 namespace layered {
@@ -101,6 +103,30 @@ __device__ __forceinline__ int lane_count_le(const uint4 (&v)[N],
   return m;
 }
 
+// K7 / K8's field rows: one table.
+template <typename T>
+struct FlatFields {
+  const T* p;
+
+  __device__ __forceinline__ const T* row(long long r, int w) const {
+    return p + r * w;
+  }
+};
+
+// K14's field rows: S shards; a row's shard and its row there through
+// spn::shard_at (a 32-bit divide where the rows fit). A reference to the
+// kernel's parameter: a copy of the pointer array, indexed by shard, would
+// live in local memory (a stack frame, one more load on the step's chain).
+template <typename T>
+struct ShardFields {
+  const ShardedRows<T>& s;
+
+  __device__ __forceinline__ const T* row(long long r, int w) const {
+    const ShardAt at = shard_at(s, r);
+    return s.p[at.shard] + at.local * w;
+  }
+};
+
 // The top level's row of byte c (the descent's first, rank 0).
 template <typename T>
 __device__ __forceinline__ const T* top_row(const T (*cm)[kMetaCols],
@@ -114,11 +140,12 @@ __device__ __forceinline__ const T* top_row(const T (*cm)[kMetaCols],
 }
 
 // One backward step of make_layered_step_fn for byte c by the group; `top`
-// is this lane's share of top_row(c), loaded by the caller.
-template <typename T, int MODE, int G>
+// is this lane's share of top_row(c), loaded by the caller; the field rows
+// come from `fields` (FlatFields or ShardFields, 16-byte aligned).
+template <typename T, int MODE, int G, typename Fields>
 __device__ __forceinline__ void group_step(
     const T (*cm)[kMetaCols], const T* const* lv, const long long* lv_rows,
-    const T* __restrict__ fields, const Scalars& s, int c,
+    const Fields& fields, const Scalars& s, int c,
     const uint4 (&top)[GroupLayout<T, MODE, G>::kRow], int lane,
     Carry& st) {
   using Lay = GroupLayout<T, MODE, G>;
@@ -147,8 +174,8 @@ __device__ __forceinline__ void group_step(
   probe = probe < 0 ? 0 : probe < s.probe_bound - 1 ? probe
                                                     : s.probe_bound - 1;
   const bool pad = probe >= s.rows;  // padding: start n, zeros
-  const uint4* f = reinterpret_cast<const uint4*>(
-      fields + (pad ? 0 : probe) * s.width);
+  const uint4* f =
+      reinterpret_cast<const uint4*>(fields.row(pad ? 0 : probe, s.width));
   uint4 fv[Lay::kField];
 #pragma unroll
   for (int i = 0; i < Lay::kField; ++i) fv[i] = __ldg(f + i);

@@ -1,21 +1,21 @@
 // The occ-block index's row layout, scalars and carry (engine v3, shared by
-// K9 and K10), and one step of K9 `occ_scan` for a group of G threads per
-// read.
+// K9 and K10), and one step of K9 `occ_scan` and K10 `occ_classify` for a
+// group of G threads per read.
 //
-// K9's step computes what occblock.cu's resolve and advance compute (the
-// JAX step engine/occblock.py:248-354), from the same row, with every load
-// of the step issued at once: the threshold at the candidate's offset (the
-// previous step's deferred jump), both sample and both doc candidates (the
-// jump's two targets, chosen after the threshold lands), the query code's
-// checkpoint, and the character words up to the offset, kWords 4-byte loads
-// a lane (the row stride is odd, so a row is only 4-byte aligned; at P =
-// 128 the 17 words are one round). A word past the offset is predicated
-// off; the words are masked after the resolved offset is known, and the
-// lanes' counts and the code at the offset are summed across the group
-// with __shfl_xor_sync in one word. So a step is one round trip (more only
-// from P = 256 on, where the words outgrow a round of G kWords), where it
-// was the threshold, then the sample or doc word and a loop of dependent
-// word loads. Every lane carries the same state.
+// The step computes the JAX step (engine/occblock.py:248-354) from the
+// same row, with every load of the step issued at once: the threshold at
+// the candidate's offset (the previous step's deferred jump), both sample
+// and both doc candidates (the jump's two targets, chosen after the
+// threshold lands), the query code's checkpoint, and the character words
+// up to the offset, WORDS 4-byte loads a lane (the row stride is odd, so a
+// row is only 4-byte aligned; words_per_lane<G>() makes the 17 words of P =
+// 128 one round at any G). A word past the offset is predicated off; the
+// words are masked after the resolved offset is known, and the lanes'
+// counts and the code at the offset are summed across the group with
+// __shfl_xor_sync in one word. So a step is one round trip (more only from
+// P = 256 on, where the words outgrow a round of G WORDS), where a
+// one-thread step makes the threshold, then the sample or doc word and a
+// loop of dependent word loads. Every lane carries the same state.
 
 #pragma once
 
@@ -29,7 +29,15 @@ namespace occ {
 
 constexpr int kW0 = 16;  // first char word: after the 16 checkpoints
 constexpr uint32_t kNibLsb = 0x11111111u;
-constexpr int kWords = 3;  // char words a lane loads a round (G = 8: 24)
+// the char words of a row at P = 128: (P + 1 + 7) / 8
+constexpr int kWordsP128 = 17;
+
+// Char words a lane loads a round: the words of P = 128 in one round of G
+// lanes (G = 8: 3, G = 4: 5).
+template <int G>
+constexpr int words_per_lane() {
+  return (kWordsP128 + G - 1) / G;
+}
 
 enum Mode { kPml = 0, kPmlDoc = 1, kMs = 2, kMsDoc = 3 };
 
@@ -74,15 +82,15 @@ __device__ __forceinline__ const uint32_t* row_of(
 // (nibble g: g = 0 prevchar, g = j + 1 block offset j) over the words
 // w[i] = word base + lane + i G, and whether the nibble e, which one lane's
 // words hold, is c (bit 31).
-template <int G>
-__device__ __forceinline__ uint32_t nibble_share(const uint32_t (&w)[kWords],
+template <int G, int WORDS>
+__device__ __forceinline__ uint32_t nibble_share(const uint32_t (&w)[WORDS],
                                                  int base, int lane,
                                                  uint32_t c, int e) {
   const uint32_t pat = c * kNibLsb;
   const int we = e >> 3, sh = (e & 7) * 4;
   uint32_t x = 0;
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) {
+  for (int i = 0; i < WORDS; ++i) {
     const int q = base + lane + i * G;
     uint32_t m = q < we ? 0xffffffffu : q == we ? (1u << sh) - 1u : 0u;
     if (q == 0) m &= ~1u;  // not the prevchar
@@ -95,8 +103,8 @@ __device__ __forceinline__ uint32_t nibble_share(const uint32_t (&w)[kWords],
 // One step of the group from the carry's candidate, whose row is `row`:
 // resolves the previous step's jump (its sample and doc id) and, unless
 // qc < 0 (the resolution after a read's last character), processes
-// query-rank code qc. Equal to occblock.cu's resolve, then advance.
-template <int MODE, int G>
+// query-rank code qc; each lane loads WORDS char words a round.
+template <int MODE, int G, int WORDS = words_per_lane<G>()>
 __device__ __forceinline__ void group_step(const uint32_t* __restrict__ row,
                                            const Scalars& s,
                                            const CharTab& tab, int qc,
@@ -123,14 +131,14 @@ __device__ __forceinline__ void group_step(const uint32_t* __restrict__ row,
     dc[1] = (int)__ldg(row + s.D0 + s.P + off);
   }
   const int cp = step ? (int)__ldg(row + c) : 0;
-  uint32_t w[kWords];
+  uint32_t w[WORDS];
 #pragma unroll
-  for (int i = 0; i < kWords; ++i) {
+  for (int i = 0; i < WORDS; ++i) {
     const int q = lane + i * G;
     w[i] = step && q <= wmax ? __ldg(row + kW0 + q) : 0u;
   }
 
-  // resolution (occblock.cu's resolve)
+  // resolution of the previous step's jump
   const bool minus1 = st.forced || (st.pending && st.prev_p < thr);
   sample = st.sample;
   if (kIsMs)
@@ -159,15 +167,15 @@ __device__ __forceinline__ void group_step(const uint32_t* __restrict__ row,
     // rank within the block = #{1 <= g <= pos_off : nib[g] == c}, less one
     // where pos_off = -1 and the prevchar is c; bwt[p] = nib[e]
     const int e = pos_off + 1;
-    uint32_t x = nibble_share<G>(w, 0, lane, c, e);
-    for (int base = G * kWords; base <= wmax; base += G * kWords) {
-      uint32_t v[kWords];
+    uint32_t x = nibble_share<G, WORDS>(w, 0, lane, c, e);
+    for (int base = G * WORDS; base <= wmax; base += G * WORDS) {
+      uint32_t v[WORDS];
 #pragma unroll
-      for (int i = 0; i < kWords; ++i) {
+      for (int i = 0; i < WORDS; ++i) {
         const int q = base + lane + i * G;
         v[i] = q <= wmax ? __ldg(row + kW0 + q) : 0u;
       }
-      x += nibble_share<G>(v, base, lane, c, e);
+      x += nibble_share<G, WORDS>(v, base, lane, c, e);
     }
     x = group_sum<G>(x);
     is_match = (x >> 31) != 0;

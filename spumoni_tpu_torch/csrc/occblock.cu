@@ -1,6 +1,7 @@
 // K9 `occ_scan` and K10 `occ_classify`: the PML / MS / doc recurrence over
-// the occ-block index (engine v3) on NVIDIA Hopper (sm_90a): K9 with kGroup
-// = 8 threads per read, K10 with one.
+// the occ-block index (engine v3) on NVIDIA Hopper (sm_90a), both a lane
+// group per read on one step (spn::occ::group_step, occ_step.cuh): K9 with
+// kGroup = 8 threads per read, K10 with kClassifyGroup = 4.
 //
 // Replaces (JAX package, jitted XLA scans on the TPU):
 //   K9:  spumoni_tpu/engine/scan_engine.py::query_batch_kernel_v3 (the step
@@ -10,7 +11,7 @@
 //        modes: PML, PML+doc, MS (the sample pointers), MS+doc.
 //   K10: spumoni_tpu/parallel/mesh.py::fused_classify_kernel with the occ
 //        step: K9's PML scan with the windowed bin-max folded into the carry
-//        (binmax.cuh, shared with K2 and K8).
+//        (binmax.cuh, shared with K2, K8, K13 and K14).
 //
 // Layout (spumoni_tpu_torch/engine/occblock.py; one int32 row per P BWT
 // positions, P a power of two):
@@ -42,9 +43,12 @@
 //   the char words up to the offset as 4-byte loads: the row stride is odd)
 //   and sums the masked counts by shuffle: one round trip a step at P =
 //   128. The group stores 8 consecutive outputs at once.
-//   K10 keeps the one-thread step (resolve, advance below) until its own
-//   redesign: the threshold, then a loop of dependent char-word loads (up
-//   to 17 at P = 128) and the checkpoint, several round trips a step.
+//   K10 is K9's PML loop on the same step (no lagging resolution: PML
+//   lengths resolve in-step) with the bin-max carry in every lane; lane 0
+//   writes the verdict. Its runs launch it at 32,768 lanes (a report-only
+//   batch), where 4 lanes a read beat 8 (PERF.md section 6); at G = 4 each
+//   lane loads 5 char words a round (words_per_lane), so P = 128 stays one
+//   round trip a step.
 //
 // Plain C interface (bound with ctypes); each entry point returns
 // cudaGetLastError() after its launch, or kUnsupported for arguments this
@@ -60,77 +64,13 @@
 
 namespace {
 
-// the row layout, Mode, Scalars, Carry, seed, zero_nibbles and row_of
+// the row layout, Mode, Scalars, Carry, seed, row_of and group_step
 using namespace spn::occ;
 
 constexpr int kThreads = 128;
 constexpr int kUnsupported = -1;
-constexpr int kGroup = 8;  // threads per read of K9
-
-// Resolves the previous step's jump from row (cand's row) at offset off:
-// returns minus1 and the previous step's sample and doc id.
-template <int MODE>
-__device__ __forceinline__ bool resolve(const uint32_t* __restrict__ row,
-                                        const Scalars& s, const Carry& st,
-                                        int off, int& sample, int& doc) {
-  constexpr bool kIsMs = MODE == kMs || MODE == kMsDoc;
-  constexpr bool kDoc = MODE == kPmlDoc || MODE == kMsDoc;
-  const bool minus1 =
-      st.forced || (st.pending && st.prev_p < (int)__ldg(row + s.T0 + off));
-  const bool jumped = !st.was_match && !st.was_empty;
-  sample = st.sample;
-  if (kIsMs)
-    sample = st.was_match ? st.sample - 1
-             : st.was_empty ? 0
-             : (int)__ldg(row + s.S0 + (minus1 ? s.P : 0) + off);
-  doc = st.doc;
-  if (kDoc) {
-    if (jumped)
-      doc = (int)__ldg(row + s.D0 + (minus1 ? s.P : 0) + off);
-    else if (kIsMs && st.was_empty)  // compute_ms_pml.cpp:639-643
-      doc = s.first_run_sdoc;        // (PML keeps the doc: :303)
-  }
-  return minus1;
-}
-
-// Processes query-rank code qc from the resolved position (block offset
-// pos_off in [-1, P-1] of row) and moves the carry to the next candidate.
-__device__ __forceinline__ void advance(const uint32_t* __restrict__ row,
-                                        const spn::CharTab& tab, int qc,
-                                        int p, int pos_off, Carry& st) {
-  const bool empty = tab.empty[qc] == 1;
-  bool is_match = false, has_next = false;
-  int cand;
-  if (empty) {
-    cand = (int)tab.F[qc];
-  } else {
-    // nibble g of the char words: g = 0 prevchar, g = j + 1 offset j.
-    // rank within the block = #{1 <= g <= pos_off : nib[g] == c}, i.e. the
-    // count over g < e = pos_off + 1 less the prevchar's; bwt[p] = nib[e]
-    const uint32_t c = (uint32_t)tab.code[qc];
-    const uint32_t pat = c * kNibLsb;
-    const int e = pos_off + 1;
-    const int we = e >> 3;
-    int cnt = 0;
-    for (int w = 0; w < we; ++w)
-      cnt += __popc(zero_nibbles(__ldg(row + kW0 + w) ^ pat));
-    const uint32_t wl = __ldg(row + kW0 + we);
-    const int sh = (e & 7) * 4;
-    cnt += __popc(zero_nibbles(wl ^ pat) & ((1u << sh) - 1u));
-    const uint32_t w0 = we == 0 ? wl : __ldg(row + kW0);
-    cnt -= (w0 & 15u) == c ? 1 : 0;
-    is_match = ((wl >> sh) & 15u) == c;
-    cand = (int)__ldg(row + c) + cnt;  // F[c] + rank(p, c)
-    has_next = (long long)cand < tab.Fnext[qc];
-  }
-  st.prev_p = p;
-  st.cand = cand;
-  st.pending = !empty && !is_match && has_next;
-  st.forced = !empty && !is_match && !has_next;
-  st.length = is_match ? st.length + 1 : 0;
-  st.was_match = is_match;
-  st.was_empty = empty;
-}
+constexpr int kGroup = 8;          // threads per read of K9
+constexpr int kClassifyGroup = 4;  // threads per read of K10
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -177,6 +117,9 @@ occ_scan_kernel(const uint32_t* __restrict__ blocks,
   if (kDoc) od.flush(len, lane);
 }
 
+// K10: K9's PML loop with the bin-max carry: a group of kClassifyGroup
+// threads per read steps it through group_step, every lane carrying the
+// same Carry and BinMax; lane 0 writes the verdict.
 __global__ void __launch_bounds__(kThreads)
 occ_classify_kernel(const uint32_t* __restrict__ blocks,
                     const long long* __restrict__ tab_g, int sq,
@@ -186,25 +129,29 @@ occ_classify_kernel(const uint32_t* __restrict__ blocks,
                     uint8_t* __restrict__ found, int32_t* __restrict__ above,
                     int32_t* __restrict__ below,
                     long long* __restrict__ sum_maxes) {
+  constexpr int G = kClassifyGroup;
   __shared__ spn::CharTab tab;
   spn::load_char_tab(tab, tab_g, sq);
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long b =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = (int)(threadIdx.x & (G - 1));
   const long long len64 = lens[b];
   const int len = (int)(len64 < 0 ? 0 : len64 > L ? L : len64);
-  const uint8_t* rd = reads + b * L;
+  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
   spn::BinMax bins(len, bin_width, thr);
   Carry st = seed(s);
+  int qn = len > 0 ? __ldg(rd) : 0;  // the next step's code
   for (int t = 0; t < len; ++t) {
-    const uint32_t* row = row_of(blocks, s, st.cand);
-    const int off = st.cand & (s.P - 1);
+    const int qc = qn;
+    if (t + 1 < len) qn = __ldg(rd + t + 1);
     int sample, doc;
-    const bool minus1 = resolve<kPml>(row, s, st, off, sample, doc);
-    advance(row, tab, __ldg(rd + t), st.cand - minus1, off - minus1, st);
+    group_step<kPml, G>(row_of(blocks, s, st.cand), s, tab, qc, lane, st,
+                        sample, doc);
     bins.add(t, st.length);
   }
-  bins.finish(found + b, above + b, below + b, sum_maxes + b);
+  if (lane == 0) bins.finish(found + b, above + b, below + b, sum_maxes + b);
 }
 
 unsigned grid_of(long long threads) {
@@ -302,7 +249,8 @@ extern "C" int spn_occ_classify(const void* blocks, long long nb, int P,
   if (!layout(nb, P, W, T0, n, s) || sq < 1 || sq > spn::kTabRows ||
       bin_width <= 0)
     return kUnsupported;
-  occ_classify_kernel<<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
+  occ_classify_kernel<<<grid_of(B * kClassifyGroup), kThreads, 0,
+                        (cudaStream_t)stream>>>(
       (const uint32_t*)blocks, (const long long*)tab, sq,
       (const uint8_t*)reads, (const long long*)lens, B, L, s, thr, bin_width,
       (uint8_t*)found, (int32_t*)above, (int32_t*)below,

@@ -9,8 +9,8 @@
 //
 // The unsharded kernels (K2, K3, K4, K8) read their tables directly: each
 // sharded kernel is its twin's body or step with the table reads through a
-// ShardedRows (K13 / K15 by spn::shard_at, ms_step.cuh; K16 by
-// ShardedText, extend_step.cuh; K14 by ShardedRows::row).
+// ShardedRows (K13 / K15 by spn::shard_at, ms_step.cuh; K14 by ShardFields
+// over shard_at, layered_step.cuh; K16 by ShardedText, extend_step.cuh).
 //
 // A ShardedRows is passed to the kernel by value; its pointers sit in the
 // kernel's parameter space.
@@ -29,12 +29,6 @@ template <typename T>
 struct ShardedRows {
   const T* p[kMaxShards];
   long long rows_per_shard;
-
-  // Row r: p[r / rows_per_shard] + (r % rows_per_shard) * w.
-  __device__ __forceinline__ const T* row(long long r, int w) const {
-    const long long s = r / rows_per_shard;
-    return p[s] + (r - s * rows_per_shard) * w;
-  }
 };
 
 // A ShardedRows from a host array of S shard pointers; false when S is out

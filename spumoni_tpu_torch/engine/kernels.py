@@ -311,8 +311,10 @@ _MS_MODES = {("ms", False): 0, ("ms", True): 1, ("pml", True): 2}
 #: each step's loads split over 8 lanes, for K3 the fastest group at every
 #: lane count the runs launch (PERF.md section 6)
 GROUP = 8
-#: threads per read of K8 (kClassifyGroup in csrc/layered.cu): faster than
-#: 8 at the 32,768 lanes its runs launch (PERF.md section 6)
+#: threads per read of K8 and K14 (kClassifyGroup in csrc/layered.cu):
+#: faster than 8 at the 32,768 lanes their runs launch (K8 PERF.md section
+#: 6; K14 4.72 against 6.27 ms, time_scan's lclassify_tp family) and at
+#: 65,536; 8 are faster only at 8,192, where no run launches them
 CLASSIFY_GROUP = 4
 #: threads per read of K2 and K13 (kClassifyGroup in
 #: csrc/blockbits_pml.cu): faster than 8 at the 32,768 lanes their runs
@@ -320,12 +322,17 @@ CLASSIFY_GROUP = 4
 #: 8 are faster only at 8,192, where no run launches them (PERF.md section
 #: 6, time_scan's bbclassify family)
 PML_CLASSIFY_GROUP = 4
+#: threads per read of K10 (kClassifyGroup in csrc/occblock.cu): faster
+#: than 8 at the 32,768 lanes its runs launch (2.43 against 3.52 ms) and at
+#: 65,536, as fast at 8,192 (PERF.md section 6, time_scan's occclassify
+#: family)
+OCC_CLASSIFY_GROUP = 4
 
 
 def _check_aligned(name, tables):
-    """K1 / K2 / K13 / K3 / K15 read rows (and msrows), K7 / K8 level and
-    field rows, K4 / K16 the text with 16-byte loads: every (label, tensor)
-    must start 16-byte aligned."""
+    """K1 / K2 / K13 / K3 / K15 read rows (and msrows), K7 / K8 / K14 level
+    and field rows, K4 / K16 the text with 16-byte loads: every (label,
+    tensor) must start 16-byte aligned."""
     for label, t in tables:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
@@ -874,6 +881,13 @@ def pml_classify_tp(index: ShardedBlockBits, tab: torch.Tensor,
 pml_classify_tp.launches = 0
 
 
+def layered_tp_tables(index: ShardedLayered) -> list:
+    """(label, tensor) of the tables K14 reads with 16-byte loads: each
+    level, and each shard of the fields."""
+    return [(f"level {t}", lv) for t, lv in enumerate(index.levels)] + [
+        (f"fields shard {i}", t) for i, t in enumerate(index.fields.shards)]
+
+
 def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
                         lens: torch.Tensor, max_value_thr: int,
                         bin_width: int):
@@ -889,6 +903,7 @@ def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
     if kind == "cpu":
         return layered_classify_tp_reference(index, reads_rev, lens,
                                              max_value_thr, bin_width)
+    _check_aligned("layered_classify_tp", layered_tp_tables(index))
     B = reads_rev.shape[0]
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     above = torch.zeros(B, dtype=torch.int32, device=dev)

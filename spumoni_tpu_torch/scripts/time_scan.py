@@ -3,7 +3,8 @@ counts the runs launch, each beside another tree's build of the same entry
 points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
-        [--families pml,bbclassify,classify,ms,layered,occ,extend] \
+        [--families pml,bbclassify,classify,lclassify_tp,occclassify,ms,
+                    layered,occ,extend] \
         [--ablate] \
         [--shapes 8192,32768,65536] [--out DIR]
 
@@ -23,10 +24,14 @@ printed), outputs equal (max |err| 0):
     `ms_scan_tp` (ms+doc, 4 shards) on its MS + doc rows (K1, K2 and K13
     share their step, csrc/ms_step.cuh), K7 `layered_scan` (pml, ms+doc)
     on its layered MS + doc tables, K8 `layered_classify` (the bin-max
-    carry on K7's step) and K14 `layered_classify_tp` (4 shards) on its
-    layered PML tables, K10 `occ_classify` on its occ-block PML rows
+    carry on K7's step) on its layered PML tables, K9 `occ_scan` (pml) on
+    its occ-block PML rows
     (`--engine occ`), K5 `binmax_values` on the MS lengths of K3's ms
     pointers (K4's source);
+  * family lclassify_tp: K14 `layered_classify_tp` (4 shards) on the
+    layered PML tables;
+  * family occclassify: K10 `occ_classify` on the occ-block PML rows (P =
+    128, W = T0 + P);
   * family pml: K1 `pml_scan` on the block-bits PML rows;
   * family bbclassify: K2 `pml_classify` and K13 `pml_classify_tp` (4
     shards) on the block-bits PML rows;
@@ -55,9 +60,9 @@ its ablations (`FAMILIES[...].ablations`), built from patched copies of
 DIR's sources, and its variants (`.variants`), built from patched copies
 of this tree's (K8's and K2 / K13's other lane group; K4 / K16's other
 lane groups, two text windows a round trip, and the unstaged walk for
-rows past 48 KB). An ablation may give wrong answers (its max |err| is
-reported) and is never used for anything else. A redesign's
-baseline and attribution come first: add its family, with the ablations
+rows past 48 KB; K14's and K10's other lane group). An ablation may give
+wrong answers (its max |err| is reported) and is never used for anything
+else. A redesign's baseline and attribution come first: add its family, with the ablations
 patched into the parent's sources, and run the script while this tree's
 sources are still the parent's.
 An ablation's patches are literal lines of one commit's sources
@@ -98,6 +103,9 @@ SHARDS = 4
 #: chip_smoke.py's strains (write_inputs), which make_inputs draws first
 #: from its seed: the long reads below are drawn over the same ones
 STRAINS, STRAIN_LEN = 10, 4_600_000
+#: chip_smoke.py's reads (write_inputs), staged once per engine as one
+#: group: a shape of B lanes takes the first B
+READS = 65_536
 #: K4 / K16's long-read shapes, (read length, lanes): a run's parse batch
 #: of RunConfig.batch_bases (33,554,432) bases holds batch_bases // L reads
 LONG_READS = ((8192, 4096), (16384, 2048))
@@ -115,8 +123,8 @@ ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
 CONTROLS = {("pml_scan", "pml"), ("ms_scan", "ms"), ("ms_scan", "ms+doc"),
             ("ms_scan", "pml+doc"), ("ms_scan_tp", "ms+doc"),
             ("layered_scan", "pml"), ("layered_scan", "ms+doc"),
-            ("layered_classify", "pml"), ("layered_classify_tp", "pml"),
-            ("occ_classify", "pml"), ("binmax_values", "ms")}
+            ("layered_classify", "pml"), ("occ_scan", "pml"),
+            ("binmax_values", "ms")}
 
 
 class Family(NamedTuple):
@@ -313,6 +321,39 @@ _K2_NO_BINMAX = [
 _K2_G8 = [("blockbits_pml.cu", "constexpr int kClassifyGroup = 4;",
            "constexpr int kClassifyGroup = 8;")]
 
+# --- family lclassify_tp: K14, ablations of the one-thread-a-read scan ---
+#: (a) count_le cut to one probe (in 393331e only K14 still has it): the
+#: share of the descent's upper-bound search
+_K14_ONE_PROBE = _K7_ONE_PROBE
+#: (b) the field row from shard 0 with no divide: its row there by at most
+#: two compare-subtracts (S <= 4 shards of equal size: every read stays in
+#: shard 0's allocation); what the shard lookup costs on the chain
+_K14_NO_DIVIDE = [
+    ("layered.cu", "const T* f = fields.row(pad ? 0 : probe, s.width);",
+     "long long q_ = pad ? 0 : probe;\n"
+     "  const long long r_ = fields.rows_per_shard;\n"
+     "  q_ -= q_ >= 2 * r_ ? 2 * r_ : 0;\n"
+     "  q_ -= q_ >= r_ ? r_ : 0;\n"
+     "  const T* f = fields.p[0] + q_ * s.width;")]
+#: K14's other lane group, patched into this tree's source (K8 shares the
+#: constant; only K14 is timed with it)
+_K14_G8 = _K8_G8
+
+# --- family occclassify: K10, ablations of the one-thread-a-read scan -----
+#: (a) one char word a step (in 393331e K10's advance): the share of the
+#: dependent char-word loads
+_K10_ONE_WORD = _K9_ONE_WORD
+#: (b) no bin-max work: only the last length is stored, in sum_maxes; what
+#: the carry costs
+_K10_NO_BINMAX = [
+    ("occblock.cu", "    bins.add(t, st.length);\n", ""),
+    ("occblock.cu",
+     "  bins.finish(found + b, above + b, below + b, sum_maxes + b);",
+     "  sum_maxes[b] = st.length;")]
+#: K10's other lane group, patched into this tree's source
+_K10_G8 = [("occblock.cu", "constexpr int kClassifyGroup = 4;",
+            "constexpr int kClassifyGroup = 8;")]
+
 # --- family extend: K4 / K16, ablations of the one-thread-a-read walk -----
 #: (a) the text byte from the first 1,024 bytes of the text (L1): the
 #: share of the random text reads
@@ -402,6 +443,23 @@ FAMILIES = {
         "53ecd9b",
         {"k8-a-one-level-probe": _K8_ONE_PROBE},
         {"k8-g8": _K8_G8}),
+    "lclassify_tp": Family(
+        "layered",
+        (("layered", "layered_classify_tp_kernelIiE"),  # K14, int32
+         ("layered", "layered_classify_kernelIiE"),     # its twin K8
+         ("layered", "layered_scan_kernelIiLi0EE")),    # K7 pml: same step
+        "393331e",
+        {"k14-a-one-probe": _K14_ONE_PROBE,
+         "k14-b-shard0-no-divide": _K14_NO_DIVIDE},
+        {"k14-g8": _K14_G8}),
+    "occclassify": Family(
+        "occblock",
+        (("occblock", "occ_classify_kernel"),           # K10
+         ("occblock", "occ_scan_kernelILi0EE")),        # its twin K9, pml
+        "393331e",
+        {"k10-a-one-char-word": _K10_ONE_WORD,
+         "k10-b-no-binmax": _K10_NO_BINMAX},
+        {"k10-g8": _K10_G8}),
     "ms": Family(
         "blockbits_ms",
         # dfdde28's ms+doc instance (its mode a template argument),
@@ -637,7 +695,7 @@ def _cases(families, dev, reads, shapes) -> list:
     cases = []
 
     def staged(engine):
-        g = cs._staged(engine, reads, top)
+        g = cs._staged(engine, reads, READS)
         return g, lambda k, B: _cut(g[k], B)
 
     pml = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev)
@@ -716,7 +774,7 @@ def _cases(families, dev, reads, shapes) -> list:
              lambda B: kernels.layered_classify(lay.index, cl("rev_d", B),
                                                 cl("lens_d", B), 7,
                                                 cs.BIN_WIDTH)),
-        Case("layered_classify_tp", "pml", "control", "layered",
+        Case("layered_classify_tp", "pml", "lclassify_tp", "layered",
              lambda B: kernels.layered_classify_tp(lay_tp, cl("rev_d", B),
                                                    cl("lens_d", B), 7,
                                                    cs.BIN_WIDTH))]
@@ -743,11 +801,11 @@ def _cases(families, dev, reads, shapes) -> list:
     occ = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev, engine="occ")
     go, co = staged(occ)
     cases.append(Case(
-        "occ_classify", "pml", "control", "occblock",
+        "occ_classify", "pml", "occclassify", "occblock",
         lambda B: kernels.occ_classify(occ.index, go["tab"], co("rev_d", B),
                                        co("lens_d", B), 7, cs.BIN_WIDTH)))
-    if "occ" in families:
-        for label, path, mode, doc in cs.OCC_TIMED:
+    for label, path, mode, doc in cs.OCC_TIMED:
+        if label == "pml" or "occ" in families:  # K9 pml: a control
             eng = occ if label == "pml" else cs._engine(
                 ms_prefix + path, dev, mode, use_doc=doc, engine="occ")
             g, c = staged(eng)
@@ -788,6 +846,8 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     shapes = [int(x) for x in args.shapes.split(",")]
+    if max(shapes) > READS:
+        ap.error(f"--shapes: at most {READS} lanes (the reads written)")
     t0 = time.time()
     kernels.build()
     libraries = sorted(ENTRY_POINTS)

@@ -1,9 +1,10 @@
 """The port's occ-block engine (engine v3) held against the JAX package
 (JAX on its CPU backend) and the native engine: the row build, state
 carried over by from_jax, the plain versions of K9 / K10 with their
-one-step lag, long reads against the JAX chunked path, and the engine's
-staged path. Integers equal exactly (tolerance 0). Inputs come from numpy
-seeds and reach both packages as numpy."""
+one-step lag (K10 also on the edge reads), long reads against the JAX
+chunked path, and the engine's staged path. Integers equal exactly
+(tolerance 0). Inputs come from numpy seeds and reach both packages as
+numpy."""
 
 import numpy as np
 import pytest
@@ -208,6 +209,29 @@ def test_classify_reference_equals_jax(indexes, kind):
             bw)
         for g, w in zip(got, want):
             assert np.array_equal(g.numpy(), np.asarray(w)), (thr, bw)
+
+
+@pytest.mark.parametrize("P", [16, 128, 256])
+def test_classify_reference_on_the_edge_reads_equals_jax(P):
+    """occ_classify_reference equals fused_classify_kernel on the occ arrays
+    on kernels.classify_edge_reads (lengths around the lane groups and L,
+    the bin-width corners, the terminator query and section C's W read), at
+    P = 16, 128 and 256 (where a step's char words need a second round)."""
+    text = np.random.default_rng(64).choice(ACGTN[:4], 6000)
+    dense = build_dense_index(build_raw_index(text))
+    arrays, meta, host = jo.build_occblock(dense, P=P)
+    index, table = to.build_occblock(dense, P=P)
+    reads = kernels.classify_edge_reads(text, 1024)
+    qalpha, rev, lens = _ranked(table, reads, 1024)
+    want = fused_classify_kernel(arrays, jnp.asarray(rev), jnp.asarray(lens),
+                                 7, meta, "pml", dense.r, 150,
+                                 host.planes_for_alphabet(qalpha))
+    got = kernels.occ_classify_reference(
+        index, table.table_for_alphabet(qalpha), torch.from_numpy(rev),
+        torch.from_numpy(lens), 7, 150)
+    assert int(got[0].sum()) > 0
+    for key, g, w in zip(("found", "above", "below", "sum_maxes"), got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), key
 
 
 @pytest.mark.parametrize("kind", sorted(_KINDS))

@@ -184,3 +184,23 @@ def test_occ_kernels_equal_plain_versions_on_gpu(case):
             torch.cuda.synchronize()
             assert all(a is b is None or torch.equal(a, b)
                        for a, b in zip(got, want)), (L, mode, use_doc)
+
+
+@needs_cuda
+@pytest.mark.parametrize("P", [16, 128, 256, 512])
+def test_occ_classify_on_the_edge_reads_on_gpu(P):
+    """K10 equals its plain version on kernels.classify_edge_reads (lengths
+    around the lane groups and L, the bin-width corners, the terminator
+    query, section C's W read) at L = 1,024 and 1,021: at P = 16 and 128 a
+    step's char words are one round, at 256 and 512 they need more."""
+    text, index, table, _ = seeded_occ(12, 9000, P=P)
+    index = index.to("cuda")
+    kernels.reset_launch_counts()
+    for L in (1024, 1021):
+        tab, rev, _, lens = ranked_rows(
+            table, kernels.classify_edge_reads(text, L), L, "cuda")
+        want = kernels.occ_classify_reference(index, tab, rev, lens, 7, 150)
+        got = kernels.occ_classify(index, tab, rev, lens, 7, 150)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), L
+    assert kernels.occ_classify.launches == 2

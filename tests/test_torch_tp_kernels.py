@@ -8,9 +8,9 @@ K3, K4) exactly.
 This file imports neither JAX nor tests/conftest.py fixtures at the top,
 so it also runs on a machine with a GPU and no JAX:
     python -m pytest --noconftest tests/test_torch_tp_kernels.py
-There the one test that holds K13's plain version to the JAX package
-skips: it needs JAX and, past one shard, tests/conftest.py's virtual CPU
-devices.
+There the tests that hold K13's and K14's plain versions to the JAX
+package skip: they need JAX and, past one shard, tests/conftest.py's
+virtual CPU devices.
 """
 
 import subprocess
@@ -141,7 +141,8 @@ def test_wrappers_raise_for_non_cpu_tensors(wrapper):
 
 
 @pytest.mark.parametrize("bad", ["shard_device", "too_many_shards", "mode",
-                                 "no_jump_d", "text_dtype", "bin_width"])
+                                 "no_jump_d", "text_dtype", "bin_width",
+                                 "misaligned_shard"])
 def test_wrappers_check_their_shards(bad):
     text, index, table = _ms_index(9, 3000)
     sh = tp.shard_blockbits_ms(index, 3)
@@ -160,10 +161,26 @@ def test_wrappers_check_their_shards(bad):
         elif bad == "text_dtype":
             kernels.ms_extend_tp(sh.bblocks, sh.text_bound, fwd, lens,
                                  torch.zeros(rev.shape, dtype=torch.int32))
-        else:
+        elif bad == "bin_width":
             kernels.layered_classify_tp(
                 tp.shard_layered(seeded_layered(11, 3000)[1], 3),
                 rev, lens, 7, 0)
+        else:  # K14 reads level and field rows as 16-byte vectors
+            lsh = tp.shard_layered(seeded_layered(11, 3000)[1], 3)
+            tables = kernels.layered_tp_tables(lsh)
+            assert [label for label, _ in tables][-3:] == [
+                f"fields shard {i}" for i in range(3)]
+            kernels._check_aligned("layered_classify_tp", tables)
+            t = lsh.fields.shard1
+            lsh.fields.shard1 = torch.cat([t.new_zeros(1), t.flatten()])[
+                1:].view(t.shape)
+            assert lsh.fields.shard1.data_ptr() % 16
+            kernels.reset_launch_counts()
+            try:
+                kernels._check_aligned("layered_classify_tp",
+                                       kernels.layered_tp_tables(lsh))
+            finally:
+                assert kernels.layered_classify_tp.launches == 0
 
 
 @pytest.mark.parametrize("S", [1, 3, 4])
@@ -213,6 +230,49 @@ def test_classify_tp_reference_on_the_edge_reads_equals_jax(S):
     tab, rev, _, lens = ranked_rows(table, reads, 1024, "cpu")
     got = kernels.pml_classify_tp_reference(tp.shard_blockbits(index, S),
                                             tab, rev, lens, 7, 150)
+    assert int(got[0].sum()) > 0
+    for key, g in zip(("found", "above", "below", "sum_maxes"), got):
+        assert np.array_equal(np.asarray(want[key]), g.numpy()), key
+
+
+def _layered_pad_row_index():
+    """(text, port layered index, JAX arrays / meta / host) of a 4,095-base
+    DNA text (seed 12, no samples: W = 4), where the W read of
+    kernels.classify_edge_reads probes past the real field rows at S = 1,
+    3 and 4: it reads a pad row (start n, zeros)."""
+    from spumoni_tpu.engine import layered as jlay
+    from spumoni_tpu.index.format import build_dense_index
+    from spumoni_tpu.native import build_raw_index as jraw
+    from spumoni_tpu_torch.engine.layered import build_layered
+
+    text = np.random.default_rng(12).choice(ACGT, 4095)
+    dense = build_dense_index(jraw(text))
+    tdense = fmt.build_dense_index(build_raw_index(text))
+    return (text, build_layered(tdense), *jlay.build_layered(dense))
+
+
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_layered_classify_tp_reference_on_the_edge_reads_equals_jax(S):
+    """K14's plain version on S shards equals JAX's TpPmlClassifier on the
+    layered arrays over a 1 x S mesh on kernels.classify_edge_reads (the
+    bin-width corners and section C's W read, whose probe reaches a pad
+    row)."""
+    jax = pytest.importorskip("jax")
+    cpus = jax.devices("cpu")
+    if len(cpus) < S:
+        pytest.skip(f"needs {S} JAX CPU devices (tests/conftest.py)")
+    from spumoni_tpu.parallel import tp as jtp
+
+    text, index, arrays, meta, host = _layered_pad_row_index()
+    assert index.meta.width == 4
+    reads = kernels.classify_edge_reads(text, 1024)
+    want = jtp.TpPmlClassifier(arrays, meta, jtp.make_tp_mesh(1, S, cpus),
+                               bin_width=150, max_value_thr=7,
+                               host=host).classify(reads)
+    rev, _, lens = raw_rows(reads, 1024)
+    sh = tp.shard_layered(index, S)
+    assert sh.meta.probe_bound > index.meta.r + 1   # pad rows to probe
+    got = kernels.layered_classify_tp_reference(sh, rev, lens, 7, 150)
     assert int(got[0].sum()) > 0
     for key, g in zip(("found", "above", "below", "sum_maxes"), got):
         assert np.array_equal(np.asarray(want[key]), g.numpy()), key
@@ -341,6 +401,39 @@ def test_layered_tp_kernel_on_gpu():
                      kernels.layered_classify(index, rev, lens, 7, 150)):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), S
     assert kernels.layered_classify_tp.launches == 3
+
+
+@needs_cuda
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_layered_classify_tp_on_the_edge_reads_on_gpu(S):
+    """K14 on S shards equals its plain version and its twin K8 on
+    kernels.classify_edge_reads at L = 1,024 and 1,021, at int32 and int64
+    positions and field widths 4 and 8: on a 4,095-base index whose W read
+    probes a pad row, and on a two-document one with samples."""
+    from spumoni_tpu_torch.engine.layered import build_layered
+
+    text = np.random.default_rng(12).choice(ACGT, 4095)
+    dense = fmt.build_dense_index(build_raw_index(text))
+    cases = [(text, build_layered(dense, dtype=dt)) for dt in (np.int32,
+                                                                np.int64)]
+    for dt in (np.int32, np.int64):
+        dtext, dindex, _ = seeded_layered(16, 9000, docs=True, dtype=dt)
+        cases.append((dtext, dindex))
+    kernels.reset_launch_counts()
+    for text, index in cases:
+        sh = tp.shard_layered(index, S).to("cuda")
+        index = index.to("cuda")
+        for L in (1024, 1021):
+            rev, _, lens = raw_rows(kernels.classify_edge_reads(text, L), L,
+                                    "cuda")
+            got = kernels.layered_classify_tp(sh, rev, lens, 7, 150)
+            torch.cuda.synchronize()
+            for want in (kernels.layered_classify_tp_reference(sh, rev, lens,
+                                                               7, 150),
+                         kernels.layered_classify(index, rev, lens, 7, 150)):
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    index.meta.width, index.meta.wide, L)
+    assert kernels.layered_classify_tp.launches == 8
 
 
 @needs_cuda
