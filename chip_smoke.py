@@ -51,7 +51,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
      path's layout (P = 128, samples and doc ids) also on the edge reads
      at L = 1,024 and 1,021;
   3e. K11 `unpack2` and K12 `unpack4` (with and without its byte table) vs
-     plain versions on seeded packed rows (exceptions, a row of 8,192);
+     plain versions on seeded packed rows (exceptions, a row of 8,192,
+     widths of no whole 16-byte vector and of a tail; each also 1 byte off
+     the 16-byte boundary with rows of length 1 and ending inside a vector);
      then a small -M -P index through the CLI: `run -P -c`, `run -M -c
      --report-only` and `run -M -c` over reads that stage at 2 bits with
      exceptions (N and IUPAC bytes), at 4 bits (more non-ACGT bytes than
@@ -114,9 +116,11 @@ Phases, each of which fails the script (exit != 0) on any fault:
   5e. K11 and K12 vs plain at the main-path shape (B = 65,536, L = 1,024)
      on phase 4's reads: K11 on their 2-bit rows as staged (no
      exceptions) and with 1 in 128 bytes set to N, K12 on their 4-bit rows
-     without and with the alphabet's byte table, and `lut[codes]` beside
-     the table mode; then the host time to stage the batch at 8 bits and
-     at 2 bits with K11, in turns;
+     without and with the alphabet's byte table (each also at
+     LAUNCH_SHAPES), and `lut[codes]` beside the table mode; every line
+     also timed on the card alone (`graph_ms`: CUDA-graph replay, the
+     host's enqueue out of the window); then the host time to stage the
+     batch at 8 bits and at 2 bits with K11, in turns;
   5f. K13, K14, K15 (ms+doc and ms) and K16 vs plain at the main-path
      shape on 4 shards of the indexes 4e runs, each beside its unsharded
      twin (K2, K8, K3, K4) and itself on one shard, timed on the same
@@ -140,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -786,11 +791,20 @@ def _staging_reads(path, text, seed=1300):
     return reads
 
 
+#: 3e's seeded packed rows (B, L, exceptions): staged widths, a width of no
+#: whole 16-byte vector (Q = 5, H = 10), whole vectors and a tail (Q =
+#: 1,025), each also 1 byte off the 16-byte boundary with the row ends at
+#: the vectors' edges (kernels.edge_lengths)
+STAGING_SHAPES = ((7, 128, 0), (33, 256, 40), (5, 8192, 300),
+                  (1000, 1024, 5000), (9, 20, 7), (3, 4100, 50))
+
+
 def staging_phase(device, n=30000, cpu_run=False):
-    """3e: K11 / K12 vs plain on seeded packed rows, then STAGING_RUNS on a
-    small -M -P index through the CLI, each run's files equal to a
-    --device cpu run's (skipped when the run is on the CPU already), and
-    the MS lengths equal to the native engine's."""
+    """3e: K11 / K12 vs plain on seeded packed rows (STAGING_SHAPES, at a
+    16-byte boundary and 1 byte past one), then STAGING_RUNS on a small -M
+    -P index through the CLI, each run's files equal to a --device cpu
+    run's (skipped when the run is on the CPU already), and the MS lengths
+    equal to the native engine's."""
     phase("3e. K11 / K12 vs plain versions, and 2- / 4- / 8-bit staging "
           "through the CLI")
     from spumoni_tpu_torch import cli
@@ -798,10 +812,13 @@ def staging_phase(device, n=30000, cpu_run=False):
     from spumoni_tpu_torch.engine.scan_engine import _alpha_table
 
     table = _alpha_table((0, 1, 65, 67, 71, 78, 84, 255))
-    for seed, (B, L, k) in enumerate(((7, 128, 0), (33, 256, 40),
-                                      (5, 8192, 300), (1000, 1024, 5000))):
+    for (seed, (B, L, k)), off in itertools.product(
+            enumerate(STAGING_SHAPES), (0, 1)):
         p2, p4, exc, lens = (torch.from_numpy(a).to(device) for a in
-                             kernels.seeded_packed(1400 + seed, B, L, k))
+                             kernels.seeded_packed(
+                                 1400 + seed, B, L, k,
+                                 kernels.edge_lengths(B, L) if off else None))
+        p2, p4 = kernels.misaligned(p2, off), kernels.misaligned(p4, off)
         exc = exc if k else None
         errs = []
         for values in ((1, 2, 4, 7), (65, 67, 71, 84)):
@@ -814,11 +831,12 @@ def staging_phase(device, n=30000, cpu_run=False):
             sync(device)
             errs.append(_max_err(got, kernels.unpack4_reference(p4, lens,
                                                                 tab)))
+        where = " 1 byte off 16, edge lengths" if off else ""
         if any(errs):
-            raise AssertionError(f"B={B} L={L} k={k}: K11 / K12 != plain "
-                                 f"(max |err| {errs})")
-        print(f"B={B} L={L} exceptions={k}: K11 (2 tables) == plain, K12 "
-              f"(plain, byte table) == plain; max |err| 0")
+            raise AssertionError(f"B={B} L={L} k={k}{where}: K11 / K12 != "
+                                 f"plain (max |err| {errs})")
+        print(f"B={B} L={L} exceptions={k}{where}: K11 (2 tables) == plain, "
+              f"K12 (plain, byte table) == plain; max |err| 0")
 
     work = os.path.join(WORK, "staging")
     shutil.rmtree(work, ignore_errors=True)
@@ -1884,7 +1902,8 @@ def _with_modes(name, timed):
                 max_abs_err=max(r["max_abs_err"] for r in timed.values()),
                 modes={label: {k: r[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms",
-                                                 "max_abs_err", "twin",
+                                                 "max_abs_err", "graph_ms",
+                                                 "twin",
                                                  "twin_ms", "one_shard_ms",
                                                  "shapes", "twin_shapes")
                                if k in r}
@@ -1894,6 +1913,41 @@ def _with_modes(name, timed):
 #: lane counts the runs launch: value runs stage at most 8,192 lanes a
 #: group (pipeline.py), report-only runs a parse batch of 32,768 reads
 LAUNCH_SHAPES = (8192, 32768)
+
+
+def _cut_args(args, B, B_full):
+    """The first B rows of every tensor argument of the full batch's rows
+    (reads, lens, pointers, values); the others as they are."""
+    return tuple(a[:B].contiguous() if isinstance(a, torch.Tensor)
+                 and a.dim() and a.shape[0] == B_full else a for a in args)
+
+
+def _graph_ms(fn):
+    """(method, ms a call) of fn on the card alone, the host's enqueue out
+    of the window (time_scan.graph_time: CUDA-graph replay, or the
+    profiler's kernel durations where capture fails)."""
+    from spumoni_tpu_torch.scripts.time_scan import graph_time
+
+    return graph_time(fn)
+
+
+def _with_graph_ms(result, kern, args):
+    """Adds graph_ms (_graph_ms) and its method to a _time_kernel result
+    and to each of its shapes (the first B rows of the arguments), and
+    prints each beside the event time."""
+    method, result["graph_ms"] = _graph_ms(lambda: kern(*args))
+    result["graph_method"] = method
+    shapes = result.get("shapes", {})
+    B_full = max(shapes, default=0)
+    for B, v in shapes.items():
+        sub = _cut_args(args, B, B_full)
+        v["graph_ms"] = result["graph_ms"] if B == B_full else \
+            _graph_ms(lambda: kern(*sub))[1]
+    print(f"  {result['name']} on the card alone ({method}): " + ", ".join(
+        f"B={B} {v['graph_ms']:.4f} ms ({v['graph_ms'] / v['ms']:.0%} of "
+        f"the event time)" for B, v in (shapes or {
+            "full": result}).items()))
+    return result
 
 
 def _time_shapes(result, kern, args, full, work):
@@ -1908,8 +1962,7 @@ def _time_shapes(result, kern, args, full, work):
     B_full = full[0].shape[0]
     shapes = {B_full: dict(ms=result["ms"], bound_ms=result["bound_ms"])}
     for B in (b for b in LAUNCH_SHAPES if b < B_full):
-        sub = tuple(a[:B].contiguous() if isinstance(a, torch.Tensor)
-                    and a.dim() and a.shape[0] == B_full else a for a in args)
+        sub = _cut_args(args, B, B_full)
         kern(*sub)
         ms, got = _time_ms(lambda: kern(*sub), 5)
         err = _max_err(got, tuple(None if f is None else f[:B]
@@ -2143,7 +2196,8 @@ def staging_timing_phase(device, prefix, reads, n_reads):
     reads packed at 4 bits in staged-alphabet ranks, through the
     alphabet's byte table (the MS forward rows' decode) and plain, with
     the time of `lut[codes]` (the one PyTorch call that computes the
-    table's decode, _decode_alpha) beside the table mode."""
+    table's decode, _decode_alpha) beside the table mode. Each line and
+    shape also carries graph_ms, the card alone (_with_graph_ms)."""
     phase(f"5e. K11 / K12 vs plain at the main-path shape (B={n_reads})")
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.scan_engine import _alpha_table
@@ -2167,33 +2221,33 @@ def staging_timing_phase(device, prefix, reads, n_reads):
         B, L = len(g["idxs"]), g["L"]
         nexc = 0 if g["exc_d"] is None else g["exc_d"].shape[0]
         print(f"K11 {label}: B={B} L={L}, {nexc} exceptions")
-        k11[label] = _time_kernel(
+        args = (g["rev_p"], g["ranks2"], g["exc_d"], g["lens_d"])
+        k11[label] = _with_graph_ms(_time_kernel(
             f"unpack2 {label}", kernels.unpack2, kernels.unpack2_reference,
-            (g["rev_p"], g["ranks2"], g["exc_d"], g["lens_d"]), src,
-            "spumoni_tpu/engine/scan_engine.py:1189",
+            args, src, "spumoni_tpu/engine/scan_engine.py:1189",
             lambda a, _: (_nbytes(a[0], a[2], a[3]),
                        a[0].shape[0] * L * STEP_OPS["unpack2"]),
             # the exceptions name rows of the whole batch: no cut
-            shapes=g["exc_d"] is None)
+            shapes=g["exc_d"] is None), kernels.unpack2, args)
     g = groups["as staged"][0]
     sel, lens = g["idxs"], g["lens_d"]
     p4 = torch.from_numpy(pack_rows_native(
         pk.buf, pk.offs[sel], pk.offs[sel + 1], len(sel), g["L"],
         engine._stage_amap, False, 4)[0]).to(device)
     table = _alpha_table(g["alpha"])
-    # K12 runs on 3e's paths only: no run's shape to time it at
+    # K12 runs on 3e's paths only; timed at LAUNCH_SHAPES all the same
     def work4(a, _):
         return _nbytes(a[0], a[1]), a[0].numel() * 2 * STEP_OPS["unpack4"]
 
-    k12 = {"byte table": _time_kernel(
+    k12 = {"byte table": _with_graph_ms(_time_kernel(
                "unpack4 byte table", kernels.unpack4,
                kernels.unpack4_reference, (p4, lens, table), src,
-               "spumoni_tpu/engine/scan_engine.py:1178", work4,
-               shapes=False),
-           "plain": _time_kernel(
+               "spumoni_tpu/engine/scan_engine.py:1178", work4),
+               kernels.unpack4, (p4, lens, table)),
+           "plain": _with_graph_ms(_time_kernel(
                "unpack4", kernels.unpack4, kernels.unpack4_reference,
                (p4, lens), src, "spumoni_tpu/engine/scan_engine.py:1169",
-               work4, shapes=False)}
+               work4), kernels.unpack4, (p4, lens))}
     codes = kernels.unpack4(p4, lens).long()
     lut = torch.tensor(table, dtype=torch.uint8, device=device)
     _time_ms(lambda: lut[codes], 1)   # warm-up

@@ -1395,15 +1395,18 @@ def ms_extend_tp_reference(text: ShardedTable, text_bound: int,
     return ms_extend_reference(text, text_bound, reads_fwd, lens, ptrs)
 
 
-def seeded_packed(seed: int, B: int, L: int, k: int):
+def seeded_packed(seed: int, B: int, L: int, k: int, lens=None):
     """Seeded [B, L/4] 2-bit and [B, L/2] 4-bit packed rows (uint8), k
     exception triples [k, 3] int32 on distinct in-read cells in shuffled
-    order (the native packer's order varies too), and [B] int64 lengths,
-    the first row full: K11 / K12's checks in the tests and chip_smoke.py,
-    as numpy arrays."""
+    order (the native packer's order varies too), and [B] int64 lengths
+    (`lens`, else seeded with the first row full): K11 / K12's checks in
+    the tests and chip_smoke.py, as numpy arrays."""
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1, L + 1, size=B).astype(np.int64)
-    lens[0] = L
+    if lens is None:
+        lens = rng.integers(1, L + 1, size=B).astype(np.int64)
+        lens[0] = L
+    if k > lens.sum():
+        raise ValueError(f"{k} exceptions on {lens.sum()} in-read cells")
     packed2 = rng.integers(0, 256, size=(B, L // 4), dtype=np.uint8)
     packed4 = rng.integers(0, 256, size=(B, L // 2), dtype=np.uint8)
     cells = set()
@@ -1414,6 +1417,26 @@ def seeded_packed(seed: int, B: int, L: int, k: int):
                     for r, c in sorted(cells)], np.int32).reshape(-1, 3)
     rng.shuffle(exc)
     return packed2, packed4, exc, lens
+
+
+def edge_lengths(B: int, L: int) -> np.ndarray:
+    """[B] int64 read lengths at K11 / K12's row-end corners, cycled over
+    the rows and clipped to [1, L]: L (the first row full, as
+    seeded_packed's), 1, ends inside a 16-byte packed vector and at its
+    edges (a vector decodes to 64 columns in K11, 32 in K12), mid-row and
+    L - 1."""
+    ends = [L, 1, 2, 31, 32, 33, 63, 64, 65, 97, L // 2 + 7, L - 1]
+    return np.clip(np.resize(ends, B), 1, L).astype(np.int64)
+
+
+def misaligned(t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """A contiguous copy of the uint8 tensor `t` that starts `offset` bytes
+    past the start of its allocation (a fresh tensor's is 16-byte
+    aligned): K11 / K12's rows off the 16-byte boundary in the tests and
+    chip_smoke.py."""
+    flat = torch.empty(t.numel() + offset, dtype=torch.uint8,
+                       device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
 
 
 #: read lengths of seeded_extend's rows: 0, 1, around each lane group K4 /

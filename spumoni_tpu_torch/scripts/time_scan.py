@@ -4,8 +4,8 @@ points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
         [--families pml,bbclassify,classify,lclassify_tp,occclassify,ms,
-                    layered,occ,extend] \
-        [--ablate] \
+                    layered,occ,extend,staging] \
+        [--ablate] [--graph] \
         [--shapes 8192,32768,65536] [--out DIR]
 
 Run from the repository root on a machine with one NVIDIA GPU. It writes
@@ -53,14 +53,28 @@ printed), outputs equal (max |err| 0):
     chip_smoke.make_inputs makes the 1,024-bp ones; a run's batch of
     batch_bases holds 4,096 and 2,048 of them) at int32 and int64
     pointers (LONG_READS): the rows that take the opt-in shared memory or
-    the unstaged walk.
+    the unstaged walk;
+  * family staging: K11 `unpack2` on the reads' 2-bit rows as staged (no
+    exceptions) and, at the largest shape only, on the same reads with 1
+    in 128 bytes set to N (its exceptions name rows of the whole batch),
+    and K12 `unpack4` on the same reads at 4 bits in staged-alphabet
+    ranks, plain and through the alphabet's byte table (chip_smoke.py's
+    phase 5e's inputs).
+
+With --graph (always on for the staging family), each turn is also timed
+with the host's enqueue out of the window: 20 calls captured once in a
+CUDA graph and replayed (`graph_ms`, method 'graph'); where capture fails,
+the CUDA kernels' summed durations in torch.profiler over 20 calls
+(method 'profiler'). Without it the other families print what they did.
 
 With --ablate, each family's timing-only variants run beside the parent:
 its ablations (`FAMILIES[...].ablations`), built from patched copies of
 DIR's sources, and its variants (`.variants`), built from patched copies
 of this tree's (K8's and K2 / K13's other lane group; K4 / K16's other
 lane groups, two text windows a round trip, and the unstaged walk for
-rows past 48 KB; K14's and K10's other lane group). An ablation may give
+rows past 48 KB; K14's and K10's other lane group; K11 / K12's other
+vector counts a thread, their look-ups by shifts, and each lane storing its
+own vector's output). An ablation may give
 wrong answers (its max |err| is reported) and is never used for anything
 else. A redesign's baseline and attribution come first: add its family, with the ablations
 patched into the parent's sources, and run the script while this tree's
@@ -118,7 +132,8 @@ ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
                                  "spn_binmax_values"),
                 "layered": ("spn_layered_scan", "spn_layered_classify",
                             "spn_layered_classify_tp"),
-                "occblock": ("spn_occ_scan", "spn_occ_classify")}
+                "occblock": ("spn_occ_scan", "spn_occ_classify"),
+                "staging": ("spn_unpack2", "spn_unpack4")}
 #: (kernel, mode) of the controls, timed whatever the families
 CONTROLS = {("pml_scan", "pml"), ("ms_scan", "ms"), ("ms_scan", "ms+doc"),
             ("ms_scan", "pml+doc"), ("ms_scan_tp", "ms+doc"),
@@ -414,6 +429,71 @@ _K4_W2 = [
 _K4_UNSTAGED_PAST_48K = [("blockbits_ms.cu", "if (smem > optin) {",
                           "if (smem > 48 * 1024) {")]
 
+# --- family staging: K11 / K12, ablations of the one-thread-a-byte decode -
+#: (a) the row by a 32-bit divide (exact at every timed shape: B * Q and
+#: B * H < 2^32): what the 64-bit divide subroutine costs
+_STAGING_DIV32 = [
+    ("staging.cu", "const long long row = i / Q;",
+     "const long long row = (long long)((unsigned)i / (unsigned)Q);"),
+    ("staging.cu", "const long long row = i / H;",
+     "const long long row = (long long)((unsigned)i / (unsigned)H);")]
+#: (b) no length mask and no lens load (both kernels; wrong bytes past each
+#: read): what the load that waits on the divide costs
+_STAGING_NO_LENS = [("staging.cu", "const long long len = __ldg(lens + row);",
+                     "const long long len = 1LL << 62;")]
+#: (c) K11 without its exception scatter launch (wrong bytes at the
+#: exceptions' cells): what the second launch costs at the N shape
+_K11_NO_SCATTER = [("staging.cu",
+                    "  if (k > 0) {\n    scatter_exceptions_kernel",
+                    "  if (k < 0) {\n    scatter_exceptions_kernel")]
+
+#: K11 / K12's other vector counts a thread, patched into this tree's source
+_STAGING_V1 = [("staging.cu", "constexpr int kVectors = 2;",
+                "constexpr int kVectors = 1;")]
+_STAGING_V4 = [("staging.cu", "constexpr int kVectors = 2;",
+                "constexpr int kVectors = 4;")]
+#: each lane's stores on its own vector's output (4 or 2 chunks side by
+#: side, one lane's stores 64 or 32 bytes from the next lane's), in place of
+#: the part's chunks in turn across the lanes
+_STAGING_STRIDED = [("staging.cu", "const int c = xs + g * q;  // chunk of the part",
+                     "const int c = xs * D::kOut + q;  // chunk of the part")]
+#: the look-ups by shifts of the table words (the parent's way), in place of
+#: the byte permutes
+_STAGING_SHIFTS = [
+    ("staging.cu", """    // the codes of bytes 0 and 2 (then 1 and 3) into selector nibbles
+    uint32_t e = p & 0x00FF00FFu, o = (p >> 8) & 0x00FF00FFu;
+    e = (e | (e << 4)) & 0x0F0F0F0Fu;
+    o = (o | (o << 4)) & 0x0F0F0F0Fu;
+    e = (e | (e << 2)) & 0x33333333u;
+    o = (o | (o << 2)) & 0x33333333u;
+    w[0] = __byte_perm(values, 0, e);
+    w[1] = __byte_perm(values, 0, o);
+    w[2] = __byte_perm(values, 0, e >> 16);
+    w[3] = __byte_perm(values, 0, o >> 16);""",
+     """#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t b = (p >> (8 * i)) & 0xFFu;
+      uint32_t r = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        r |= ((values >> (8 * ((b >> (2 * k)) & 3u))) & 0xFFu) << (8 * k);
+      w[i] = r;
+    }"""),
+    ("staging.cu", """    const uint32_t s = q & 0x7777u;  // a nibble's index in its half
+    const uint32_t a = __byte_perm(lo0, lo1, s), b = __byte_perm(hi0, hi1, s);
+    // byte k from b where nibble k has bit 3 set, else from a
+    return __byte_perm(a, b, 0x3210u | ((q >> 1) & 0x4444u));""",
+     """    const unsigned long long lo = (unsigned long long)lo1 << 32 | lo0,
+                             hi = (unsigned long long)hi1 << 32 | hi0;
+    uint32_t r = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t nib = (q >> (4 * k)) & 15u;
+      r |= (uint32_t)((nib < 8 ? lo : hi) >> (8 * (nib & 7u)) & 0xFFu)
+           << (8 * k);
+    }
+    return r;""")]
+
 #: the block-bits kernels at P = 512, pack = 2, not wide (the 10-strain
 #: index's layout)
 _P512 = "ILi512ELi2ELb0E"
@@ -505,6 +585,18 @@ FAMILIES = {
          "k4-c-32-thread-blocks": _K4_SPREAD},
         {"k4-g8": _K4_G8, "k4-g16": _K4_G16, "k4-w2": _K4_W2,
          "k4-unstaged-past-48k": _K4_UNSTAGED_PAST_48K}),
+    "staging": Family(
+        "staging",
+        (("staging", "unpack2_kernel"),
+         ("staging", "scatter_exceptions_kernel"),
+         ("staging", "unpack4_kernel")),
+        "7457b81",
+        {"a-32-bit-divide": _STAGING_DIV32,
+         "b-no-lens": _STAGING_NO_LENS,
+         "c-no-scatter": _K11_NO_SCATTER},
+        {"v1": _STAGING_V1, "v4": _STAGING_V4,
+         "shift-lookup": _STAGING_SHIFTS,
+         "lane-strided-stores": _STAGING_STRIDED}),
 }
 
 
@@ -607,6 +699,53 @@ def _time(fn, reps=5):
     return a.elapsed_time(b) / reps, out
 
 
+#: calls captured in one CUDA graph (--graph)
+GRAPH_CALLS = 20
+
+
+def graph_time(fn, calls=GRAPH_CALLS, replays=5):
+    """(method, ms a call) with the host's enqueue out of the window:
+    `calls` calls captured once in a CUDA graph (the wrappers launch on the
+    current stream, the capture stream) and replayed, a warm-up and then
+    `replays` between CUDA events ('graph'); where capture fails, the CUDA
+    kernels' summed durations in torch.profiler over `calls` calls
+    ('profiler')."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return "profiler", _profiler_time(fn, calls)
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return "graph", a.elapsed_time(b) / (replays * calls)
+
+
+def _profiler_time(fn, calls) -> float:
+    """ms a call: the CUDA kernels' durations torch.profiler records over
+    `calls` calls, summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / calls
+
+
 def _err(got, want) -> int:
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -684,6 +823,52 @@ def _m_bucket(dev, reads, top):
     return mx, g
 
 
+def _staging_cases(engine, reads) -> list:
+    """Family staging's calls, on `engine`'s staging of the reads as
+    chip_smoke.py's phase 5e makes it: K11 on the 2-bit rows as staged (no
+    exceptions; the first B rows) and on the same reads with 1 in 128
+    bytes set to N (READS lanes only: the exceptions name rows of the
+    whole batch); K12 on the reads packed at 4 bits in staged-alphabet
+    ranks, through the alphabet's byte table and plain."""
+    import numpy as np
+
+    from ..engine.scan_engine import _alpha_table
+    from ..io.fastx_batch import PackedReads, iter_packed_batches
+    from ..native import pack_rows_native
+
+    pk = next(iter_packed_batches(reads, 1 << 40, upper=True))
+    (g,) = engine.stage(pk, max_lanes=READS)
+    sel = g["idxs"]
+    p4 = torch.from_numpy(pack_rows_native(
+        pk.buf, pk.offs[sel], pk.offs[sel + 1], len(sel), g["L"],
+        engine._stage_amap, False, 4)[0]).to(engine.device)
+    buf = pk.buf.copy()
+    buf[np.random.default_rng(1500).random(len(buf)) < 1 / 128] = ord("N")
+    (gn,) = engine.stage(PackedReads(pk.ids, buf, pk.offs),
+                         max_lanes=READS)
+    if (g["bits"], gn["bits"]) != (2, 2) or g["exc_d"] is not None \
+            or gn["exc_d"] is None:
+        raise AssertionError("the reads did not stage at 2 bits, without "
+                             "exceptions and with them under 1/128 N")
+    print(f"staging: B={len(sel)} L={g['L']}, 1/128 N: "
+          f"{gn['exc_d'].shape[0]} exceptions", flush=True)
+    table = _alpha_table(g["alpha"])
+    cut = lambda k, B: _cut(g[k], B)  # noqa: E731
+    return [
+        Case("unpack2", "as staged", "staging", "staging",
+             lambda B: kernels.unpack2(cut("rev_p", B), g["ranks2"], None,
+                                       cut("lens_d", B))),
+        Case("unpack2", "1/128 N", "staging", "staging",
+             lambda B: kernels.unpack2(gn["rev_p"], gn["ranks2"],
+                                       gn["exc_d"], gn["lens_d"]),
+             own_lanes=READS),
+        Case("unpack4", "byte table", "staging", "staging",
+             lambda B: kernels.unpack4(_cut(p4, B), cut("lens_d", B),
+                                       table)),
+        Case("unpack4", "plain", "staging", "staging",
+             lambda B: kernels.unpack4(_cut(p4, B), cut("lens_d", B)))]
+
+
 def _cases(families, dev, reads, shapes) -> list:
     """The timed calls: each family's kernels and the controls
     (CONTROLS), on the engines and staged reads they run with in
@@ -714,6 +899,8 @@ def _cases(families, dev, reads, shapes) -> list:
                                                cp("rev_d", B),
                                                cp("lens_d", B), 7,
                                                cs.BIN_WIDTH))]
+    if "staging" in families:
+        cases += _staging_cases(pml, reads)
     msx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True)
     gm, cm = staged(msx)
     sharded = tp.shard_blockbits_ms(msx.index, SHARDS)
@@ -827,6 +1014,9 @@ def main(argv=None) -> int:
                     help="comma-separated FAMILIES keys")
     ap.add_argument("--ablate", action="store_true",
                     help="also time each family's ablations")
+    ap.add_argument("--graph", action="store_true",
+                    help="also time each turn by CUDA-graph replay "
+                         "(always on for the staging family)")
     ap.add_argument("--shapes", default="8192,32768,65536")
     ap.add_argument("--out", default="scan_timing")
     args = ap.parse_args(argv)
@@ -901,8 +1091,20 @@ def main(argv=None) -> int:
         print(json.dumps(r), flush=True)
 
     def timed(case, lib, B):
+        """(event ms, outputs, (graph method, graph ms) or None)."""
         with _library(case.library, lib):
-            return _time(lambda: case.call(B))
+            ms, out = _time(lambda: case.call(B))
+            graph = args.graph or case.family == "staging"
+            return ms, out, graph_time(lambda: case.call(B)) if graph \
+                else None
+
+    def graph_kw(*turns):
+        """The graph-replay keys of a row from its turns' timings."""
+        if turns[0] is None:
+            return {}
+        return dict(graph_method=turns[0][0],
+                    graph_ms=sum(t[1] for t in turns) / len(turns),
+                    graph_turns=[t[1] for t in turns])
 
     for B in shapes:
         for case in cases:
@@ -911,24 +1113,26 @@ def main(argv=None) -> int:
             lanes = case.own_lanes or B
             arg = None if case.own_lanes else B
             parent = libs["parent", case.library][0]
-            p1, want = timed(case, parent, arg)
-            c1, got = timed(case, None, arg)
-            c2 = timed(case, None, arg)[0]
-            p2 = timed(case, parent, arg)[0]
+            p1, want, pg1 = timed(case, parent, arg)
+            c1, got, cg1 = timed(case, None, arg)
+            c2, _, cg2 = timed(case, None, arg)
+            p2, _, pg2 = timed(case, parent, arg)
             err = _err(got, want)
-            row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2])
+            row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2],
+                **graph_kw(pg1, pg2))
             if err:
                 raise AssertionError(f"{case.kernel} {case.mode} B={lanes}: "
                                      f"!= parent (max |err| {err})")
-            row(case, lanes, "current", (c1 + c2) / 2, err, turns=[c1, c2])
+            row(case, lanes, "current", (c1 + c2) / 2, err, turns=[c1, c2],
+                **graph_kw(cg1, cg2))
             if case.family in families and args.ablate:
                 fam = FAMILIES[case.family]
                 for label in (*fam.ablations, *fam.variants):
                     lib = libs[label, case.library][0]
-                    ms, got = timed(case, lib, arg)
+                    ms, got, g = timed(case, lib, arg)
                     row(case, lanes, label, ms, _err(got, want),
                         patches=fam.patches if label in fam.ablations
-                        else "current")
+                        else "current", **graph_kw(g))
     report["results"] = results
     with open(os.path.join(args.out, "results.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -17,6 +17,7 @@ import torch
 from spumoni_tpu_torch.engine import kernels
 from spumoni_tpu_torch.engine.blockbits import build_blockbits
 from spumoni_tpu_torch.engine.layered import build_layered
+from spumoni_tpu_torch.engine.occblock import build_occblock
 from spumoni_tpu_torch.engine.scan_engine import (ScanEngine, _alpha_table,
                                                   _packed)
 from spumoni_tpu_torch.index.format import build_dense_index
@@ -30,7 +31,10 @@ needs_cuda = pytest.mark.skipif(
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
-_UNPACK_SHAPES = [(0, 7, 128, 0), (1, 33, 256, 40), (2, 5, 8192, 300)]
+#: (seed, B, L, k): staged widths, then a width of no whole 16-byte vector
+#: (Q = 5, H = 10) and one of whole vectors and a tail (Q = 1,025)
+_UNPACK_SHAPES = [(0, 7, 128, 0), (1, 33, 256, 40), (2, 5, 8192, 300),
+                  (3, 9, 20, 7), (4, 3, 4100, 50)]
 
 
 @pytest.mark.parametrize("seed,B,L,k", _UNPACK_SHAPES)
@@ -87,6 +91,8 @@ def dna():
 def _engine(dense, kind, mode="ms"):
     if kind == "layered":
         return ScanEngine(build_layered(dense), mode=mode)
+    if kind == "occ":
+        return ScanEngine(*build_occblock(dense), mode=mode)
     return ScanEngine(*build_blockbits(dense, want_ms=mode == "ms"),
                       mode=mode)
 
@@ -178,6 +184,28 @@ def test_staged_rows_decode_to_the_8_bit_rows(dna, kind, case):
     _check_groups(engine, reads, groups, _BITS[case][kind])
 
 
+@pytest.mark.parametrize("kind", ["bits", "layered", "occ"])
+def test_staged_widths_are_whole_vectors(dna, kind):
+    """K11 / K12's vector path covers every staged row: for read lengths 1
+    to 3 * CHUNK + 1 every bucket width L that _bucket_L gives holds the
+    read and makes Q = L / 4 and H = L / 2 multiples of 16 (whole 16-byte
+    vectors, no head or tail on a fresh tensor), and reads of lengths
+    across the buckets stage into packed rows of such widths."""
+    text, dense, _ = dna
+    engine = _engine(dense, kind)
+    m = np.arange(1, 3 * engine.CHUNK + 2)
+    L = engine._bucket_L(m)
+    assert (L >= m).all()
+    assert not (L % 64).any()          # Q = L / 4 and H = L / 2: 16 | both
+    reads = [text[:n].tobytes() for n in (1, 127, 129, 700, 4097, 5000)]
+    reads += _mutate(np.random.default_rng(5), reads, b"N", 0.3)
+    for g in engine.stage(_packed(reads)):
+        for bits, rows in ((g["bits"], g["rev_p"]),
+                           (g["fwd_bits"], g["fwd_p"])):
+            assert rows.shape[1] * 8 // bits == g["L"]
+            assert bits == 8 or rows.shape[1] % 16 == 0
+
+
 def test_alphabet_growth_keeps_each_groups_tables(dna):
     """A second batch with new bytes extends the staged alphabet; the first
     batch's groups keep their own alphabet, ranks2 and 4-bit table, and
@@ -240,24 +268,45 @@ def test_jax_staged_path_reads_byte_255_groups_as_a(dna):
     assert (int(got[2][0]), int(want[2][0])) == (160, p - 200)
 
 
-@needs_cuda
-@pytest.mark.parametrize("seed,B,L,k", _UNPACK_SHAPES)
-def test_unpack_kernels_equal_plain_versions_on_gpu(seed, B, L, k):
-    packed2, packed4, exc, lens = kernels.seeded_packed(seed, B, L, k)
+def _unpack_on_gpu(packed2, packed4, exc, lens, offset=0):
+    """K11 (two tables, with the exceptions if any) and K12 (plain and
+    through a byte table) on the card equal their plain versions, the
+    packed rows uploaded `offset` bytes past a 16-byte boundary."""
     dev = torch.device("cuda")
     p2, p4 = torch.from_numpy(packed2), torch.from_numpy(packed4)
-    lens_t, exc_t = torch.from_numpy(lens), torch.from_numpy(exc)
+    lens_t = torch.from_numpy(lens)
+    exc_t = torch.from_numpy(exc) if len(exc) else None
+    d2, d4 = (kernels.misaligned(p.to(dev), offset) for p in (p2, p4))
     for ranks in ((1, 2, 4, 7), (65, 67, 71, 84)):
-        got = kernels.unpack2(p2.to(dev), ranks,
-                              exc_t.to(dev) if k else None, lens_t.to(dev))
+        got = kernels.unpack2(d2, ranks,
+                              None if exc_t is None else exc_t.to(dev),
+                              lens_t.to(dev))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), kernels.unpack2_reference(
-            p2, ranks, exc_t if k else None, lens_t))
+            p2, ranks, exc_t, lens_t))
     for table in (None, _alpha_table((0, 1, 65, 67, 71, 78, 84, 255))):
-        got = kernels.unpack4(p4.to(dev), lens_t.to(dev), table)
+        got = kernels.unpack4(d4, lens_t.to(dev), table)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(),
                            kernels.unpack4_reference(p4, lens_t, table))
+
+
+@needs_cuda
+@pytest.mark.parametrize("seed,B,L,k", _UNPACK_SHAPES)
+def test_unpack_kernels_equal_plain_versions_on_gpu(seed, B, L, k):
+    _unpack_on_gpu(*kernels.seeded_packed(seed, B, L, k))
+
+
+@needs_cuda
+@pytest.mark.parametrize("seed,B,L,k", _UNPACK_SHAPES)
+def test_unpack_kernels_on_misaligned_bases_on_gpu(seed, B, L, k):
+    """On packed rows 1 byte past a 16-byte boundary (a head and a tail in
+    every row), with rows of length 1 and rows ending inside a vector and
+    at its edges (kernels.edge_lengths), K11 / K12 equal their plain
+    versions."""
+    _unpack_on_gpu(*kernels.seeded_packed(seed, B, L, k,
+                                          kernels.edge_lengths(B, L)),
+                   offset=1)
 
 
 @needs_cuda
