@@ -106,7 +106,9 @@ Phases, each of which fails the script (exit != 0) on any fault:
      bound there;
   5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the
      MS index, and K6 through the gather-chase script's entry point at its
-     shape (R = 9,728, W = 128, L = 64);
+     shape (R = 9,728, W = 128, L = 64), also on the card alone
+     (`graph_ms`), with its shared-memory floor (computed from the shape
+     and the card, not measured) on a line of its own;
   5c. K7 (pml, pml+doc, ms, ms+doc) and K8 vs plain at the same shape on
      4b's index with the layered engine, and K7-pml and K8 on the -m index
      at the digested reads' bucket (L = 256);
@@ -410,7 +412,9 @@ def small_ms_phase(device, n=20000, num_reads=300):
     against the native engine on the seeded reads. The last case is
     ROADMAP section C's seed-5 index, on the edge reads alone (L = 1,024
     and 1,021); then K4 on a seeded matrix of pointers that are no MS
-    pointers at L = 1,021 (int32) and 1,024 (int64)."""
+    pointers at L = 1,021 (int32) and 1,024 (int64); then K6 at the
+    gather-chase script's shape with one INT_MIN wrap and at its
+    EDGE_SHAPES."""
     phase("3b. K3-K6 vs plain versions on small indexes")
     from spumoni_tpu_torch.engine import kernels
     from spumoni_tpu_torch.engine.blockbits import ranked_rows
@@ -482,16 +486,20 @@ def small_ms_phase(device, n=20000, num_reads=300):
           f"edge reads at L = 1024 and 1021 == plain, exactly")
     for L in (1021, 1024):
         print(_extend_check(device, L, wide=L == 1024) + ", exactly")
-    table, idx0 = chase.make_inputs(0, device)
-    table, idx0 = table[:1024].contiguous(), (idx0[:1024] % 1024).contiguous()
-    i0 = int(idx0[5, 7])
-    table[i0, 7] = np.int32(-2**31) ^ np.int32(i0)   # the INT_MIN wrap
-    got = kernels.gather_chase(table, idx0)
-    sync(device)
-    if _max_err(got, kernels.gather_chase_reference(table, idx0)):
-        raise AssertionError("gather_chase != gather_chase_reference")
-    print("gather_chase R=1024 W=128 L=64 (one INT_MIN wrap): K6 == plain, "
-          "exactly")
+    cases = [(chase.int_min_inputs(device), chase.L, "INT_MIN wrap")] + [
+        (chase.make_inputs(3, device, rows, width, neg), steps,
+         "negative starts" if neg else "")
+        for rows, width, steps, neg in chase.EDGE_SHAPES]
+    for (table, idx0), steps, note in cases:
+        got = kernels.gather_chase(table, idx0, steps)
+        sync(device)
+        if _max_err(got, kernels.gather_chase_reference(table, idx0, steps)):
+            raise AssertionError(f"gather_chase != gather_chase_reference "
+                                 f"at {tuple(table.shape)}, L={steps} {note}")
+    print("gather_chase at R x W, L = " + ", ".join(
+        f"{t.shape[0]} x {t.shape[1]}, {steps}" + (f" ({note})" if note
+                                                    else "")
+        for (t, _), steps, note in cases) + ": K6 == plain, exactly")
 
 
 def _group_edge_check(label, scan, plain, index, modes, text, device,
@@ -2037,6 +2045,10 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
     _check_launches("exp_vmem_gather", counts)
     if res["max_abs_err"]:
         raise AssertionError("gather_chase != gather_chase_reference")
+    # the shared-memory floor is computed, not measured: printed here, not
+    # in the kernels line
+    floor_ms, formula = res.pop("floor_ms"), res.pop("floor_formula")
+    print(f"gather_chase floor_ms {floor_ms} = {formula}")
     cells = chase.R * chase.W   # table, idx0 and the output: int32 each
     results.append(dict(name="gather_chase", route="cuda",
                         source="spumoni_tpu_torch/csrc/gather_chase.cu",

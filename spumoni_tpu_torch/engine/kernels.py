@@ -168,7 +168,8 @@ _SIGNATURES = {
         "spn_binmax_values": [_P, _P, _I64, _I64, _I32, _I64, _I32, _P, _P,
                               _P, _P, _P]},
     "gather_chase": {
-        "spn_gather_chase": [_P, _P, _I32, _I32, _I32, _P, _P]},
+        "spn_gather_chase": [_P, _P, _I32, _I32, _I32, _U32, _I32, _I32,
+                             _P, _P]},
     "layered": {
         "spn_layered_scan": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32, _I64,
                              _I64, _I64, _I64, _P, _P, _I64, _I64, _I32, _P,
@@ -484,6 +485,45 @@ def binmax_values(vals: torch.Tensor, lens: torch.Tensor, max_value_thr: int,
 binmax_values.launches = 0
 
 
+#: the columns a K6 block holds in shared memory where they fit
+#: (csrc/gather_chase.cu's kCols; it also holds 1)
+CHASE_COLS = 4
+#: the shared memory one block may opt in to on an H100 (227 KB): K6's
+#: limit on the CPU too, so that the plain path keeps the kernel's contract
+H100_SMEM_OPTIN = 232_448
+#: K6's capacity on an H100 and on the CPU: one table column of R rows in a
+#: block's shared memory, 4 bytes a row
+CHASE_MAX_ROWS = H100_SMEM_OPTIN // 4
+
+
+def chase_smem(device) -> int:
+    """The shared memory (bytes) one K6 block may hold on `device`: a CUDA
+    device's opt-in limit, H100_SMEM_OPTIN elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMEM_OPTIN
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def chase_cols(rows: int, device="cpu") -> int:
+    """The columns of `rows` rows one K6 block holds in shared memory on
+    `device`: CHASE_COLS where they fit chase_smem, else 1, and 0 where
+    one column does not fit (past the capacity)."""
+    smem = chase_smem(device)
+    return next((c for c in (CHASE_COLS, 1) if rows * c * 4 <= smem), 0)
+
+
+def _chase_magic(rows: int) -> tuple:
+    """(magic, shift) of K6's remainder by R = rows (1 <= R <= 2^31): for
+    every u in [0, 2^31], q = (umulhi(u, magic) + u) >> shift is u // R,
+    so u - q * R is u % R. shift = ceil(log2 R) and magic = ceil(2^(32 +
+    shift) / R) - 2^32, in [0, 2^32); umulhi(u, magic) < u, so the sum
+    fits 32 bits."""
+    shift = (rows - 1).bit_length()
+    return -(-(1 << (32 + shift)) // rows) - (1 << 32), shift
+
+
 def _check_chase(table: torch.Tensor, idx0: torch.Tensor) -> str:
     if table.dim() != 2 or table.dtype not in (torch.int32, torch.uint32):
         raise ValueError("table must be an [R, W] int32 / uint32 tensor")
@@ -497,10 +537,29 @@ def _check_chase(table: torch.Tensor, idx0: torch.Tensor) -> str:
     if not (table.is_contiguous() and idx0.is_contiguous()):
         raise ValueError("inputs must be contiguous")
     rows = table.shape[0]
+    if not chase_cols(rows, table.device):
+        smem = chase_smem(table.device)
+        raise ValueError(f"table has {rows} rows: K6 holds a column of R "
+                         f"rows in a block's shared memory, at most "
+                         f"R = {smem // 4} ({smem} bytes / 4 bytes)")
     if idx0.numel() and not (-rows <= int(idx0.min())
                              and int(idx0.max()) < rows):
         raise ValueError(f"idx0 must lie in [-R, R) = [{-rows}, {rows})")
     return table.device.type
+
+
+def _chase_launch(table: torch.Tensor, idx0: torch.Tensor, steps: int,
+                  out: torch.Tensor) -> None:
+    """K6's launch on inputs _check_chase took, R * W > 0, on the current
+    stream, with the remainder's multiplier and shift (_chase_magic) and
+    the columns a block holds (chase_cols); counted in
+    gather_chase.launches. No synchronisation."""
+    rows, width = table.shape
+    _raise_on(library("gather_chase").spn_gather_chase(
+        table.data_ptr(), idx0.data_ptr(), rows, width, int(steps),
+        *_chase_magic(rows), chase_cols(rows, table.device), out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream), "gather_chase")
+    gather_chase.launches += 1
 
 
 def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
@@ -508,16 +567,14 @@ def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
     """K6. table: [R, W] u32 (int32 or uint32 storage); idx0: [R, W] int32
     in [-R, R) (checked: the kernel reads row idx or idx + R). Returns the
     [R, W] int32 indices after `steps` steps of
-    idx = rem(abs(int32(table[idx, j]) ^ idx), R)."""
+    idx = rem(abs(int32(table[idx, j]) ^ idx), R). R is at most the
+    kernel's capacity, chase_smem / 4 (CHASE_MAX_ROWS on an H100 and on
+    the CPU)."""
     if _check_chase(table, idx0) == "cpu":
         return gather_chase_reference(table, idx0, steps)
     out = torch.empty_like(idx0)
-    rc = library("gather_chase").spn_gather_chase(
-        table.data_ptr(), idx0.data_ptr(), table.shape[0], table.shape[1],
-        int(steps), out.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream)
-    _raise_on(rc, "gather_chase")
-    gather_chase.launches += 1
+    if out.numel():
+        _chase_launch(table, idx0, steps, out)
     return out
 
 

@@ -4,7 +4,7 @@ points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
         [--families pml,bbclassify,classify,lclassify_tp,occclassify,ms,
-                    layered,occ,extend,staging] \
+                    layered,occ,extend,staging,chase] \
         [--ablate] [--graph] \
         [--shapes 8192,32768,65536] [--out DIR]
 
@@ -59,13 +59,25 @@ printed), outputs equal (max |err| 0):
     in 128 bytes set to N (its exceptions name rows of the whole batch),
     and K12 `unpack4` on the same reads at 4 bits in staged-alphabet
     ranks, plain and through the alphabet's byte table (chip_smoke.py's
-    phase 5e's inputs).
+    phase 5e's inputs);
+  * family chase: K6 `gather_chase` at exp_vmem_gather's shape (R =
+    9,728, W = 128, 64 steps, `make_inputs(0)`), and a latency probe: the
+    table's first column alone ([9,728, 1], one wave of chains) at 64 and
+    1,024 steps, whose difference over 960 steps is one step's latency in
+    the table's home. Each call launches the kernel on inputs checked once
+    (`_chase_calls`): the wrapper's range check reads idx0's minimum and
+    maximum back to the host, a synchronisation that would sit in the
+    events' window and break the graph's capture. The libraries built from
+    DIR's sources (its own and its ablations) are called with the
+    argument list of ca6334c's entry point (`Case.parent_call`), which
+    takes no remainder multiplier and no column count (`PARENT_ARGS`).
 
-With --graph (always on for the staging family), each turn is also timed
-with the host's enqueue out of the window: 20 calls captured once in a
-CUDA graph and replayed (`graph_ms`, method 'graph'); where capture fails,
-the CUDA kernels' summed durations in torch.profiler over 20 calls
-(method 'profiler'). Without it the other families print what they did.
+With --graph (always on for the staging and chase families), each turn is
+also timed with the host's enqueue out of the window: 20 calls captured
+once in a CUDA graph and replayed (`graph_ms`, method 'graph'); where
+capture fails, the CUDA kernels' summed durations in torch.profiler over
+20 calls (method 'profiler'). Without it the other families print what
+they did.
 
 With --ablate, each family's timing-only variants run beside the parent:
 its ablations (`FAMILIES[...].ablations`), built from patched copies of
@@ -74,11 +86,14 @@ of this tree's (K8's and K2 / K13's other lane group; K4 / K16's other
 lane groups, two text windows a round trip, and the unstaged walk for
 rows past 48 KB; K14's and K10's other lane group; K11 / K12's other
 vector counts a thread, their look-ups by shifts, and each lane storing its
-own vector's output). An ablation may give
-wrong answers (its max |err| is reported) and is never used for anything
-else. A redesign's baseline and attribution come first: add its family, with the ablations
-patched into the parent's sources, and run the script while this tree's
-sources are still the parent's.
+own vector's output; K6's other column groups a block, chains a thread and
+threads a block, `%` in place of the host-computed multiplier, no table
+copy and the multiplier without the dividend's add, the last two timing
+only). An ablation may give wrong answers (its max |err| is reported)
+and is never used for anything else. A redesign's baseline and
+attribution come first: add its family, with the ablations patched into
+the parent's sources, and run the script while this tree's sources are
+still the parent's.
 An ablation's patches are literal lines of one commit's sources
 (`FAMILIES[...].patches`), a variant's of this tree's: on any other
 parent --ablate stops with the line it did not find.
@@ -133,7 +148,12 @@ ENTRY_POINTS = {"blockbits_pml": ("spn_pml_scan", "spn_pml_classify",
                 "layered": ("spn_layered_scan", "spn_layered_classify",
                             "spn_layered_classify_tp"),
                 "occblock": ("spn_occ_scan", "spn_occ_classify"),
-                "staging": ("spn_unpack2", "spn_unpack4")}
+                "staging": ("spn_unpack2", "spn_unpack4"),
+                "gather_chase": ("spn_gather_chase",)}
+#: libraries whose entry points take another argument list in DIR than in
+#: this tree: the builds from DIR's sources are called with the cases'
+#: parent_call, whose list is that of the commit named
+PARENT_ARGS = {"gather_chase": "ca6334c"}
 #: (kernel, mode) of the controls, timed whatever the families
 CONTROLS = {("pml_scan", "pml"), ("ms_scan", "ms"), ("ms_scan", "ms+doc"),
             ("ms_scan", "pml+doc"), ("ms_scan_tp", "ms+doc"),
@@ -494,6 +514,73 @@ _STAGING_SHIFTS = [
     }
     return r;""")]
 
+# --- family chase: K6, ablations of the one-thread-an-element chase -----
+#: (a) the remainder by a multiplier and shift computed on the host (in the
+#: entry point: the argument list stays ca6334c's) in place of `%`: what
+#: the divide costs while the table is read through L2
+_K6_MAGIC = [
+    ("gather_chase.cu",
+     "const int32_t* __restrict__ idx0, int R, int W, int steps,",
+     "const int32_t* __restrict__ idx0, int R, int W, int steps,\n"
+     "                    unsigned magic_, int shift_,"),
+    ("gather_chase.cu", "    idx = a % R;",
+     "    const unsigned u_ = (unsigned)a;\n"
+     "    const unsigned r_ =\n"
+     "        u_ - (unsigned)R * ((__umulhi(u_, magic_) + u_) >> shift_);\n"
+     "    idx = a < 0 ? -(int)r_ : (int)r_;"),
+    ("gather_chase.cu", "  if (n == 0) return 0;\n",
+     "  if (n == 0) return 0;\n"
+     "  int shift_ = 0;\n"
+     "  while ((1LL << shift_) < R) ++shift_;\n"
+     "  const unsigned magic_ = (unsigned)(\n"
+     "      ((1ULL << (32 + shift_)) + R - 1) / R - (1ULL << 32));\n"),
+    ("gather_chase.cu",
+     "(const uint32_t*)table, (const int32_t*)idx0, R, W, steps,",
+     "(const uint32_t*)table, (const int32_t*)idx0, R, W, steps, magic_,\n"
+     "      shift_,")]
+#: (b) the same threads column-major: a warp takes 32 rows of one column,
+#: the table still read through L2
+_K6_COLUMN_MAJOR = [
+    ("gather_chase.cu", "  const int j = (int)(e % W);\n  int idx = idx0[e];",
+     "  const int j = (int)(e / R);\n"
+     "  const long long ij_ = (e % R) * W + j;\n"
+     "  int idx = idx0[ij_];"),
+    ("gather_chase.cu", "  out[e] = idx;", "  out[ij_] = idx;")]
+#: K6's other column groups a block, chains a thread and threads a block,
+#: and `%` in place of the host-computed multiplier, patched into this
+#: tree's source
+_K6_C1 = [("gather_chase.cu", "    return launch<kCols>(t, i0,",
+           "    return launch<1>(t, i0,")]
+_K6_C2 = [("gather_chase.cu", "    return launch<kCols>(t, i0,",
+           "    return launch<2>(t, i0,"),
+          ("gather_chase.cu", "struct Row<4> { using T = uint4; };\n",
+           "struct Row<4> { using T = uint4; };\n"
+           "template <>\nstruct Row<2> { using T = uint2; };\n")]
+_K6_K1 = [("gather_chase.cu", "constexpr int kChains = 2;",
+           "constexpr int kChains = 1;")]
+_K6_K4 = [("gather_chase.cu", "constexpr int kChains = 2;",
+           "constexpr int kChains = 4;")]
+_K6_T512 = [("gather_chase.cu", "constexpr int kThreads = 1024;",
+             "constexpr int kThreads = 512;")]
+_K6_MOD = [("gather_chase.cu",
+            "return u + neg_r * ((__umulhi(u, magic) + u) >> shift);",
+            "return u % (unsigned)R;")]
+#: timing only: no table copy (the chains read whatever shared memory
+#: holds): what the copy costs
+_K6_NO_COPY = [
+    ("gather_chase.cu", "if (cw == C && W % C == 0 &&",
+     "if (steps < 0 && cw == C && W % C == 0 &&"),
+    ("gather_chase.cu", "c < R * cw; c += kThreads", "c < 0; c += kThreads")]
+#: timing only: the remainder without the dividend's add, q = umulhi(u,
+#: m) >> s with m = ceil(2^(31 + s) / R) (exact for R >= 2, not for R = 1)
+_K6_PLAIN_MAGIC = [
+    ("gather_chase.cu",
+     "return u + neg_r * ((__umulhi(u, magic) + u) >> shift);",
+     "return u + neg_r * (__umulhi(u, magic) >> shift);"),
+    ("gather_chase.cu", "const Divisor d{R, magic, shift, 0u - (unsigned)R};",
+     "const Divisor d{R, (unsigned)(((1ULL << (31 + shift)) + R - 1) / R),\n"
+     "                  shift - 1, 0u - (unsigned)R};")]
+
 #: the block-bits kernels at P = 512, pack = 2, not wide (the 10-strain
 #: index's layout)
 _P512 = "ILi512ELi2ELb0E"
@@ -597,6 +684,15 @@ FAMILIES = {
         {"v1": _STAGING_V1, "v4": _STAGING_V4,
          "shift-lookup": _STAGING_SHIFTS,
          "lane-strided-stores": _STAGING_STRIDED}),
+    "chase": Family(
+        "gather_chase",
+        (("gather_chase", "gather_chase_kernel"),),
+        "ca6334c",
+        {"k6-a-host-remainder": _K6_MAGIC,
+         "k6-b-column-major": _K6_COLUMN_MAJOR},
+        {"k6-c1": _K6_C1, "k6-c2": _K6_C2, "k6-k1": _K6_K1, "k6-k4": _K6_K4,
+         "k6-t512": _K6_T512, "k6-mod": _K6_MOD, "k6-no-copy": _K6_NO_COPY,
+         "k6-plain-magic": _K6_PLAIN_MAGIC}),
 }
 
 
@@ -610,7 +706,7 @@ def _smi() -> str:
 def parent_signatures(parent: str, libraries) -> dict:
     """{library: {entry point: argtypes}} of ENTRY_POINTS as DIR's
     kernels.py declares them (`_SIGNATURES`); stops unless they are this
-    tree's."""
+    tree's, but for the libraries of PARENT_ARGS."""
     path = os.path.join(parent, "spumoni_tpu_torch", "engine", "kernels.py")
     with open(path) as f:
         tree = ast.parse(f.read())
@@ -623,6 +719,9 @@ def parent_signatures(parent: str, libraries) -> dict:
     out = {}
     for lib in libraries:
         ours = kernels._SIGNATURES[lib]
+        if lib in PARENT_ARGS:
+            out[lib] = {fn: sigs[lib][fn] for fn in ENTRY_POINTS[lib]}
+            continue
         for fn in ENTRY_POINTS[lib]:
             if sigs.get(lib, {}).get(fn) != ours[fn]:
                 raise SystemExit(f"time_scan: the parent's {fn} takes other "
@@ -635,10 +734,13 @@ def parent_signatures(parent: str, libraries) -> dict:
 def build_variants(jobs, signatures) -> dict:
     """nvcc of each job's library from a copy of a csrc directory (job =
     (label, library, patches, csrc): 'parent' and 'current' unpatched),
-    all at once, into kernels.BUILD_DIR/lab-<label>-<library>/. Returns
-    {(label, library): (CDLL, .so path, nvcc's output)}."""
-    procs = {}
+    all at once, into kernels.BUILD_DIR/lab-<label>-<library>/; bound
+    with `signatures` (the parent's), or this tree's where csrc is this
+    tree's. Returns {(label, library): (CDLL, .so path, nvcc's
+    output)}."""
+    procs, csrcs = {}, {}
     for label, library, patches, csrc in jobs:
+        csrcs[label, library] = csrc
         if (label, library) in procs:
             raise ValueError(f"two builds of {library} labelled {label}")
         d = os.path.join(kernels.BUILD_DIR, f"lab-{label}-{library}")
@@ -666,7 +768,10 @@ def build_variants(jobs, signatures) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         lib = ctypes.CDLL(so)
-        for fn, argtypes in signatures[key[1]].items():
+        sigs = kernels._SIGNATURES if csrcs[key] == kernels._CSRC \
+            else signatures
+        for fn in ENTRY_POINTS[key[1]]:
+            argtypes = sigs[key[1]][fn]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[key] = (lib, so, log)
@@ -795,6 +900,8 @@ class Case(NamedTuple):
     library: str
     call: object       # call(B) -> outputs, B None for the case's own lanes
     own_lanes: int = 0  # > 0: timed once, at these lanes (the -m bucket)
+    #: call(B) for the builds from DIR's sources (PARENT_ARGS), else None
+    parent_call: object = None
 
 
 def _cut(t, B):
@@ -869,6 +976,49 @@ def _staging_cases(engine, reads) -> list:
              lambda B: kernels.unpack4(_cut(p4, B), cut("lens_d", B)))]
 
 
+def _chase_calls(table, idx0, steps):
+    """(call, parent_call) -> K6's output, on inputs checked here, once:
+    call launches this tree's entry point (kernels._chase_launch: the
+    remainder's multiplier and shift, the columns a block holds);
+    parent_call launches ca6334c's (PARENT_ARGS), whose argument list
+    has neither."""
+    if kernels._check_chase(table, idx0) != "cuda":
+        raise ValueError("the chase family times CUDA tensors")
+    R, W = table.shape
+
+    def call(B):
+        out = torch.empty_like(idx0)
+        kernels._chase_launch(table, idx0, steps, out)
+        return out
+
+    def parent_call(B):
+        out = torch.empty_like(idx0)
+        kernels._raise_on(kernels.library("gather_chase").spn_gather_chase(
+            table.data_ptr(), idx0.data_ptr(), R, W, steps, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "gather_chase")
+        return out
+    return call, parent_call
+
+
+def _chase_cases(dev) -> list:
+    """Family chase: K6 at exp_vmem_gather's shape, and the latency probe
+    (the table's first column, one wave of chains) at 64 and 1,024
+    steps."""
+    from . import exp_vmem_gather as xg
+
+    table, idx0 = xg.make_inputs(0, dev)
+    col = (table[:, :1].contiguous(), idx0[:, :1].contiguous())
+    cases = []
+    for (tab, start), steps in (((table, idx0), xg.L), (col, 64),
+                                (col, 1024)):
+        R, W = tab.shape
+        call, parent_call = _chase_calls(tab, start, steps)
+        cases.append(Case("gather_chase", f"{R}x{W} L={steps}", "chase",
+                          "gather_chase", call, own_lanes=R * W,
+                          parent_call=parent_call))
+    return cases
+
+
 def _cases(families, dev, reads, shapes) -> list:
     """The timed calls: each family's kernels and the controls
     (CONTROLS), on the engines and staged reads they run with in
@@ -883,6 +1033,8 @@ def _cases(families, dev, reads, shapes) -> list:
         g = cs._staged(engine, reads, READS)
         return g, lambda k, B: _cut(g[k], B)
 
+    if "chase" in families:
+        cases += _chase_cases(dev)
     pml = cs._engine(ms_prefix + ".fa.thrbv.spumoni", dev)
     gp, cp = staged(pml)
     pml_tp = tp.shard_blockbits(pml.index, SHARDS)
@@ -1016,7 +1168,7 @@ def main(argv=None) -> int:
                     help="also time each family's ablations")
     ap.add_argument("--graph", action="store_true",
                     help="also time each turn by CUDA-graph replay "
-                         "(always on for the staging family)")
+                         "(always on for the staging and chase families)")
     ap.add_argument("--shapes", default="8192,32768,65536")
     ap.add_argument("--out", default="scan_timing")
     args = ap.parse_args(argv)
@@ -1090,13 +1242,15 @@ def main(argv=None) -> int:
         results.append(r)
         print(json.dumps(r), flush=True)
 
-    def timed(case, lib, B):
-        """(event ms, outputs, (graph method, graph ms) or None)."""
+    def timed(case, lib, B, from_parent=False):
+        """(event ms, outputs, (graph method, graph ms) or None); lib
+        built from DIR's sources where from_parent."""
+        call = case.parent_call if from_parent and case.parent_call \
+            else case.call
         with _library(case.library, lib):
-            ms, out = _time(lambda: case.call(B))
-            graph = args.graph or case.family == "staging"
-            return ms, out, graph_time(lambda: case.call(B)) if graph \
-                else None
+            ms, out = _time(lambda: call(B))
+            graph = args.graph or case.family in ("staging", "chase")
+            return ms, out, graph_time(lambda: call(B)) if graph else None
 
     def graph_kw(*turns):
         """The graph-replay keys of a row from its turns' timings."""
@@ -1113,10 +1267,10 @@ def main(argv=None) -> int:
             lanes = case.own_lanes or B
             arg = None if case.own_lanes else B
             parent = libs["parent", case.library][0]
-            p1, want, pg1 = timed(case, parent, arg)
+            p1, want, pg1 = timed(case, parent, arg, True)
             c1, got, cg1 = timed(case, None, arg)
             c2, _, cg2 = timed(case, None, arg)
-            p2, _, pg2 = timed(case, parent, arg)
+            p2, _, pg2 = timed(case, parent, arg, True)
             err = _err(got, want)
             row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2],
                 **graph_kw(pg1, pg2))
@@ -1129,7 +1283,8 @@ def main(argv=None) -> int:
                 fam = FAMILIES[case.family]
                 for label in (*fam.ablations, *fam.variants):
                     lib = libs[label, case.library][0]
-                    ms, got, g = timed(case, lib, arg)
+                    ms, got, g = timed(case, lib, arg,
+                                       label in fam.ablations)
                     row(case, lanes, label, ms, _err(got, want),
                         patches=fam.patches if label in fam.ablations
                         else "current", **graph_kw(g))

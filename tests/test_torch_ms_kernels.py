@@ -301,3 +301,18 @@ def test_gather_chase_equals_plain_version_on_gpu():
     torch.cuda.synchronize()
     assert torch.equal(got, kernels.gather_chase_reference(table, idx0))
     assert kernels.gather_chase.launches == 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("rows,width,steps,negative", chase.EDGE_SHAPES)
+def test_gather_chase_edge_shapes_on_gpu(rows, width, steps, negative):
+    """K6 equals its plain version at one element, one column (one wave),
+    W = 130 (no multiple of the 4 columns a block), the capacity (R =
+    58,112: one column a block, 227 KB), no steps and negative starts."""
+    table, idx0 = chase.make_inputs(3, "cuda", rows, width, negative)
+    kernels.reset_launch_counts()
+    got = kernels.gather_chase(table, idx0, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.gather_chase_reference(table, idx0,
+                                                           steps))
+    assert kernels.gather_chase.launches == 1
