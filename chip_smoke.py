@@ -99,6 +99,17 @@ Phases, each of which fails the script (exit != 0) on any fault:
      `-P -n -c --report-only` on phase 4's index (K13), `--engine layered
      -P -n -c --report-only` (K14) and `-M -n -c -d` (K15, K16) on 4b's,
      every output file byte-identical to its unsharded twin run's;
+  4f. more than one device and more than one process, on the first 8,192
+     of phase 4's reads: (a) the engine API made data-parallel over
+     [cuda:0, cuda:0] (ScanEngine.to_devices: each group's lanes in two
+     slices), classify_staged (K11 -> K2) and query_staged (K11 -> K1) on
+     phase 4's index and -M -d query_staged (K11 -> K3 -> K4) on 4b's, each
+     output equal to the one-device engine's; (b) `run -P -n -c` and `run
+     -M -n -c -d` once in this process and once in two worker processes
+     joined by gloo on 127.0.0.1, both on cuda:0 (SPUMONI_NUM_PROCESSES=2:
+     host p owns the records i % 2 == p, process 0 merges), every merged
+     file byte-identical to the single-process run's, the workers' launch
+     counts summed;
   5. K1/K2 vs plain timing at the main-path shape (B = 65,536, L = 1,024)
      on the main-path index; in 5-5f every kernel on a 10-strain run is
      also timed at the lanes the runs launch (B = 8,192 and 32,768:
@@ -128,8 +139,8 @@ Phases, each of which fails the script (exit != 0) on any fault:
      twin (K2, K8, K3, K4) and itself on one shard, timed on the same
      inputs, outputs equal; K15's twin K3 also at LAUNCH_SHAPES.
 
-Every CLI run of 3e, 4, 4b, 4c, 4d and 4e, and the gather-chase script of 5b,
-is a path of its own: the launch counts are set to 0 just before it and read
+Every CLI run of 3e, 4, 4b, 4c, 4d, 4e and 4f, 4f's engine calls on two
+devices, and the gather-chase script of 5b, is a path of its own: the launch counts are set to 0 just before it and read
 just after, and it must launch each kernel PATH_KERNELS gives it and no
 other. The line before the last is the per-kernel JSON summary: each
 kernel's launches on its paths, its time and its plain version's, its
@@ -1236,6 +1247,13 @@ PATH_KERNELS = {
     "T-L-P-c-report-only": ("layered_classify_tp", "unpack2"),
     "T-M-c-d": ("ms_scan_tp", "ms_extend_tp", "unpack2"),
     "exp_vmem_gather": ("gather_chase",),
+    "D-P-classify": ("pml_classify", "unpack2"),
+    "D-P-query": ("pml_scan", "unpack2"),
+    "D-M-d-query": ("ms_scan", "ms_extend", "unpack2"),
+    "F-P-c": ("pml_scan", "unpack2"),
+    "F-M-c-d": ("ms_scan", "ms_extend", "unpack2"),
+    "H-P-c": ("pml_scan", "unpack2"),
+    "H-M-c-d": ("ms_scan", "ms_extend", "unpack2"),
 }
 
 
@@ -1610,6 +1628,207 @@ def tp_main_path_phase(device, prefix, reads, ms_prefix, ms_reads, hashes,
     _print_runs(stats)
     print(f"checks: every output file of the {len(TP_RUNS)} sharded runs is "
           f"byte-identical to its unsharded twin run's")
+    return stats
+
+
+#: 4f's runs, each path of it (the engine API on [cuda:0, cuda:0]; the
+#: single-process CLI runs; the two gloo processes): (label, flags, index
+#: of phase 4 or 4b, output files)
+DP_RUNS = (("P-c", ["-P"], "idx", (".pseudo_lengths", ".report")),
+           ("M-c-d", ["-M", "-d"], "msidx",
+            (".pointers", ".lengths", ".doc_numbers", ".report")))
+#: 4f's reads: the first of phase 4's
+DP_READS = 8192
+#: seconds a 4f worker pair may take
+DP_TIMEOUT_S = 300
+
+_DP_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from spumoni_tpu_torch import cli, pipeline
+from spumoni_tpu_torch.engine import kernels
+kernels.reset_launch_counts()
+cli.main(sys.argv[2:])
+print(json.dumps({"launches": kernels.launch_counts(),
+                  "stats": pipeline.LAST_RUN_STATS}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_engine_runs(device, prefix, ms_prefix, pk, cpu_run):
+    """4f (a): classify_staged / query_staged on phase 4's index and -M -d
+    query_staged on 4b's, each on an engine made data-parallel over
+    [device, device] (ScanEngine.to_devices: the lanes of each group in
+    two slices, launched before either is fetched) and on the one-device
+    engine, outputs equal; the launch counts of the two-device calls only
+    (paths D-*)."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.scan_engine import ScanEngine
+
+    stats = {}
+    pml = prefix + ".fa.thrbv.spumoni"
+    for label, one, lanes in (
+            ("D-P-classify", _engine(pml, device), 32768),
+            ("D-P-query", _engine(pml, device), 8192),
+            ("D-M-d-query", _engine(ms_prefix + ".fa.thrbv.ms", device, "ms",
+                                    use_doc=True), 8192)):
+        two = ScanEngine(one.index, one.table, mode=one.mode,
+                         use_doc=one.use_doc).to_devices([device, device])
+        if label.endswith("classify"):
+            want = one.classify_staged(one.stage(pk, lanes), BIN_WIDTH, 7)
+            staged = two.stage(pk, lanes)
+            sync(device)
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            got = two.classify_staged(staged, BIN_WIDTH, 7)
+        else:
+            want = one.query_staged(one.stage(pk, lanes))
+            staged = two.stage(pk, lanes)
+            sync(device)
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            got = two.query_staged(staged)
+        secs = time.time() - t0
+        counts = kernels.launch_counts()
+        _check_launches(label, counts, cpu_run)
+        parts = sorted({g["replica"] for g in staged})
+        for key, w in want.items():
+            g = got[key]
+            same = (np.array_equal(g, w) if isinstance(w, np.ndarray) else
+                    len(g) == len(w) and all(np.array_equal(a, b)
+                                             for a, b in zip(g, w)))
+            if not same:
+                raise AssertionError(f"{label}: {key} on two devices != one")
+        stats[label] = dict(launches=counts, reads=len(pk), stream_s=secs)
+        own = {k: counts[k] for k in PATH_KERNELS[label]}
+        print(f"{label}: {len(pk)} reads, {len(staged)} staged parts on "
+              f"replicas {parts}, {secs:.3f} s ({len(pk) / secs:.1f} "
+              f"reads/s) on two devices; launches {own}, no other kernel; "
+              f"every output == the one-device engine's")
+    return stats
+
+
+def _dp_processes(runs, cpu_run):
+    """4f (b): each (label, argv) of `runs` in two worker processes joined
+    by gloo on 127.0.0.1 (SPUMONI_NUM_PROCESSES=2), one run's pair at a
+    time (the two workers of a run start together); returns {label: (wall
+    seconds, [each worker's last line])}. Fails when a worker fails or
+    outlasts DP_TIMEOUT_S; ends every worker it started."""
+    out = {}
+    for label, argv in runs:
+        port = _free_port()
+        procs = []
+        t0 = time.time()
+        try:
+            for p in range(2):
+                env = dict(os.environ, SPUMONI_COORDINATOR=f"127.0.0.1:{port}",
+                           SPUMONI_NUM_PROCESSES="2",
+                           SPUMONI_PROCESS_ID=str(p))
+                log = open(os.path.join(WORK, f"4f-{label}-{p}.log"), "w+b")
+                procs.append((p, log, subprocess.Popen(
+                    [sys.executable, "-c", _DP_WORKER, REPO, *argv]
+                    + (["--device", "cpu"] if cpu_run else []),
+                    stdout=log, stderr=subprocess.STDOUT, env=env)))
+            lines = []
+            for p, log, proc in procs:
+                rc = proc.wait(timeout=max(1.0, DP_TIMEOUT_S
+                                           - (time.time() - t0)))
+                log.seek(0)
+                text = log.read().decode(errors="replace")
+                if rc:
+                    raise RuntimeError(f"4f worker {label}/{p} failed (rc "
+                                       f"{rc}):\n{text[-3000:]}")
+                if f"host-stride shard {p}/2" not in text:
+                    raise AssertionError(f"4f worker {label}/{p} ran no "
+                                         f"stride")
+                lines.append(json.loads(text.strip().splitlines()[-1]))
+            out[label] = (time.time() - t0, lines)
+        finally:
+            for _, log, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    return out
+
+
+def data_parallel_phase(device, prefix, reads, ms_prefix, smi,
+                        n=DP_READS, cpu_run=False):
+    """4f: one process on two devices through the engine API (a), and two
+    processes joined by gloo through the CLI (b), both on `device`: the
+    first n of phase 4's reads in files of their own; `-P -n -c` on phase
+    4's index and `-M -n -c -d` on 4b's, once in this process (paths F-*)
+    and once in two worker processes (H-*: host p owns the records i % 2
+    == p, process 0 merges), every merged file byte-identical to the
+    single-process run's, the workers' launches summed."""
+    phase(f"4f. data parallel on [{device}, {device}] and two gloo "
+          f"processes on {device}, {n} reads")
+    from spumoni_tpu_torch.io.fastx_batch import iter_packed_batches
+
+    count = torch.cuda.device_count() if device.type == "cuda" else 0
+    print(f"{smi}; torch.cuda.device_count() = {count}")
+    t_phase = time.time()
+    with open(reads, "rb") as f:
+        head = b"".join(itertools.islice(f, 2 * n))
+    files = {}
+    for label, *_ in DP_RUNS:
+        files[label] = os.path.join(WORK, f"reads_4f_{label}.fa")
+        with open(files[label], "wb") as f:
+            f.write(head)
+    pk = next(iter_packed_batches(files["P-c"], 1 << 40, upper=True))
+    if len(pk) != n:
+        raise AssertionError(f"4f: {len(pk)} reads, {n} wanted")
+    stats = _dp_engine_runs(device, prefix, ms_prefix, pk, cpu_run)
+
+    dev = ["--device", "cpu"] if cpu_run else []
+    argv, hashes = {}, {}
+    for label, flags, idx, exts in DP_RUNS:
+        argv[label] = ["run", "-r", os.path.join(WORK, idx), "-p",
+                       files[label], "-n", "-c", *flags]
+        stats["F-" + label] = _timed_cli_run(device, "F-" + label,
+                                             argv[label] + dev, cpu_run)
+        hashes[label] = _file_hashes(files[label], exts)
+        for ext in exts:
+            os.remove(files[label] + ext)
+    workers = _dp_processes([("H-" + label, argv[label])
+                             for label, *_ in DP_RUNS], cpu_run)
+    for label, flags, idx, exts in DP_RUNS:
+        wall, lines = workers["H-" + label]
+        got = _file_hashes(files[label], exts)
+        bad = [ext for ext in exts if got[ext] != hashes[label][ext]]
+        if bad:
+            raise AssertionError(f"H-{label}: merged {bad} differ from the "
+                                 f"single-process run's")
+        left = [name for name in os.listdir(WORK)
+                if name.startswith(os.path.basename(files[label]))
+                and (".shard" in name or name.endswith(".cursor"))]
+        if left:
+            raise AssertionError(f"H-{label}: left {left}")
+        launches = {k: sum(w["launches"][k] for w in lines)
+                    for k in lines[0]["launches"]}
+        _check_launches("H-" + label, launches, cpu_run)
+        loops = [w["stats"]["stream_s"] for w in lines]
+        stats["H-" + label] = dict(launches=launches, reads=n,
+                                   stream_s=max(loops), wall_s=wall)
+        own = {k: launches[k] for k in PATH_KERNELS["H-" + label]}
+        print(f"run H-{label}: 2 processes on {device}: {n} reads; "
+              f"streaming {' / '.join(f'{x:.3f}' for x in loops)} s -> "
+              f"{n / max(loops):.1f} reads/s (all reads over the longer "
+              f"loop); {wall:.1f} s from the start of its two workers to "
+              f"their last exit -> {n / wall:.1f} reads/s; launches "
+              f"summed {own}, no other kernel")
+    _print_runs({k: v for k, v in stats.items() if k.startswith("F-")})
+    print(f"checks: the engine API's outputs on two devices == one "
+          f"device's; every merged file of the two-process runs is "
+          f"byte-identical to the single-process run's; 4f took "
+          f"{time.time() - t_phase:.1f} s ({smi})")
     return stats
 
 
@@ -2452,9 +2671,10 @@ def _annotate(results, runs, chase_counts):
 def _run_lanes(path):
     """The lanes of each launch of a 10-strain run (phases 4-4e): a
     report-only run's parse batch of 32,768 reads, a value run's group of
-    8,192 (pipeline.py); None for 3e's runs and the digested runs (-m,
-    -a), whose launches take other shapes."""
-    if path.startswith(("S-", "m-", "a-")) or path == "exp_vmem_gather":
+    8,192 (pipeline.py); None for 3e's runs, the digested runs (-m, -a)
+    and 4f's 8,192-read runs, whose launches take other shapes."""
+    if path.startswith(("S-", "m-", "a-", "D-", "F-", "H-")) \
+            or path == "exp_vmem_gather":
         return None
     return 32768 if path.endswith("report-only") else 8192
 
@@ -2530,18 +2750,18 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
 
-    dev, name, _ = device_phase()
+    dev, name, smi = device_phase()
     build_proc = start_builds(args.strains, args.reads)
     try:
         build_phase()
-        return _phases(args, dev, name, build_proc)
+        return _phases(args, dev, name, smi, build_proc)
     finally:
         if build_proc.poll() is None:
             build_proc.kill()
             build_proc.wait()
 
 
-def _phases(args, dev, name, build_proc) -> int:
+def _phases(args, dev, name, smi, build_proc) -> int:
     """Phases 3-5f, with the index builds of start_builds running until
     phase 4 waits for them."""
     small_phase(dev)
@@ -2570,6 +2790,9 @@ def _phases(args, dev, name, build_proc) -> int:
     tp_stats = tp_main_path_phase(dev, prefix, reads, ms_prefix, ms_reads,
                                   hashes)
     sync(dev)
+    dp_stats = data_parallel_phase(dev, prefix, reads, ms_prefix, smi,
+                                   n=min(DP_READS, args.reads))
+    sync(dev)
     results = timing_phase(dev, prefix, reads, args.reads)
     sync(dev)
     ms_results, chase_counts = ms_timing_phase(dev, ms_prefix, ms_reads,
@@ -2587,7 +2810,7 @@ def _phases(args, dev, name, build_proc) -> int:
                                args.reads)
     sync(dev)
     runs = {**stg_stats, **stats, **ms_stats, **lay_stats, **dig_stats,
-            **occ_stats, **tp_stats}
+            **occ_stats, **tp_stats, **dp_stats}
     _annotate(results, runs, chase_counts)
     print(f"chip_smoke: all phases passed in {time.time() - _T0:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -2,16 +2,19 @@
 import-ref | run`.
 
 Takes the flags of spumoni_tpu/cli.py, except `--device`: `cuda` (the
-default) runs the CUDA kernels on one GPU and raises without one; `cpu` is
-the explicit choice of their plain PyTorch versions.
+default) runs the CUDA kernels on every visible GPU and raises without one;
+`cpu` is the explicit choice of their plain PyTorch versions. A multi-host
+run starts one process per host (or several on one card) with
+SPUMONI_COORDINATOR=host:port (process 0's), SPUMONI_NUM_PROCESSES and
+SPUMONI_PROCESS_ID (parallel/distributed.py).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
+from .parallel import distributed
 from .pipeline import (BuildConfig, RunConfig, build, import_reference_build,
                        run)
 
@@ -104,8 +107,8 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("-t", "--threads", dest="threads", type=int, default=1,
                    help="accepted for flag compatibility; unused")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda: the CUDA kernels on one GPU (default); cpu: "
-                        "their plain PyTorch versions")
+                   help="cuda: the CUDA kernels on every visible GPU "
+                        "(default); cpu: their plain PyTorch versions")
     r.add_argument("--engine", choices=["auto", "layered", "occ", "bits"],
                    default="auto",
                    help="index layout: auto (block-bits where it holds "
@@ -116,9 +119,11 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--tp-devices", dest="tp_devices", type=int, default=0,
                    help="cut the index rows into S shards (2 to 16) for -P "
                         "-c --report-only without -d, or -M value runs "
-                        "(block-bits or layered, not occ); all shards sit "
-                        "on the run's device (one GPU, or the CPU with "
-                        "--device cpu); 0 or 1: unsharded")
+                        "(block-bits or layered, not occ); on one GPU (or "
+                        "the CPU) all shards sit on it, on several shard i "
+                        "of each group of S on its i-th (S must divide the "
+                        "GPU count); 0 or 1: sharded only where the index "
+                        "outgrows the GPUs' memory (SPN_HBM_BUDGET_GB)")
     r.add_argument("--ks-report", dest="ks_report", action="store_true",
                    help="classify via windowed KS test instead of bin-max")
     r.add_argument("--resume", dest="resume", action="store_true",
@@ -149,8 +154,13 @@ def main(argv=None) -> int:
         return 0
     if args.is_general_text:
         kwargs["min_digest"] = False
-    nproc = int(os.environ.get("SPUMONI_NUM_PROCESSES", "1"))
-    run(RunConfig(process_count=nproc, **kwargs))
+    # multi-host: SPUMONI_COORDINATOR / SPUMONI_NUM_PROCESSES /
+    # SPUMONI_PROCESS_ID join a gloo process group
+    pidx, pcount = distributed.initialize()
+    try:
+        run(RunConfig(process_index=pidx, process_count=pcount, **kwargs))
+    finally:
+        distributed.finalize()
     return 0
 
 

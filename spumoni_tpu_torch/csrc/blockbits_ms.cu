@@ -535,3 +535,20 @@ extern "C" int spn_binmax_values(const void* vals, const void* lens,
         (long long*)sum_maxes);
   return (int)cudaGetLastError();
 }
+
+// Lets the current device's kernels read `peer`'s memory (K13-K16's shards
+// on several cards): 0 when granted or already granted, kUnsupported where
+// the pair has no peer access, else the CUDA error. Launches nothing.
+extern "C" int spn_enable_peer_access(int peer) {
+  int dev = 0, ok = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceCanAccessPeer(&ok, dev, peer);
+  if (rc != cudaSuccess) return (int)rc;
+  if (!ok) return kUnsupported;
+  rc = cudaDeviceEnablePeerAccess(peer, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clears the (non-sticky) error it recorded
+    return 0;
+  }
+  return (int)rc;
+}

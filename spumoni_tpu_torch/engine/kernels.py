@@ -44,9 +44,12 @@ with ctypes.
 
 A wrapper runs the plain version (`*_reference`) only for tensors on the
 CPU. For CUDA tensors it launches its kernel, or raises: no failure falls
-back to the plain version. Each wrapper counts its launches in
-`.launches` (`launch_counts()` reads them all, `reset_launch_counts()` sets
-them to 0).
+back to the plain version. Every launch goes through `_launch`, which
+runs the entry point with the tensors' device as the current device, on
+that device's current stream, and counts it in the wrapper's `.launches`
+under a lock (`launch_counts()` reads them all, `reset_launch_counts()`
+sets them to 0). K13-K16 also read shards on other cards once
+`enable_peer_access` has opened them.
 """
 
 from __future__ import annotations
@@ -155,6 +158,7 @@ _SIGNATURES = {
                                 _I64, _I64, _I64, _I32, _P, _P, _P, _P,
                                 _P]},
     "blockbits_ms": {
+        "spn_enable_peer_access": [_I32],
         "spn_ms_scan": [_P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
                         _I32, _I64, _I64, _P, _I32, _P, _P, _I64, _I64, _P,
                         _P, _I32, _P, _P, _P],
@@ -251,6 +255,67 @@ def _raise_on(rc: int, name: str, index: BlockBitsIndex = None):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+#: guards the wrappers' launch counts: devices may launch from threads
+_count_lock = threading.Lock()
+#: (device, peer) CUDA device indexes where enable_peer_access let the
+#: device's kernels read the peer's memory
+_peers: set = set()
+
+
+def _call(dev: torch.device, lib: str, entry: str, *args) -> int:
+    """The one call site of the entry points of LIBRARIES:
+    library(lib).entry(*args) with `dev` the calling thread's current
+    device. The entry points launch on it, and some read it
+    (cudaGetDevice: K4 / K16's shared-memory opt-in, K6's per-device launch
+    cache), so a launch for cuda:1 from a thread whose current device is
+    cuda:0 would read the wrong card's attributes. Where `dev` is current
+    already, no device switch is made."""
+    fn = getattr(library(lib), entry)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def _launch(wrapper, lib: str, entry: str, dev: torch.device, *args,
+            index: BlockBitsIndex = None) -> None:
+    """A kernel's launch: entry(*args, stream) through _call on `dev`'s
+    current stream; raises on a nonzero return (_raise_on) and counts the
+    launch in `wrapper.launches`, under a lock. `wrapper` is the module's
+    wrapper as its callers see it (a timing harness may stand in for it:
+    only its `launches` is used)."""
+    rc = _call(dev, lib, entry, *args,
+               torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, entry[len("spn_"):], index)
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def enable_peer_access(devices) -> None:
+    """Lets the kernels launched on each CUDA device of `devices` read the
+    memory of every other one (cudaDeviceEnablePeerAccess, for K13-K16's
+    shards on several cards); raises where a pair has no peer access: the
+    shards are never copied to the launching card instead."""
+    idx = sorted({torch.device(d).index or 0 for d in devices
+                  if torch.device(d).type == "cuda"})
+    for a in idx:
+        for b in idx:
+            if a == b or (a, b) in _peers:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"cuda:{a} cannot read cuda:{b}'s memory (no peer "
+                    f"access): a sharded index across cards needs peer "
+                    f"access between them (use fewer cards with "
+                    f"CUDA_VISIBLE_DEVICES)")
+            rc = _call(torch.device("cuda", a), "blockbits_ms",
+                       "spn_enable_peer_access", b)
+            if rc:
+                raise RuntimeError(f"enabling cuda:{a}'s access to "
+                                   f"cuda:{b} failed with error {rc}")
+            _peers.add((a, b))
+
+
 def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
              reads_rev: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """K1. reads_rev: [B, L] uint8 query-rank codes, each read REVERSED and
@@ -263,11 +328,10 @@ def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
                       device=reads_rev.device)
     if out.numel() == 0:
         return out
-    rc = library("blockbits_pml").spn_pml_scan(
+    _launch(
+        pml_scan, "blockbits_pml", "spn_pml_scan", reads_rev.device,
         *_launch_head(index, tab, reads_rev, lens), out.data_ptr(),
-        torch.cuda.current_stream(reads_rev.device).cuda_stream)
-    _raise_on(rc, "pml_scan", index)
-    pml_scan.launches += 1
+        index=index)
     return out
 
 
@@ -294,12 +358,11 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
     summ = torch.zeros(B, dtype=torch.int64, device=dev)
     if B == 0:
         return found, above, below, summ
-    rc = library("blockbits_pml").spn_pml_classify(
+    _launch(
+        pml_classify, "blockbits_pml", "spn_pml_classify", dev,
         *_launch_head(index, tab, reads_rev, lens), int(max_value_thr),
         int(bin_width), found.data_ptr(), above.data_ptr(), below.data_ptr(),
-        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "pml_classify", index)
-    pml_classify.launches += 1
+        summ.data_ptr(), index=index)
     return found, above, below, summ
 
 
@@ -374,16 +437,14 @@ def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
         return vals, docs
     m = index.meta
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
-    rc = library("blockbits_ms").spn_ms_scan(
+    _launch(
+        ms_scan, "blockbits_ms", "spn_ms_scan", dev,
         index.bblocks.data_ptr(), index.msrows.data_ptr(),
         index.bblocks.shape[0], m.P, m.pack, int(m.wide), m.n, m.term_pos,
         m.F_term, m.term_code, m.r, m.term_runidx, tab.data_ptr(),
         tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
         reads_rev.shape[0], reads_rev.shape[1], ptr(index.jump_t),
-        ptr(index.jump_d), code, vals.data_ptr(), ptr(docs),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "ms_scan", index)
-    ms_scan.launches += 1
+        ptr(index.jump_d), code, vals.data_ptr(), ptr(docs), index=index)
     return vals, docs
 
 
@@ -439,13 +500,12 @@ def ms_extend(text: torch.Tensor, text_bound: int, reads_fwd: torch.Tensor,
     if out.numel() == 0:
         return out
     dev = lens.device
-    rc = library("blockbits_ms").spn_ms_extend(
+    _launch(
+        ms_extend, "blockbits_ms", "spn_ms_extend", dev,
         text.data_ptr(), text.shape[0], int(text_bound),
         reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
         ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "ms_extend")
-    ms_extend.launches += 1
+        out.data_ptr())
     return out
 
 
@@ -472,13 +532,12 @@ def binmax_values(vals: torch.Tensor, lens: torch.Tensor, max_value_thr: int,
     summ = torch.zeros(B, dtype=torch.int64, device=dev)
     if B == 0:
         return found, above, below, summ
-    rc = library("blockbits_ms").spn_binmax_values(
+    _launch(
+        binmax_values, "blockbits_ms", "spn_binmax_values", dev,
         vals.data_ptr(), lens.data_ptr(), B, vals.shape[1],
         int(vals.dtype == torch.int64), int(max_value_thr), int(bin_width),
         found.data_ptr(), above.data_ptr(), below.data_ptr(),
-        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "binmax_values")
-    binmax_values.launches += 1
+        summ.data_ptr())
     return found, above, below, summ
 
 
@@ -550,16 +609,15 @@ def _check_chase(table: torch.Tensor, idx0: torch.Tensor) -> str:
 
 def _chase_launch(table: torch.Tensor, idx0: torch.Tensor, steps: int,
                   out: torch.Tensor) -> None:
-    """K6's launch on inputs _check_chase took, R * W > 0, on the current
-    stream, with the remainder's multiplier and shift (_chase_magic) and
+    """K6's launch on inputs _check_chase took, R * W > 0, on the table's
+    device's current stream (_launch), with the remainder's multiplier and shift (_chase_magic) and
     the columns a block holds (chase_cols); counted in
     gather_chase.launches. No synchronisation."""
     rows, width = table.shape
-    _raise_on(library("gather_chase").spn_gather_chase(
+    _launch(
+        gather_chase, "gather_chase", "spn_gather_chase", table.device,
         table.data_ptr(), idx0.data_ptr(), rows, width, int(steps),
-        *_chase_magic(rows), chase_cols(rows, table.device), out.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream), "gather_chase")
-    gather_chase.launches += 1
+        *_chase_magic(rows), chase_cols(rows, table.device), out.data_ptr())
 
 
 def gather_chase(table: torch.Tensor, idx0: torch.Tensor,
@@ -659,14 +717,12 @@ def layered_scan(index: LayeredIndex, reads_rev: torch.Tensor,
     docs = torch.zeros_like(vals) if use_doc else None
     if vals.numel() == 0:
         return vals, docs
-    rc = library("layered").spn_layered_scan(
+    _launch(
+        layered_scan, "layered", "spn_layered_scan", dev,
         *_layered_head(index), m.last_run_sample, m.last_run_edoc,
         m.first_run_sdoc, reads_rev.data_ptr(), lens.data_ptr(),
         reads_rev.shape[0], reads_rev.shape[1], code, vals.data_ptr(),
-        0 if docs is None else docs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "layered_scan")
-    layered_scan.launches += 1
+        0 if docs is None else docs.data_ptr())
     return vals, docs
 
 
@@ -693,14 +749,12 @@ def layered_classify(index: LayeredIndex, reads_rev: torch.Tensor,
     summ = torch.zeros(B, dtype=torch.int64, device=dev)
     if B == 0:
         return found, above, below, summ
-    rc = library("layered").spn_layered_classify(
+    _launch(
+        layered_classify, "layered", "spn_layered_classify", dev,
         *_layered_head(index), reads_rev.data_ptr(), lens.data_ptr(), B,
         reads_rev.shape[1], int(max_value_thr), int(bin_width),
         found.data_ptr(),
-        above.data_ptr(), below.data_ptr(), summ.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "layered_classify")
-    layered_classify.launches += 1
+        above.data_ptr(), below.data_ptr(), summ.data_ptr())
     return found, above, below, summ
 
 
@@ -731,15 +785,13 @@ def occ_scan(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
     docs = torch.zeros_like(vals) if use_doc else None
     if vals.numel() == 0:
         return vals, docs
-    rc = library("occblock").spn_occ_scan(
+    _launch(
+        occ_scan, "occblock", "spn_occ_scan", dev,
         *_occ_head(index), m.S0, m.D0, m.n,
         m.last_run_sample, m.last_run_edoc, m.first_run_sdoc,
         tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
         reads_rev.shape[0], reads_rev.shape[1], code, vals.data_ptr(),
-        0 if docs is None else docs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "occ_scan")
-    occ_scan.launches += 1
+        0 if docs is None else docs.data_ptr())
     return vals, docs
 
 
@@ -764,14 +816,13 @@ def occ_classify(index: OccIndex, tab: torch.Tensor, reads_rev: torch.Tensor,
     summ = torch.zeros(B, dtype=torch.int64, device=dev)
     if B == 0:
         return found, above, below, summ
-    rc = library("occblock").spn_occ_classify(
+    _launch(
+        occ_classify, "occblock", "spn_occ_classify", dev,
         *_occ_head(index), index.meta.n,
         tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
         B, reads_rev.shape[1], int(max_value_thr), int(bin_width),
         found.data_ptr(), above.data_ptr(), below.data_ptr(),
-        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "occ_classify")
-    occ_classify.launches += 1
+        summ.data_ptr())
     return found, above, below, summ
 
 
@@ -832,12 +883,10 @@ def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor):
     if out.numel() == 0:
         return out
     k = 0 if exc is None else exc.shape[0]
-    rc = library("staging").spn_unpack2(
+    _launch(
+        unpack2, "staging", "spn_unpack2", packed.device,
         packed.data_ptr(), lens.data_ptr(), B, Q, _table_word(values),
-        exc.data_ptr() if k else 0, k, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    _raise_on(rc, "unpack2")
-    unpack2.launches += 1
+        exc.data_ptr() if k else 0, k, out.data_ptr())
     return out
 
 
@@ -860,12 +909,10 @@ def unpack4(packed: torch.Tensor, lens: torch.Tensor, table=None):
     if out.numel() == 0:
         return out
     table = tuple(range(16)) if table is None else table
-    rc = library("staging").spn_unpack4(
+    _launch(
+        unpack4, "staging", "spn_unpack4", packed.device,
         packed.data_ptr(), lens.data_ptr(), B, H, _table_word(table[:8]),
-        _table_word(table[8:]), out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    _raise_on(rc, "unpack4")
-    unpack4.launches += 1
+        _table_word(table[8:]), out.data_ptr())
     return out
 
 
@@ -877,16 +924,24 @@ unpack4.launches = 0
 # ---------------------------------------------------------------------------
 
 def _check_shards(name: str, tables, dev: torch.device) -> None:
-    """Every shard of each (label, ShardedTable or None) on `dev` and
-    contiguous: the kernels read every shard on the reads' device and
-    stream (a ShardedTable holds 1 to MAX_SHARDS of them)."""
+    """Every shard of each (label, ShardedTable or None) contiguous and on
+    `dev`, or on a CUDA peer of it whose memory enable_peer_access opened
+    to it: the kernels, launched on the reads' device and stream, read
+    every shard through its pointer (a ShardedTable holds 1 to MAX_SHARDS
+    of them)."""
     for label, table in tables:
         if table is None:
             continue
         for i, t in enumerate(table.shards):
-            if t.device != dev:
+            peer = (dev.type == t.device.type == "cuda"
+                    and (dev.index or 0, t.device.index or 0) in _peers)
+            if t.device != dev and not peer:
                 raise ValueError(f"{name}: shard {i} of {label} is on "
-                                 f"{t.device}, reads on {dev}")
+                                 f"{t.device}, reads on {dev}"
+                                 + (" (no peer access: "
+                                    "kernels.enable_peer_access)"
+                                    if t.device.type == dev.type == "cuda"
+                                    else ""))
             if not t.is_contiguous():
                 raise ValueError(f"{name}: inputs must be contiguous")
 
@@ -923,15 +978,14 @@ def pml_classify_tp(index: ShardedBlockBits, tab: torch.Tensor,
     if B == 0:
         return found, above, below, summ
     m, rows = index.meta, index.bblocks
-    rc = library("blockbits_pml").spn_pml_classify_tp(
+    _launch(
+        pml_classify_tp, "blockbits_pml", "spn_pml_classify_tp", dev,
         _shard_ptrs(rows), rows.S, rows.rows_per_shard, rows.shape[0], m.P,
         m.pack, int(m.wide), m.n, m.term_pos, m.F_term, m.term_code,
         tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
         B, reads_rev.shape[1], int(max_value_thr), int(bin_width),
         found.data_ptr(), above.data_ptr(), below.data_ptr(),
-        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "pml_classify_tp", index)
-    pml_classify_tp.launches += 1
+        summ.data_ptr(), index=index)
     return found, above, below, summ
 
 
@@ -972,15 +1026,14 @@ def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
     levels = (ctypes.c_longlong * (2 * m.depth))(
         *(lv.data_ptr() for lv in index.levels),
         *(lv.shape[0] for lv in index.levels))
-    rc = library("layered").spn_layered_classify_tp(
+    _launch(
+        layered_classify_tp, "layered", "spn_layered_classify_tp", dev,
         index.charmeta.data_ptr(), levels, m.depth, _shard_ptrs(fields),
         fields.S, fields.rows_per_shard, m.r + 1, m.probe_bound, m.width,
         int(m.wide), m.n, reads_rev.data_ptr(), lens.data_ptr(), B,
         reads_rev.shape[1], int(max_value_thr), int(bin_width),
         found.data_ptr(), above.data_ptr(), below.data_ptr(),
-        summ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "layered_classify_tp")
-    layered_classify_tp.launches += 1
+        summ.data_ptr())
     return found, above, below, summ
 
 
@@ -1022,17 +1075,15 @@ def ms_scan_tp(index: ShardedBlockBits, tab: torch.Tensor,
     jumps = index.jump_t if index.jump_t is not None else index.jump_d
     rows = index.bblocks
     ptrs = lambda t: None if t is None else _shard_ptrs(t)  # noqa: E731
-    rc = library("blockbits_ms").spn_ms_scan_tp(
+    _launch(
+        ms_scan_tp, "blockbits_ms", "spn_ms_scan_tp", dev,
         _shard_ptrs(rows), _shard_ptrs(index.msrows), rows.S,
         rows.rows_per_shard, rows.shape[0], m.P, m.pack, int(m.wide), m.n,
         m.term_pos, m.F_term, m.term_code, m.r, m.term_runidx,
         tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
         reads_rev.shape[0], reads_rev.shape[1], ptrs(index.jump_t),
         ptrs(index.jump_d), jumps.rows_per_shard, code, vals.data_ptr(),
-        0 if docs is None else docs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "ms_scan_tp", index)
-    ms_scan_tp.launches += 1
+        0 if docs is None else docs.data_ptr(), index=index)
     return vals, docs
 
 
@@ -1065,13 +1116,12 @@ def ms_extend_tp(text: ShardedTable, text_bound: int,
     out = torch.zeros_like(ptrs)
     if out.numel() == 0:
         return out
-    rc = library("blockbits_ms").spn_ms_extend_tp(
+    _launch(
+        ms_extend_tp, "blockbits_ms", "spn_ms_extend_tp", lens.device,
         _shard_ptrs(text), text.S, text.rows_per_shard, int(text_bound),
         reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
         ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
-        out.data_ptr(), torch.cuda.current_stream(lens.device).cuda_stream)
-    _raise_on(rc, "ms_extend_tp")
-    ms_extend_tp.launches += 1
+        out.data_ptr())
     return out
 
 

@@ -33,8 +33,18 @@ and lists no exceptions for it (ROADMAP section C). Reads longer than CHUNK
 go through the same kernels in one launch: the carry is per lane, so no
 chunk state is kept (the occ-block scan resolves its one-step lag per lane
 too).
+
+`to_devices` makes an engine data-parallel, as the JAX package's `to_mesh`
+does over a mesh's `data` axis: each staged group's lanes are cut into one
+contiguous slice per listed device (a device may repeat), each slice
+uploaded to its device and scanned there on that device's copy of the
+index (or its placed shards), every slice's kernels launched before any
+output is fetched, and the outputs merged back in lane order.
 """
 from __future__ import annotations
+
+import copy
+import itertools
 
 import numpy as np
 import torch
@@ -90,9 +100,35 @@ class ScanEngine:
         self.use_doc = use_doc
         self.device = (index.charmeta if self.layered else index.blocks
                        if self.occ else index.bblocks).device
+        self.devices = [self.device]   # one lane slice of a group each
+        self._indexes = [index]        # the index devices[k] reads
         self._stage_alpha = None   # cached, monotonically growing alphabet
         self._stage_amap = None    # its 256-byte LUT (255 = not covered)
-        self._tabs: dict = {}      # alphabet -> table on self.device
+        self._tabs: dict = {}      # (alphabet, device) -> table there
+        self._groups = itertools.count()   # ids of staged groups
+
+    def to_devices(self, devices, indexes=None) -> "ScanEngine":
+        """Makes this engine data-parallel over `devices` (the JAX
+        package's ScanEngine.to_mesh, scan_engine.py:1263-1275): stage cuts
+        each group's lanes into len(devices) contiguous slices, slice k on
+        devices[k]; classify_staged and query_staged launch every slice's
+        kernels before fetching any output. `indexes[k]` is the index
+        devices[k]'s launches read (default: this engine's index, one copy
+        on each distinct device; a sharded index with its shards placed
+        across cards by parallel/tp.py::place_shards). A device may repeat
+        (its slices then share one copy)."""
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("to_devices needs at least one device")
+        if indexes is None:
+            copies = {self.device: self.index}
+            indexes = [copies[d] if d in copies else copies.setdefault(
+                d, _index_on(self.index, d)) for d in devices]
+        if len(indexes) != len(devices):
+            raise ValueError(f"{len(indexes)} indexes for {len(devices)} "
+                             f"devices")
+        self.devices, self._indexes = devices, list(indexes)
+        return self
 
     # ------------------------------------------------------------------
     # the staged alphabet: a superset alphabet is always correct (absent
@@ -119,11 +155,11 @@ class ScanEngine:
             amap[c] = i
         return amap
 
-    def _table(self, alphabet: tuple) -> torch.Tensor:
-        tab = self._tabs.get(alphabet)
+    def _table(self, alphabet: tuple, device: torch.device) -> torch.Tensor:
+        tab = self._tabs.get((alphabet, device))
         if tab is None:
-            tab = self._tabs[alphabet] = self.table.table_for_alphabet(
-                alphabet).to(self.device)
+            tab = self._tabs[alphabet, device] = \
+                self.table.table_for_alphabet(alphabet).to(device)
         return tab
 
     # ------------------------------------------------------------------
@@ -142,7 +178,10 @@ class ScanEngine:
         the device. Runs in the prefetch thread while the device works on
         the previous batch. Returns the staged groups that classify_staged /
         query_staged consume; each carries its bits, its 2-bit values
-        (`ranks2`) and its alphabet, which later batches may extend."""
+        (`ranks2`) and its alphabet, which later batches may extend. On a
+        data-parallel engine (to_devices) each group is cut into one
+        staged part per device, lanes in order, all with the group's
+        `group` id; part k carries `replica` k."""
         lens_all = np.asarray(packed.lens)
         if (lens_all == 0).any():
             i = int(np.flatnonzero(lens_all == 0)[0])
@@ -168,12 +207,6 @@ class ScanEngine:
                     bits, rows, exc = self._pack_rev(buf, starts, ends, L)
                     alpha = self._stage_alpha
                     ranks2 = tuple(int(self._stage_amap[c]) for c in _ACGT)
-                g = {"idxs": sel, "L": L, "lens": lens, "bits": bits,
-                     "ranks2": ranks2, "alpha": alpha,
-                     "rev_p": self._put(rows), "exc_d": self._put(exc),
-                     "lens_d": self._put(lens)}
-                if not self.layered:
-                    g["tab"] = self._table(alpha)
                 if self.mode == "ms":
                     if bits == 4:   # ranks, mapped back to bytes by K12
                         fbits, fwd, fexc = 4, pack_rows_native(
@@ -182,14 +215,27 @@ class ScanEngine:
                     else:
                         fbits, fwd, fexc = _pack_raw(buf, starts, ends, L,
                                                      False, bits)
-                    g.update(fwd_bits=fbits, fwd_p=self._put(fwd),
-                             fexc_d=self._put(fexc))
-                groups.append(g)
+                gid = next(self._groups)
+                for k, (lo, hi) in enumerate(_slices(len(sel),
+                                                     len(self.devices))):
+                    if lo == hi:
+                        continue
+                    dev = self.devices[k]
+                    g = {"idxs": sel[lo:hi], "L": L, "lens": lens[lo:hi],
+                         "bits": bits, "ranks2": ranks2, "alpha": alpha,
+                         "rev_p": _put(rows[lo:hi], dev),
+                         "exc_d": _put(_exc_rows(exc, lo, hi, len(sel)),
+                                       dev),
+                         "lens_d": _put(lens[lo:hi], dev),
+                         "group": gid, "replica": k}
+                    if not self.layered:
+                        g["tab"] = self._table(alpha, dev)
+                    if self.mode == "ms":
+                        g.update(fwd_bits=fbits, fwd_p=_put(fwd[lo:hi], dev),
+                                 fexc_d=_put(_exc_rows(fexc, lo, hi,
+                                                       len(sel)), dev))
+                    groups.append(g)
         return groups
-
-    def _put(self, a):
-        """A host array on self.device; None (no exceptions) stays None."""
-        return None if a is None else torch.from_numpy(a).to(self.device)
 
     def _pack_rev(self, buf, starts, ends, L: int):
         """(bits, packed reversed rows, exceptions) in staged-alphabet ranks,
@@ -245,24 +291,29 @@ class ScanEngine:
                                    _alpha_table(g["alpha"]))
         return g["fwd_p"]
 
+    def _index(self, g):
+        """The index the staged part g's launches read (its device's)."""
+        return self._indexes[g["replica"]]
+
     def _scan(self, g, rev, mode: str, use_doc: bool):
         """(vals, docs) [B, L] on the device for the group's decoded rows
         `rev`: K7 on the layered engine, K9 on the occ-block engine, K3 on
         block-bits (MS, or PML with doc tracking), K15 on sharded
         block-bits."""
+        index = self._index(g)
         if self.sharded:
             if self.layered:
                 raise ValueError("a sharded layered index serves "
                                  "report-only PML only")
-            return kernels.ms_scan_tp(self.index, g["tab"], rev, g["lens_d"],
+            return kernels.ms_scan_tp(index, g["tab"], rev, g["lens_d"],
                                       mode, use_doc)
         if self.layered:
-            return kernels.layered_scan(self.index, rev, g["lens_d"], mode,
+            return kernels.layered_scan(index, rev, g["lens_d"], mode,
                                         use_doc)
         if self.occ:
-            return kernels.occ_scan(self.index, g["tab"], rev, g["lens_d"],
-                                    mode, use_doc)
-        return kernels.ms_scan(self.index, g["tab"], rev, g["lens_d"], mode,
+            return kernels.occ_scan(index, g["tab"], rev, g["lens_d"], mode,
+                                    use_doc)
+        return kernels.ms_scan(index, g["tab"], rev, g["lens_d"], mode,
                                use_doc)
 
     def _ms_values(self, g, rev, use_doc: bool):
@@ -271,9 +322,9 @@ class ScanEngine:
         decoded forward rows."""
         ptrs, docs = self._scan(g, rev, "ms", use_doc)
         extend = kernels.ms_extend_tp if self.sharded else kernels.ms_extend
+        index = self._index(g)
         mats = {"pointers": ptrs, "lengths": extend(
-            self.index.text, self.index.text_bound, self._fwd_d(g),
-            g["lens_d"], ptrs)}
+            index.text, index.text_bound, self._fwd_d(g), g["lens_d"], ptrs)}
         if use_doc:
             mats["docs"] = docs
         return mats
@@ -283,7 +334,8 @@ class ScanEngine:
         the batch's read order. PML: K2, K8 on the layered engine or K10 on
         the occ-block engine, K13 / K14 on a sharded index; MS: K3, K7 or
         K9 -> K4 -> K5 (the port of _classify_ms_dev). Only [B] summaries
-        leave the device."""
+        leave the device; the parts of a group on several devices are all
+        launched before any is fetched."""
         if self.use_doc:
             raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
@@ -291,60 +343,73 @@ class ScanEngine:
                "above": np.zeros(n, dtype=np.int64),
                "below": np.zeros(n, dtype=np.int64),
                "sum_maxes": np.zeros(n, dtype=np.int64)}
-        for g in staged:
-            rev = self._rev_d(g)
-            if self.mode == "pml" and self.layered:
-                classify = (kernels.layered_classify_tp if self.sharded
-                            else kernels.layered_classify)
-                res = classify(self.index, rev, g["lens_d"], max_value_thr,
-                               bin_width)
-            elif self.mode == "pml" and self.occ:
-                res = kernels.occ_classify(self.index, g["tab"], rev,
-                                           g["lens_d"], max_value_thr,
-                                           bin_width)
-            elif self.mode == "pml":
-                classify = (kernels.pml_classify_tp if self.sharded
-                            else kernels.pml_classify)
-                res = classify(self.index, g["tab"], rev, g["lens_d"],
-                               max_value_thr, bin_width)
-            else:
-                res = kernels.binmax_values(
-                    self._ms_values(g, rev, False)["lengths"], g["lens_d"],
-                    max_value_thr, bin_width)
-            for key, v in zip(("found", "above", "below", "sum_maxes"), res):
-                out[key][g["idxs"]] = v.cpu().numpy()
+        for parts in _rounds(staged):
+            launched = [(g, self._classify(g, bin_width, max_value_thr))
+                        for g in parts]
+            for g, res in launched:
+                for key, v in zip(("found", "above", "below", "sum_maxes"),
+                                  res):
+                    out[key][g["idxs"]] = v.cpu().numpy()
         return out
+
+    def _classify(self, g, bin_width: int, max_value_thr: int):
+        """The staged part g's (found, above, below, sum_maxes) on its
+        device, launched, not fetched."""
+        rev = self._rev_d(g)
+        index = self._index(g)
+        if self.mode == "pml" and self.layered:
+            classify = (kernels.layered_classify_tp if self.sharded
+                        else kernels.layered_classify)
+            return classify(index, rev, g["lens_d"], max_value_thr,
+                            bin_width)
+        if self.mode == "pml" and self.occ:
+            return kernels.occ_classify(index, g["tab"], rev, g["lens_d"],
+                                        max_value_thr, bin_width)
+        if self.mode == "pml":
+            classify = (kernels.pml_classify_tp if self.sharded
+                        else kernels.pml_classify)
+            return classify(index, g["tab"], rev, g["lens_d"],
+                            max_value_thr, bin_width)
+        return kernels.binmax_values(
+            self._ms_values(g, rev, False)["lengths"], g["lens_d"],
+            max_value_thr, bin_width)
 
     def query_staged(self, staged) -> dict:
         """Per-read value arrays over staged groups, in the batch's read
         order: 'lengths' (PML: K1, or K3 with doc tracking, K7 on the
         layered engine, K9 on the occ-block engine; MS: K4, K16 on a sharded
         index), 'pointers' (MS: K3, K7, K9 or K15) and 'docs' (doc tracking:
-        K3, K7, K9 or K15). A sharded index has no PML value scan."""
+        K3, K7, K9 or K15). A sharded index has no PML value scan. The
+        parts of a group on several devices are all launched before any is
+        fetched."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
             fields.append("docs")
         out = {f: [None] * n for f in fields}
-        for g in staged:
-            rev = self._rev_d(g)
-            if self.mode == "ms":
-                mats = self._ms_values(g, rev, self.use_doc)
-            elif self.use_doc or self.layered or self.occ:
-                lengths, docs = self._scan(g, rev, "pml", self.use_doc)
-                mats = {"lengths": lengths, "docs": docs}
-            elif self.sharded:
-                raise ValueError("a sharded index serves PML values only "
-                                 "with doc ids (report-only PML: "
-                                 "classify_staged)")
-            else:
-                mats = {"lengths": kernels.pml_scan(
-                    self.index, g["tab"], rev, g["lens_d"])}
-            for f in fields:
-                vals = mats[f].cpu().numpy()
-                for j, i in enumerate(g["idxs"]):
-                    out[f][i] = vals[j, :g["lens"][j]]
+        for parts in _rounds(staged):
+            launched = [(g, self._values(g)) for g in parts]
+            for g, mats in launched:
+                for f in fields:
+                    vals = mats[f].cpu().numpy()
+                    for j, i in enumerate(g["idxs"]):
+                        out[f][i] = vals[j, :g["lens"][j]]
         return out
+
+    def _values(self, g) -> dict:
+        """The staged part g's value matrices on its device, launched, not
+        fetched."""
+        rev = self._rev_d(g)
+        if self.mode == "ms":
+            return self._ms_values(g, rev, self.use_doc)
+        if self.use_doc or self.layered or self.occ:
+            lengths, docs = self._scan(g, rev, "pml", self.use_doc)
+            return {"lengths": lengths, "docs": docs}
+        if self.sharded:
+            raise ValueError("a sharded index serves PML values only with "
+                             "doc ids (report-only PML: classify_staged)")
+        return {"lengths": kernels.pml_scan(self._index(g), g["tab"], rev,
+                                            g["lens_d"])}
 
     # ------------------------------------------------------------------
     # list API
@@ -370,6 +435,43 @@ class ScanEngine:
             for j, i in enumerate(keep):
                 full[f][i] = vals[j]
         return full
+
+
+def _index_on(index, device: torch.device):
+    """A copy of the index module with every buffer on `device` (the
+    module's own `.to` would move it in place)."""
+    return copy.deepcopy(index, memo={id(t): t.to(device)
+                                      for t in index.buffers()})
+
+
+def _slices(B: int, parts: int) -> list:
+    """[lo, hi) of `parts` contiguous lane slices of B lanes, in order,
+    sizes differing by at most one (empty where B < parts)."""
+    return [(k * B // parts, (k + 1) * B // parts) for k in range(parts)]
+
+
+def _exc_rows(exc, lo: int, hi: int, B: int):
+    """The [k, 3] (row, col, byte) exceptions of rows [lo, hi) of B, rows
+    counted from lo; None where there are none."""
+    if exc is None or (lo, hi) == (0, B):
+        return exc
+    part = exc[(exc[:, 0] >= lo) & (exc[:, 0] < hi)]
+    if not len(part):
+        return None
+    part = part.copy()
+    part[:, 0] -= lo
+    return part
+
+
+def _put(a, device: torch.device):
+    """A host array on `device`; None (no exceptions) stays None."""
+    return None if a is None else torch.from_numpy(a).to(device)
+
+
+def _rounds(staged):
+    """The staged parts in runs of one group each (one part per device)."""
+    return (list(parts) for _, parts in itertools.groupby(
+        staged, key=lambda g: g["group"]))
 
 
 def _pack_raw(buf, starts, ends, L: int, reverse: bool, bits: int):

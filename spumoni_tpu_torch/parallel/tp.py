@@ -5,8 +5,9 @@ largest tables of an index by rows over the `model` axis of a device mesh
 and rebuilds every row a scan step reads with an owner-masked local gather
 and a psum. The port cuts the same tables by rows into S shards, each a
 tensor of its own, and kernels K13-K16 (`engine/kernels.py`) read row r
-straight from shard r // rows_per_shard. Until multi-GPU runs (ROADMAP A9)
-all S shards sit on the run's device.
+straight from shard r // rows_per_shard. On one device all S shards sit on
+it; `place_shards` puts shard i on the i-th of several cards, whose
+kernels then read each other's shards as peers.
 
   * `shard_blockbits`: block-bits `bblocks`, zero-padded to a multiple of
     S rows (tp.py:92-109), for report-only PML (K13).
@@ -16,6 +17,8 @@ all S shards sit on the run's device.
   * `shard_layered`: layered `fields` padded with sentinel rows (F_START =
     n, zeros elsewhere: tp.py:65-89), probes clipped to the JAX sharded
     table's padded row count, for report-only PML (K14).
+  * `place_shards`: a copy with shard i of every table on devices[i %
+    len(devices)] and the unsharded tables on devices[0].
   * `from_jax`: the same sharded index from the state of a JAX
     `TpPmlClassifier` or `TpMsQuery`.
 
@@ -44,6 +47,9 @@ _GATHER_ROW_CLIFF = 1 << 17
 _FIELD_GROUP = 16
 #: bytes of one row of the JAX package's sharded text table
 TEXT_ROW = 512
+#: K16's limit on its shards' bytes (csrc/blockbits_ms.cu, spn_ms_extend_tp:
+#: 16-byte words counted in 32 bits)
+MAX_SHARDED_TEXT = 1 << 36
 
 
 class ShardedTable(nn.Module):
@@ -237,9 +243,14 @@ def shard_text(text: torch.Tensor, S: int) -> ShardedTable:
     """The text in S shards as JAX's rows512 table holds it (tp.py:284-292):
     whole 512-byte rows, one more than the text fills, zero-padded to a
     multiple of S rows."""
-    rows512 = -(-int(text.shape[0]) // TEXT_ROW) + 1
-    return ShardedTable.from_rows(text, S, rows_per_shard=-(
-        -rows512 // S) * TEXT_ROW)
+    return ShardedTable.from_rows(text, S, rows_per_shard=sharded_text_bytes(
+        int(text.shape[0]), S) // S)
+
+
+def sharded_text_bytes(ntext: int, S: int) -> int:
+    """The bytes shard_text's S shards hold for a text of ntext bytes."""
+    rows512 = -(-ntext // TEXT_ROW) + 1
+    return -(-rows512 // S) * TEXT_ROW * S
 
 
 def sharded_probe_bound(probe_bound: int, S: int) -> int:
@@ -266,6 +277,33 @@ def shard_layered(index: lay.LayeredIndex, S: int,
         index.charmeta, index.levels,
         ShardedTable.from_rows(index.fields, S, pad_row=pad),
         m._replace(probe_bound=bound))
+
+
+def place_shards(index, devices):
+    """A copy of the ShardedBlockBits or ShardedLayered `index` with shard i
+    of each table on devices[i % len(devices)], and the unsharded tables
+    (the layered charmeta and levels) on devices[0], where its kernels
+    launch. They read the other devices' shards as peers, so the peer
+    access between the CUDA devices of `devices` is opened first
+    (kernels.enable_peer_access raises where a pair has none)."""
+    from ..engine import kernels   # kernels imports this module
+
+    devices = [torch.device(d) for d in devices]
+    kernels.enable_peer_access(devices)
+
+    def place(table):
+        return None if table is None else ShardedTable(
+            t.to(devices[i % len(devices)])
+            for i, t in enumerate(table.shards))
+
+    if isinstance(index, ShardedLayered):
+        return ShardedLayered(index.charmeta.to(devices[0]),
+                              [lv.to(devices[0]) for lv in index.levels],
+                              place(index.fields), index.meta)
+    return ShardedBlockBits(index.meta, place(index.bblocks),
+                            place(index.msrows), place(index.jump_t),
+                            place(index.jump_d), place(index.text),
+                            index.text_len)
 
 
 def from_jax(arrays_np: dict, meta_fields: dict, S: int,

@@ -18,10 +18,18 @@ its glibc rand() draws kept in global read order. Outputs
 (`.pseudo_lengths`, `.lengths`, `.pointers`, `.doc_numbers`, `.report`)
 are byte-identical to the JAX package's. `--tp-devices S` shards the
 index (parallel/tp.py) for report-only PML and -M value runs, as the JAX
-package's sharded path does; all S shards sit on the run's device.
+package's sharded path does, and past the memory budget of several cards
+the run shards on its own (`_tp_decision`).
 
-What this slice does not cover raises NotImplementedError naming its
-ROADMAP item; nothing falls back silently.
+With several visible GPUs one process runs on all of them in every mode
+(the JAX package's `to_mesh`): the index is replicated on each, each
+staged group's lanes are split over them (`ScanEngine.to_devices`), and a
+sharded index puts shard i of each group of S cards on its i-th card,
+read by its peers (S must divide the card count). Under
+SPUMONI_NUM_PROCESSES = P > 1 (parallel/distributed.py) host p streams
+the records i % P == p into its own shard files and cursor, and after the
+one end-of-run all-gather process 0 merges the shards into the files a
+single process writes. Nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -51,8 +59,10 @@ from .index.format import (DenseIndex, build_dense_index, build_doc_arrays,
 from .index.null_db import EmpNullDatabase
 from .io import fasta, fastx_batch, minimizers
 from .native import NativeQueryEngine, build_raw_index
-from .parallel.tp import (MAX_SHARDS, shard_blockbits, shard_blockbits_ms,
-                          shard_layered)
+from .parallel import distributed as dist
+from .parallel.tp import (MAX_SHARDED_TEXT, MAX_SHARDS, place_shards,
+                          shard_blockbits, shard_blockbits_ms, shard_layered,
+                          sharded_text_bytes)
 
 #: stats of the most recent run()'s streaming loop: reads, bases, stream_s
 LAST_RUN_STATS: dict = {}
@@ -461,12 +471,12 @@ class RunConfig:
     w: int = DEFAULT_MIN_W
     bin_size: int = DEFAULT_BIN_SIZE
     threads: int = 1
-    device: str = "cuda"      # 'cuda': the CUDA kernels on one GPU; 'cpu':
-                              # their plain PyTorch versions
+    device: str = "cuda"      # 'cuda': the CUDA kernels on every visible
+                              # GPU; 'cpu': their plain PyTorch versions
     batch_bases: int = 33_554_432  # bases per streamed batch
     resume: bool = False      # resume from the durable read cursor
-    process_index: int = 0    # multi-process read sharding (ROADMAP A9)
-    process_count: int = 1
+    process_index: int = 0    # multi-process read sharding: this host owns
+    process_count: int = 1    # the records i % process_count == index
     ks_report: bool = False   # classify via windowed KS test instead of
                               # bin-max (the reference's build-time-live path,
                               # ks_test.cpp + compute_ms_pml.cpp:942-967)
@@ -474,8 +484,8 @@ class RunConfig:
                               # fused on device and only O(B) verdict
                               # summaries leave it (extension flag; the
                               # reference always writes values)
-    tp_devices: int = 0       # index rows in this many shards (>1), all
-                              # on the run's device until ROADMAP A9
+    tp_devices: int = 0       # index rows in this many shards (>1); 0 or
+                              # 1: sharded only past the cards' memory
     engine: str = "auto"      # 'auto' | 'layered' | 'occ' | 'bits'
 
     @property
@@ -582,28 +592,25 @@ def _prefetched(gen, depth: int = 2):
 
 
 def _check_supported(cfg: RunConfig) -> None:
-    if cfg.process_count > 1:
-        raise NotImplementedError("not in the port yet: multi-process runs "
-                                  "are ROADMAP A9")
+    if not 0 <= cfg.process_index < cfg.process_count:
+        raise ValueError(f"process_index {cfg.process_index} is not in [0, "
+                         f"{cfg.process_count})")
     if cfg.tp_devices > MAX_SHARDS:
         raise ValueError(f"--tp-devices takes at most {MAX_SHARDS} shards")
     if cfg.device not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, not {cfg.device!r}")
 
 
-def select_device(name: str) -> torch.device:
-    """'cpu' runs the plain PyTorch versions; 'cuda' runs the kernels on
-    the first GPU and raises when there is none."""
+def select_devices(name: str) -> list:
+    """The devices a run uses: 'cpu' the CPU (the plain PyTorch versions);
+    'cuda' every visible GPU, cuda:0 first, and raises when there is
+    none."""
     if name == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain versions)")
-    count = torch.cuda.device_count()
-    if count > 1:
-        log("run", f"{count} GPUs visible; running on cuda:0 only "
-                   f"(multi-GPU is ROADMAP A9)")
-    return torch.device("cuda", 0)
+    return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
 
 
 def _uses_blockbits(dense, mode: str, use_doc: bool, engine: str) -> bool:
@@ -619,17 +626,58 @@ def _uses_blockbits(dense, mode: str, use_doc: bool, engine: str) -> bool:
             and (mode == "pml" and not use_doc or dense.r < 2**30))
 
 
-def _tp_decision(*, mode: str, use_doc: bool, report_only: bool,
-                 tp_devices: int) -> int:
-    """The shard count of the index (spumoni_tpu/pipeline.py:614-658): the
-    explicit tp_devices (> 1) for report-only PML without -d and for -M
-    value runs, else 1. The JAX package's automatic sharding past a memory
-    budget is left out until the shards can sit on several GPUs (ROADMAP
-    A9): with every shard on the run's card, sharding cannot make an index
-    fit that card."""
+def _tp_decision(dense, *, mode: str, use_doc: bool, report_only: bool,
+                 tp_devices: int, engine: str = "auto", ndev: int = 1) -> int:
+    """The shard count of the index (spumoni_tpu/pipeline.py:614-658), for
+    report-only PML without -d and -M value runs (else 1): the explicit
+    tp_devices (> 1); else, with ndev >= 2 cards (1 for the CPU), 1 when
+    the estimated engine footprint fits the budget (SPN_HBM_BUDGET_GB where
+    set, else the least free memory of the cards, `_card_budget`), or the
+    smallest power of two from 2 whose share fits, stopping at the first
+    at or past ndev."""
     pml_ok = report_only and mode == "pml" and not use_doc
     ms_ok = mode == "ms" and not report_only
-    return tp_devices if tp_devices > 1 and (pml_ok or ms_ok) else 1
+    if not (pml_ok or ms_ok):
+        return 1
+    if tp_devices > 1:
+        return tp_devices
+    if tp_devices < 0 or ndev < 2:
+        return 1
+    bits_ok = engine in ("auto", "bits") and eligible_any(dense)
+    if ms_ok:
+        if not (bits_ok and dense.has_samples and dense.r < 2**30
+                and dense.text is not None
+                and (not use_doc or dense.has_doc)):
+            return 1   # sharded MS rides the block-bits MS tables only
+        ssz = 8 if dense.n >= 2**31 else 4
+        nb = -(-dense.n // 512)
+        est = (nb * 404                      # rows (wide upper bound)
+               + nb * 68 * 4                 # msrows (pack=2: 68 i32 words)
+               + (2 * dense.r + 2) * ssz     # jump_t
+               + (((2 * dense.r + 2) * 4) if use_doc else 0)
+               + dense.n)                    # the text bytes
+    elif bits_ok:
+        est = (-(-dense.n // 512)) * 404     # P=512 row bytes (wide)
+    else:
+        est = (dense.r + 1) * 8 * 4 * 2      # layered fields upper bound
+    budget = _card_budget(ndev)
+    if est <= budget:
+        return 1
+    tp_n = 2
+    while tp_n < ndev and est / tp_n > budget:
+        tp_n *= 2
+    log("run", f"auto TP: estimated index {est / 1e9:.1f} GB exceeds the "
+               f"{budget / 1e9:.0f} GB budget")
+    return tp_n
+
+
+def _card_budget(ndev: int) -> float:
+    """Bytes of index one card may hold: SPN_HBM_BUDGET_GB where set, else
+    the least free memory of cuda:0 .. cuda:ndev-1."""
+    env = os.environ.get("SPN_HBM_BUDGET_GB")
+    if env:
+        return float(env) * 1e9
+    return float(min(torch.cuda.mem_get_info(k)[0] for k in range(ndev)))
 
 
 def _sharded_index(dense, S: int, index_path: str, mode: str, use_doc: bool,
@@ -639,15 +687,20 @@ def _sharded_index(dense, S: int, index_path: str, mode: str, use_doc: bool,
     whatever --engine says, as the JAX package builds them; for report-only
     PML the block-bits rows when --engine allows and they hold the index,
     else the layered fields. Built on the host, then cut into shards: the
-    device never holds the whole table beside its shards. The JAX check
-    that S divides the device count has no counterpart: every shard sits on
-    the run's device until multi-GPU runs (ROADMAP A9)."""
+    device never holds the whole table beside its shards. A text whose
+    shards would hold 2^36 bytes or more, past K16's limit, is refused
+    here, before anything is built."""
     if mode == "ms":
         if not (eligible_any(dense) and dense.has_samples
                 and dense.r < 2**30 and dense.text is not None):
             raise ValueError("--tp-devices for -M needs a v4-MS-capable "
                              "index (SA samples + text, sigma <= 8, "
                              "r < 2^30)")
+        nbytes = sharded_text_bytes(len(dense.text), S)
+        if nbytes >= MAX_SHARDED_TEXT:
+            raise ValueError(f"--tp-devices {S}: the text's shards would "
+                             f"hold {nbytes} bytes; K16 (ms_extend_tp) "
+                             f"reads at most 2^36 - 1")
         index, table = build_blockbits(
             dense, cache_path=index_path + ".bbrows.npz",
             src_path=index_path + ".npz", want_ms=True, want_doc=use_doc,
@@ -664,7 +717,7 @@ def _sharded_index(dense, S: int, index_path: str, mode: str, use_doc: bool,
 def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                 use_doc: bool = False, engine: str = "auto",
                 fast_start: bool = True, tp_devices: int = 0,
-                report_only: bool = False) -> ScanEngine:
+                report_only: bool = False, devices=None) -> ScanEngine:
     """The engine for the index at index_path, chosen as the JAX package
     chooses (`_uses_blockbits`; `occ` only when asked for). Block-bits PML
     without doc tracking (with `auto` / `bits`, fast_start and no explicit
@@ -672,8 +725,11 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
     SPN_HBM_BUDGET_GB (default 12); otherwise the dense index is loaded and
     the block-bits rows (and for MS / doc tracking the msrows,
     `.bbms.npz`) are built or loaded from their caches, or the layered or
-    occ-block tables are built. With tp_devices (RunConfig's) > 1 and a
-    mode `_tp_decision` allows, the index is sharded (`_sharded_index`)."""
+    occ-block tables are built. Where `_tp_decision` gives S > 1 shards,
+    the index is sharded (`_sharded_index`). `devices` (default [device],
+    device first): with several, the engine is data-parallel over them
+    (ScanEngine.to_devices), a sharded index placed by `_place_sharded`."""
+    devices = list(devices or [device])
     fast = None
     if fast_start and tp_devices <= 1 and engine in ("auto", "bits") \
             and mode == "pml" and not use_doc:
@@ -691,16 +747,20 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
             raise ValueError("-M needs an index built with -M (SA samples "
                              "and text)")
         n, r = dense.n, dense.r
-        S = _tp_decision(mode=mode, use_doc=use_doc, report_only=report_only,
-                         tp_devices=tp_devices)
+        S = _tp_decision(dense, mode=mode, use_doc=use_doc,
+                         report_only=report_only, tp_devices=tp_devices,
+                         engine=engine,
+                         ndev=len(devices) if device.type == "cuda" else 1)
+        if S > 1 and len(devices) > 1 and (len(devices) % S
+                                           or len(devices) < S):
+            raise ValueError(f"--tp-devices {S} does not divide the "
+                             f"{len(devices)} available devices")
         if S > 1:
             index, table = _sharded_index(dense, S, index_path, mode,
                                           use_doc, engine)
-            count = torch.cuda.device_count()
-            log("run", f"sharded index: {S} shards, all on {device}"
-                       + (f" ({count} GPUs visible; placing shards on "
-                          f"several is ROADMAP A9)"
-                          if count > 1 else ""))
+            if len(devices) > 1:
+                return _place_sharded(index, table, devices, mode, use_doc)
+            log("run", f"sharded index: {S} shards, all on {device}")
         elif engine == "occ":
             if not occblock.eligible(dense):
                 raise ValueError("occ engine needs sigma <= 15 and n < 2^31 "
@@ -739,28 +799,52 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
         layout += f", {index.S} shards"
     log("run", f"index resident on {device}: {nbytes / 1e6:.1f} MB "
                f"(n={n}, r={r}, {layout})")
-    return ScanEngine(index, table, mode=mode, use_doc=use_doc)
+    out = ScanEngine(index, table, mode=mode, use_doc=use_doc)
+    if len(devices) > 1:
+        out.to_devices(devices)
+        log("run", f"data-parallel over {len(devices)} devices (reads "
+                   f"split, index replicated)")
+    return out
+
+
+def _place_sharded(index, table, devices, mode: str, use_doc: bool):
+    """The engine of a sharded index across several devices: one group of
+    S consecutive devices for each ndev / S lanes' share of a batch (the
+    `data` axis of the JAX package's make_tp_mesh), shard i of a group on
+    its i-th device, the group's kernels launched on its first and reading
+    the other shards as peers (tp.place_shards opens the peer access)."""
+    S = index.S
+    groups = [devices[g:g + S] for g in range(0, len(devices), S)]
+    placed = [place_shards(index, grp) for grp in groups]
+    out = ScanEngine(placed[0], table, mode=mode, use_doc=use_doc)
+    if len(groups) > 1:
+        out.to_devices([grp[0] for grp in groups], placed)
+    log("run", f"sharded index: {S} shards, shard i of each of "
+               f"{len(groups)} groups on its i-th device "
+               f"({', '.join(str(d) for d in devices)}); reads split over "
+               f"the groups")
+    return out
 
 
 def run(cfg: RunConfig) -> int:
     """Streams the query file through the engine; writes the output files.
-    Returns the number of reads processed."""
+    Returns the number of reads processed (every host's, under P > 1)."""
     cfg.validate()
     _check_supported(cfg)
-    device = select_device(cfg.device)
+    devices = select_devices(cfg.device)
     if cfg.is_general_text:
         base = cfg.ref_file
     else:
         base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
     ms = cfg.mode == "ms"
     engine = make_engine(base + (".thrbv.ms" if ms else ".thrbv.spumoni"),
-                         device, cfg.mode, cfg.use_doc, cfg.engine,
+                         devices[0], cfg.mode, cfg.use_doc, cfg.engine,
                          fast_start=not cfg.is_general_text,
                          # general text runs unsharded, as in the JAX
                          # package (spumoni_tpu/pipeline.py:807-810)
-                         tp_devices=0 if cfg.is_general_text
+                         tp_devices=-1 if cfg.is_general_text
                          else cfg.tp_devices,
-                         report_only=cfg.report_only)
+                         report_only=cfg.report_only, devices=devices)
     if cfg.is_general_text:
         return _run_general_text(cfg, engine)
 
@@ -771,6 +855,7 @@ def run(cfg: RunConfig) -> int:
         cfg.mode)
 
     out_prefix = cfg.pattern_file
+    P, p = cfg.process_count, cfg.process_index
     paths = {}
     if not cfg.report_only:
         if ms:
@@ -783,39 +868,46 @@ def run(cfg: RunConfig) -> int:
     if cfg.write_report:
         paths["report"] = out_prefix + ".report"
 
-    # restartable streaming: the cursor records how many reads are durably
-    # written
-    cursor_path = out_prefix + ".cursor"
+    # restartable streaming: the cursor records how many of this host's
+    # records are durably written
+    cursor_path = dist.shard_path(out_prefix + ".cursor", p, P)
     skip = 0
     if cfg.resume and os.path.exists(cursor_path):
         with open(cursor_path) as f:
             skip = int(f.read().strip() or 0)
-        log("run", f"resuming after {skip} completed reads")
+        log("run", f"resuming after {skip} completed reads"
+                   + (f" (host {p})" if P > 1 else ""))
 
     rep = report
     ks_test = ks_pending = None
     if cfg.write_report and cfg.ks_report:
         # classification starts with srand(0) (compute_ms_pml.cpp:892);
-        # reads skipped by --resume still consume their rand() draws, one
-        # per KS window: the pending queue counts them per yielded read
+        # reads this host does not yield (other hosts', or skipped by
+        # --resume) still consume their rand() draws, one per KS window:
+        # the pending queue counts them per yielded read
         ks_test = kstest.KSTest(null_db, cfg.bin_size, rand=GlibcRand(0))
         ks_thr = null_db.ks_stat_threshold
         ks_pending = deque()
 
-    files = {k: open(v, ("a" if skip else "w") + ("" if k == "report"
-                                                  else "b"))
+    def header():
+        return (rep.ks_report_header(ks_thr) if cfg.ks_report
+                else rep.report_header(thr))
+
+    # a shard's report has no header: process 0's merge writes it
+    files = {k: open(dist.shard_path(v, p, P),
+                     ("a" if skip else "w") + ("" if k == "report" else "b"))
              for k, v in paths.items()}
-    if cfg.write_report and not skip:
-        files["report"].write(rep.ks_report_header(ks_thr) if cfg.ks_report
-                              else rep.report_header(thr))
+    if cfg.write_report and P == 1 and not skip:
+        files["report"].write(header())
 
     # classification and file output run on a writer thread, overlapped
     # with the next batch's device work
-    wstate = {"num": skip, "err": None}
+    wstate = {"found": 0, "num": skip, "err": None}
     wq: queue.Queue = queue.Queue(maxsize=2)
 
     def _write_batch(ids, out):
         if cfg.report_only:
+            wstate["found"] += int(np.count_nonzero(out["found"]))
             for i, rid in enumerate(ids):
                 nbins = int(out["above"][i] + out["below"][i])
                 status = "FOUND" if out["found"][i] else "NOT_PRESENT"
@@ -840,12 +932,14 @@ def run(cfg: RunConfig) -> int:
                     ks_list = ks_test.run_kstest(lengths)
                     above = sum(1 for x in ks_list if x >= ks_thr)
                     found = above / len(ks_list) > 0.50
+                    wstate["found"] += found
                     files["report"].write(rep.ks_report_line(
                         rid, "FOUND" if found else "NOT_PRESENT",
                         sum(ks_list) / len(ks_list), above,
                         len(ks_list) - above))
                 elif cfg.write_report:
                     res = binmax.classify(lengths, cfg.bin_size, thr)
+                    wstate["found"] += res.status == "FOUND"
                     files["report"].write(rep.report_line(
                         rid, res.status, res.avg_max, res.bins_above,
                         res.bins_below))
@@ -871,35 +965,55 @@ def run(cfg: RunConfig) -> int:
         return minimizers.digest_packed(
             pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
 
+    if P > 1:
+        log("run", f"host-stride shard {p}/{P}")
+
     def staged_batches():
+        # host-stride sharding (spumoni_tpu/pipeline.py:1018-1082): every
+        # host parses the whole file and keeps the records it owns (global
+        # index % P == p); the cursor counts owned records
         fb = fastx_batch
-        seen = 0        # records seen (the cursor counts in these units)
-        ks_carry = 0    # rand() draws owed for records not yielded
+        g = 0            # global record index at the batch's start
+        owned_seen = 0   # owned records seen (the cursor's units)
+        ks_carry = 0     # rand() draws owed for records not yielded
         max_lanes = 65536 if cfg.report_only else 8192
         for pk in fb.iter_packed_batches(cfg.pattern_file, cfg.batch_bases,
                                          upper=True):
             npk = len(pk)
+            first = (p - g) % P          # the batch's first owned record
+            g += npk
+            nown = -(-(npk - first) // P) if first < npk else 0
             csum = None
             if ks_pending is not None:
-                # one draw per KS window of the DIGESTED read
-                # (spumoni_tpu/pipeline.py:1040-1050)
+                # one draw per KS window of the DIGESTED read, for every
+                # record of the batch (spumoni_tpu/pipeline.py:1040-1050)
                 pk = digested(pk)
                 nw = kstest.n_windows_batch(pk.lens, cfg.bin_size)
                 csum = np.zeros(npk + 1, dtype=np.int64)
                 np.cumsum(nw, out=csum[1:])
-            if seen + npk <= skip:   # resume: skip whole batches
-                seen += npk
+            if owned_seen + nown <= skip:   # resume: skip whole batches
+                owned_seen += nown
                 if csum is not None:
                     ks_carry += int(csum[npk])
                 continue
-            a = max(0, skip - seen)  # records already durable
-            seen += npk
+            a = max(0, skip - owned_seen)   # owned records already durable
+            owned_seen += nown
+            sel = np.arange(first, npk, P, dtype=np.int64)[a:]
+            if len(sel) == 0:
+                if csum is not None:
+                    ks_carry += int(csum[npk])
+                continue
             if csum is not None:
-                # the first yielded read first draws for the skipped ones
-                ks_pending.append(ks_carry + int(csum[a]))
-                ks_pending.extend([0] * (npk - a - 1))
-                ks_carry = 0
-            if a:
+                # per yielded read: the draws of the records between it and
+                # the previous yielded one (advanced before its test)
+                gaps = np.empty(len(sel), dtype=np.int64)
+                gaps[0] = ks_carry + csum[sel[0]]
+                gaps[1:] = csum[sel[1:]] - csum[sel[:-1] + 1]
+                ks_carry = int(csum[npk] - csum[sel[-1] + 1])
+                ks_pending.extend(int(v) for v in gaps)
+            if P > 1:
+                pk = fb.select_records(pk, sel)
+            elif a:                          # resume: a partial batch
                 pk = fb.PackedReads(pk.ids[a:], pk.buf[pk.offs[a]:].copy(),
                                     (pk.offs[a:] - pk.offs[a]).copy())
             if ks_pending is None:
@@ -936,6 +1050,17 @@ def run(cfg: RunConfig) -> int:
     dt = time.time() - t0
     if os.path.exists(cursor_path):
         os.remove(cursor_path)
+    if P > 1:
+        # the one collective, after every host closed its files: the
+        # all-gather of the counts is the barrier before process 0's merge
+        # (spumoni_tpu/pipeline.py:1118-1132)
+        gf, num_reads = dist.global_found_counts(wstate["found"], num_reads)
+        if p == 0:
+            for k, v in paths.items():
+                dist.merge_shards(v, P, header=header() if k == "report"
+                                  else None)
+            log("run", f"merged {P} host shards; {gf}/{num_reads} reads "
+                       f"FOUND")
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
     LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)
@@ -946,25 +1071,29 @@ def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
     """General-text querying (spumoni_tpu/pipeline.py:1141-1201): reads
     separated by \\x01 (compute_ms_pml.cpp:1219-1297), streamed in batches
     through engine.query; writes `.pseudo_lengths`, or `.lengths` and
-    `.pointers`, and no report; keeps the durable cursor and --resume."""
+    `.pointers`, and no report; keeps the durable cursor and --resume, and
+    the host stride, shard files and merge of `run`."""
     out_prefix = cfg.pattern_file
+    P, p = cfg.process_count, cfg.process_index
     paths = {"lengths": out_prefix + (".lengths" if cfg.mode == "ms"
                                       else ".pseudo_lengths")}
     if cfg.mode == "ms":
         paths["pointers"] = out_prefix + ".pointers"
-    cursor_path = out_prefix + ".cursor"
+    cursor_path = dist.shard_path(out_prefix + ".cursor", p, P)
     skip = 0
     if cfg.resume and os.path.exists(cursor_path):
         with open(cursor_path) as f:
             skip = int(f.read().strip() or 0)
-        log("run", f"resuming after {skip} completed reads")
+        log("run", f"resuming after {skip} completed reads"
+                   + (f" (host {p})" if P > 1 else ""))
     fa = fasta
-    records = (item for i, item in enumerate(
-        fa.iter_general_reads(cfg.pattern_file)) if i >= skip)
+    records = (item for own, (_, item) in enumerate(dist.host_shard_reads(
+        fa.iter_general_reads(cfg.pattern_file), p, P)) if own >= skip)
     num_reads = skip
     t0 = time.time()
     total_bases = 0
-    files = {k: open(v, "ab" if skip else "wb") for k, v in paths.items()}
+    files = {k: open(dist.shard_path(v, p, P), "ab" if skip else "wb")
+             for k, v in paths.items()}
     try:
         for batch in _prefetched(fa.batch_iter(records, cfg.batch_bases)):
             out = engine.query([rd for _, rd in batch])
@@ -983,6 +1112,11 @@ def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
     if os.path.exists(cursor_path):
         os.remove(cursor_path)
     dt = time.time() - t0
+    if P > 1:
+        _, num_reads = dist.global_found_counts(0, num_reads)
+        if p == 0:
+            for v in paths.values():
+                dist.merge_shards(v, P)
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
     LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)

@@ -170,10 +170,10 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from spumoni_tpu_torch import cli
-    from spumoni_tpu_torch.pipeline import select_device
+    from spumoni_tpu_torch.pipeline import select_devices
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        select_device("cuda")
+        select_devices("cuda")
     rng = np.random.default_rng(7)
     genome = rng.choice(ACGT, 3000).tobytes().decode()
     (tmp_path / "g.fa").write_text(f">g\n{genome}\n")
@@ -286,3 +286,54 @@ def test_pml_classify_on_the_edge_reads_on_gpu(layout):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want)), L
     assert kernels.pml_classify.launches == 2
+
+
+@needs_cuda
+def test_data_parallel_engine_on_gpu():
+    """The engine made data-parallel over [cuda:0, cuda:0] (and over every
+    card where there are several: each launch under its own device, shards
+    of none) classifies and scans as the one-device engine does."""
+    from spumoni_tpu_torch.engine.scan_engine import ScanEngine
+
+    text, index, table, _ = _index(13, 9000)
+    index = index.to("cuda")
+    reads = _reads(14, text, 37, 700)
+    one = ScanEngine(index, table)
+    want = one.query(reads), one.classify(reads, 150, 7)
+    lists = [["cuda:0", "cuda:0"]] + (
+        [[f"cuda:{k}" for k in range(torch.cuda.device_count())]]
+        if torch.cuda.device_count() > 1 else [])
+    for devices in lists:
+        many = ScanEngine(index, table).to_devices(devices)
+        kernels.reset_launch_counts()
+        got = many.query(reads), many.classify(reads, 150, 7)
+        assert kernels.pml_scan.launches >= len(devices), devices
+        for g, w in zip(got, want):
+            for key in w:
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(g[key], w[key])), (devices, key)
+
+
+@needs_cuda
+def test_peer_access_on_gpu():
+    """The peer-access entry runs under the guard: a card is no peer of
+    itself (refused); with two cards that can reach each other, a kernel on
+    cuda:0 takes a shard on cuda:1 once place_shards opened the access."""
+    dev = torch.device("cuda", 0)
+    assert kernels._call(dev, "blockbits_ms", "spn_enable_peer_access",
+                         0) != 0
+    kernels.enable_peer_access([dev])
+    if torch.cuda.device_count() < 2 or \
+            not torch.cuda.can_device_access_peer(0, 1):
+        return
+    from spumoni_tpu_torch.parallel import tp
+
+    text, index, table, _ = _index(15, 9000)
+    sharded = tp.place_shards(tp.shard_blockbits(index, 2), ["cuda:0",
+                                                             "cuda:1"])
+    assert {(0, 1), (1, 0)} <= kernels._peers
+    tab, rev, lens = _stage(table, _reads(16, text, 20, 500), 512, "cuda")
+    got = kernels.pml_classify_tp(sharded, tab, rev, lens, 7, 150)
+    want = kernels.pml_classify(index.to("cuda"), tab, rev, lens, 7, 150)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

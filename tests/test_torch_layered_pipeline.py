@@ -201,7 +201,7 @@ def test_auto_engine_choice_matches_jax(msdoc, digested, mode,  # noqa: F811
         cfg = JaxRunConfig(ref_file="", pattern_file="",
                            **{f"{mode}_requested": True}, use_doc=doc)
         jax_bits = hasattr(_make_engine(cfg, dense).arrays, "bblocks")
-        port = tpl.make_engine(path, tpl.select_device("cpu"), mode, doc,
+        port = tpl.make_engine(path, tpl.select_devices("cpu")[0], mode, doc,
                                fast_start=False)
         assert isinstance(port.index, BlockBitsIndex) == jax_bits, path
         assert port.layered == (not jax_bits)

@@ -40,7 +40,7 @@ def test_occ_resume_continues_the_files(msdoc, run_id):  # noqa: F811
 def test_occ_engine_is_the_one_asked_for(msdoc):  # noqa: F811
     """make_engine builds an OccIndex with only the tables the run reads."""
     base = msdoc["ref_file"] + ".fa.thrbv."
-    dev = tpl.select_device("cpu")
+    dev = tpl.select_devices("cpu")[0]
     pml = tpl.make_engine(base + "spumoni", dev, "pml", False, engine="occ")
     ms = tpl.make_engine(base + "ms", dev, "ms", True, engine="occ")
     assert isinstance(pml.index, OccIndex) and pml.occ

@@ -242,14 +242,6 @@ def test_ms_doc_resume_continues_the_files(msdoc, run_id):
     assert _outputs(reads_path, _VALUE_EXTS) == want
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(process_count=2), "A9"),
-])
-def test_uncovered_cases_name_their_roadmap_item(indexed, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tpl.run(tpl.RunConfig(device="cpu", **{**indexed, **kw}))
-
-
 def test_cli_runs_without_jax(tmp_path, rng):
     """`python -m spumoni_tpu_torch build` and `run --device cpu` finish
     with neither jax nor spumoni_tpu imported (-X importtime lists every

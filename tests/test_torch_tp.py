@@ -254,9 +254,10 @@ def test_tp_cli_reachable(tmp_path, rng, monkeypatch, capsys):
     """`run --tp-devices 4` with the block-bits and the layered engine
     writes the JAX package's sharded run's report and the replicated
     run's, byte for byte. Under a tiny SPN_HBM_BUDGET_GB with 8 GPUs
-    visible (the count stubbed) the JAX package shards on its own; the
-    port does not until its shards can sit on several GPUs (ROADMAP A9),
-    and writes the same report."""
+    visible (the count stubbed) the JAX package shards on its own; a
+    --device cpu run of the port does not (the JAX package's rule for its
+    own CPU runs; tests/test_torch_data_parallel.py holds the sizing on
+    several cards), and writes the same report."""
     base = dict(_write_fixture(tmp_path, rng, 20000, 6, 300,
                                pml_index=True),
                 pml_requested=True, write_report=True, report_only=True)
