@@ -1302,9 +1302,7 @@ def _print_runs(stats):
               f"wall {st['wall_s']:.1f} s; in-run event time {kms:.3f} ms "
               + "".join(f"({' + '.join(f'{k} {v:.3f}' for k, v in by.items())}) "
                         for by in [st.get("kernel_ms_by")] if by)
-              + f"(device idle share of the stream at least "
-              f"{1 - kms / 1e3 / st['stream_s']:.4f}); launches {own}, "
-              f"no other kernel")
+              + f"launches {own}, no other kernel")
 
 
 def _found_rates(report_path, check=True):

@@ -49,6 +49,7 @@ import itertools
 import numpy as np
 import torch
 
+from .. import trace
 from ..io.fastx_batch import PackedReads
 from ..native import pack_rows_native
 from ..parallel.tp import ShardedBlockBits, ShardedLayered
@@ -181,7 +182,9 @@ class ScanEngine:
         (`ranks2`) and its alphabet, which later batches may extend. On a
         data-parallel engine (to_devices) each group is cut into one
         staged part per device, lanes in order, all with the group's
-        `group` id; part k carries `replica` k."""
+        `group` id; part k carries `replica` k. Counts (trace.py) the
+        batch's staged groups, lanes, lane slots (lanes x L) and the bytes
+        uploaded."""
         lens_all = np.asarray(packed.lens)
         if (lens_all == 0).any():
             i = int(np.flatnonzero(lens_all == 0)[0])
@@ -193,6 +196,7 @@ class ScanEngine:
         if not self.layered:
             self._ensure_alpha()
         groups = []
+        ngroups = lanes = slots = htod = 0
         for L in np.unique(Lb):
             L = int(L)
             idxs = np.flatnonzero(Lb == L)
@@ -216,6 +220,12 @@ class ScanEngine:
                         fbits, fwd, fexc = _pack_raw(buf, starts, ends, L,
                                                      False, bits)
                 gid = next(self._groups)
+                ngroups += 1
+                lanes += len(sel)
+                slots += len(sel) * L
+                htod += rows.nbytes + lens.nbytes + _nbytes(exc)
+                if self.mode == "ms":
+                    htod += fwd.nbytes + _nbytes(fexc)
                 for k, (lo, hi) in enumerate(_slices(len(sel),
                                                      len(self.devices))):
                     if lo == hi:
@@ -235,6 +245,10 @@ class ScanEngine:
                                  fexc_d=_put(_exc_rows(fexc, lo, hi,
                                                        len(sel)), dev))
                     groups.append(g)
+        trace.count("groups", ngroups)
+        trace.count("lanes", lanes)
+        trace.count("slots", slots)
+        trace.count("htod_bytes", htod)
         return groups
 
     def _pack_rev(self, buf, starts, ends, L: int):
@@ -335,7 +349,9 @@ class ScanEngine:
         the occ-block engine, K13 / K14 on a sharded index; MS: K3, K7 or
         K9 -> K4 -> K5 (the port of _classify_ms_dev). Only [B] summaries
         leave the device; the parts of a group on several devices are all
-        launched before any is fetched."""
+        launched before any is fetched. Spans (trace.py) `device.launch`
+        and `device.fetch` a round of parts; counts the bytes fetched and
+        each kernel's launches."""
         if self.use_doc:
             raise ValueError("report-only classification is doc-free")
         n = sum(len(g["idxs"]) for g in staged)
@@ -343,13 +359,20 @@ class ScanEngine:
                "above": np.zeros(n, dtype=np.int64),
                "below": np.zeros(n, dtype=np.int64),
                "sum_maxes": np.zeros(n, dtype=np.int64)}
+        before, fetched = trace.launches(), 0
         for parts in _rounds(staged):
-            launched = [(g, self._classify(g, bin_width, max_value_thr))
-                        for g in parts]
-            for g, res in launched:
-                for key, v in zip(("found", "above", "below", "sum_maxes"),
-                                  res):
-                    out[key][g["idxs"]] = v.cpu().numpy()
+            with trace.span("device.launch"):
+                launched = [(g, self._classify(g, bin_width, max_value_thr))
+                            for g in parts]
+            with trace.span("device.fetch"):
+                for g, res in launched:
+                    for key, v in zip(("found", "above", "below",
+                                       "sum_maxes"), res):
+                        host = v.cpu().numpy()
+                        fetched += host.nbytes
+                        out[key][g["idxs"]] = host
+        trace.count("dtoh_bytes", fetched)
+        trace.count_launches(before)
         return out
 
     def _classify(self, g, bin_width: int, max_value_thr: int):
@@ -381,19 +404,29 @@ class ScanEngine:
         index), 'pointers' (MS: K3, K7, K9 or K15) and 'docs' (doc tracking:
         K3, K7, K9 or K15). A sharded index has no PML value scan. The
         parts of a group on several devices are all launched before any is
-        fetched."""
+        fetched. Spans `device.launch` a round, `device.fetch` and
+        `device.split` (the cut into per-read arrays) a part; counts as
+        classify_staged does."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
             fields.append("docs")
         out = {f: [None] * n for f in fields}
+        before, fetched = trace.launches(), 0
         for parts in _rounds(staged):
-            launched = [(g, self._values(g)) for g in parts]
+            with trace.span("device.launch"):
+                launched = [(g, self._values(g)) for g in parts]
             for g, mats in launched:
-                for f in fields:
-                    vals = mats[f].cpu().numpy()
-                    for j, i in enumerate(g["idxs"]):
-                        out[f][i] = vals[j, :g["lens"][j]]
+                with trace.span("device.fetch"):
+                    host = {f: mats[f].cpu().numpy() for f in fields}
+                fetched += sum(v.nbytes for v in host.values())
+                with trace.span("device.split"):
+                    for f in fields:
+                        vals = host[f]
+                        for j, i in enumerate(g["idxs"]):
+                            out[f][i] = vals[j, :g["lens"][j]]
+        trace.count("dtoh_bytes", fetched)
+        trace.count_launches(before)
         return out
 
     def _values(self, g) -> dict:
@@ -461,6 +494,10 @@ def _exc_rows(exc, lo: int, hi: int, B: int):
     part = part.copy()
     part[:, 0] -= lo
     return part
+
+
+def _nbytes(a) -> int:
+    return 0 if a is None else a.nbytes
 
 
 def _put(a, device: torch.device):

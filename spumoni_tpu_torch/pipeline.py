@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import os
 import queue
 import threading
@@ -45,6 +46,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from . import trace
 from .classify import binmax, kstest, report
 from .constants import (DEFAULT_BIN_SIZE, DEFAULT_MIN_K, DEFAULT_MIN_W,
                         MAX_BIN_SIZE, MIN_BIN_SIZE)
@@ -64,7 +66,9 @@ from .parallel.tp import (MAX_SHARDED_TEXT, MAX_SHARDS, place_shards,
                           shard_blockbits, shard_blockbits_ms, shard_layered,
                           sharded_text_bytes)
 
-#: stats of the most recent run()'s streaming loop: reads, bases, stream_s
+#: stats of the most recent run()'s streaming loop: reads, bases (input
+#: bases, before digestion), symbols (the bases or digested symbols
+#: scanned), stream_s; the sums of the counters `trace` counts per batch
 LAST_RUN_STATS: dict = {}
 
 
@@ -569,25 +573,33 @@ def _unorder_samples(dense: DenseIndex, field: str):
 def _prefetched(gen, depth: int = 2):
     """Runs `gen` in a daemon thread, keeping up to `depth` items ready —
     host FASTA decode + digestion overlap device compute (SURVEY.md §7.8;
-    the role of the reference's threaded BatchLoader)."""
+    the role of the reference's threaded BatchLoader). Item b is the
+    tracer's batch b on both threads."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     SENTINEL = object()
 
     def producer():
         try:
-            for item in gen:
-                q.put(item)
-            q.put(SENTINEL)
+            for b in itertools.count():
+                trace.set_batch(b)
+                item = next(gen, SENTINEL)
+                with trace.span("prefetch.wait_consumer"):
+                    q.put(item)
+                if item is SENTINEL:
+                    return
         except BaseException as e:  # surface errors on the consumer side
             q.put(e)
 
-    threading.Thread(target=producer, daemon=True).start()
-    while True:
-        item = q.get()
+    threading.Thread(target=producer, daemon=True, name="prefetch").start()
+    for b in itertools.count():
+        with trace.span("feed.wait_input", batch=b):
+            item = q.get()
         if item is SENTINEL:
+            trace.set_batch(None)
             return
         if isinstance(item, BaseException):
             raise item
+        trace.set_batch(b)
         yield item
 
 
@@ -734,15 +746,17 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
     if fast_start and tp_devices <= 1 and engine in ("auto", "bits") \
             and mode == "pml" and not use_doc:
         budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
-        fast = load_cached(index_path + ".bbrows.npz", index_path + ".npz",
-                           max_bytes=budget)
+        with trace.span("load.rows"):
+            fast = load_cached(index_path + ".bbrows.npz",
+                               index_path + ".npz", max_bytes=budget)
     table = None
     if fast is not None:
         index, table, n, r = fast
         log("run", "fast start: engine rows from cache "
                    "(dense index load skipped)")
     else:
-        dense = load_dense_index(index_path)
+        with trace.span("load.index"):
+            dense = load_dense_index(index_path)
         if mode == "ms" and dense.text is None:
             raise ValueError("-M needs an index built with -M (SA samples "
                              "and text)")
@@ -755,37 +769,40 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                                            or len(devices) < S):
             raise ValueError(f"--tp-devices {S} does not divide the "
                              f"{len(devices)} available devices")
-        if S > 1:
-            index, table = _sharded_index(dense, S, index_path, mode,
-                                          use_doc, engine)
-            if len(devices) > 1:
-                return _place_sharded(index, table, devices, mode, use_doc)
-            log("run", f"sharded index: {S} shards, all on {device}")
-        elif engine == "occ":
-            if not occblock.eligible(dense):
-                raise ValueError("occ engine needs sigma <= 15 and n < 2^31 "
-                                 "(use engine=layered)")
-            # the JAX package builds every table the index has; the port
-            # only what the run reads (samples and text for -M, doc ids for
-            # -d): the outputs are the same
-            index, table = occblock.build_occblock(
-                dense, want_samples=mode == "ms", want_doc=use_doc,
-                want_text=mode == "ms")
-        elif _uses_blockbits(dense, mode, use_doc, engine):
-            if not eligible_any(dense):
-                raise ValueError("block-bits engine needs sigma <= 8 and "
-                                 "positions under 2^40 (use --engine "
-                                 "layered)")
-            want_ms, want_doc = mode == "ms", use_doc
-            index, table = build_blockbits(
-                dense, cache_path=index_path + ".bbrows.npz",
-                src_path=index_path + ".npz", want_ms=want_ms,
-                want_doc=want_doc,
-                ms_cache_path=(index_path + ".bbms.npz")
-                if want_ms or want_doc else None)
-        else:
-            index = build_layered(dense)
-    index = index.to(device)
+        with trace.span("load.build"):
+            if S > 1:
+                index, table = _sharded_index(dense, S, index_path, mode,
+                                              use_doc, engine)
+                if len(devices) > 1:
+                    return _place_sharded(index, table, devices, mode,
+                                          use_doc)
+                log("run", f"sharded index: {S} shards, all on {device}")
+            elif engine == "occ":
+                if not occblock.eligible(dense):
+                    raise ValueError("occ engine needs sigma <= 15 and "
+                                     "n < 2^31 (use engine=layered)")
+                # the JAX package builds every table the index has; the
+                # port only what the run reads (samples and text for -M,
+                # doc ids for -d): the outputs are the same
+                index, table = occblock.build_occblock(
+                    dense, want_samples=mode == "ms", want_doc=use_doc,
+                    want_text=mode == "ms")
+            elif _uses_blockbits(dense, mode, use_doc, engine):
+                if not eligible_any(dense):
+                    raise ValueError("block-bits engine needs sigma <= 8 and "
+                                     "positions under 2^40 (use --engine "
+                                     "layered)")
+                want_ms, want_doc = mode == "ms", use_doc
+                index, table = build_blockbits(
+                    dense, cache_path=index_path + ".bbrows.npz",
+                    src_path=index_path + ".npz", want_ms=want_ms,
+                    want_doc=want_doc,
+                    ms_cache_path=(index_path + ".bbms.npz")
+                    if want_ms or want_doc else None)
+            else:
+                index = build_layered(dense)
+    with trace.span("load.upload"):
+        index = index.to(device)
     nbytes = sum(b.numel() * b.element_size() for b in index.buffers())
     m = index.meta
     if table is None:
@@ -801,7 +818,8 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                f"(n={n}, r={r}, {layout})")
     out = ScanEngine(index, table, mode=mode, use_doc=use_doc)
     if len(devices) > 1:
-        out.to_devices(devices)
+        with trace.span("load.upload"):
+            out.to_devices(devices)
         log("run", f"data-parallel over {len(devices)} devices (reads "
                    f"split, index replicated)")
     return out
@@ -828,31 +846,41 @@ def _place_sharded(index, table, devices, mode: str, use_doc: bool):
 
 def run(cfg: RunConfig) -> int:
     """Streams the query file through the engine; writes the output files.
-    Returns the number of reads processed (every host's, under P > 1)."""
+    Returns the number of reads processed (every host's, under P > 1).
+    With SPUMONI_TRACE=<path> the call's spans and counters (trace.py) go
+    to <path> (a file a host under P > 1)."""
     cfg.validate()
     _check_supported(cfg)
+    export = os.environ.get(trace.ENV) or None
+    if export:
+        export = dist.shard_path(export, cfg.process_index,
+                                 cfg.process_count)
+    with trace.call(export):
+        return _run(cfg)
+
+
+def _run(cfg: RunConfig) -> int:
     devices = select_devices(cfg.device)
     if cfg.is_general_text:
         base = cfg.ref_file
     else:
         base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
     ms = cfg.mode == "ms"
-    engine = make_engine(base + (".thrbv.ms" if ms else ".thrbv.spumoni"),
-                         devices[0], cfg.mode, cfg.use_doc, cfg.engine,
-                         fast_start=not cfg.is_general_text,
-                         # general text runs unsharded, as in the JAX
-                         # package (spumoni_tpu/pipeline.py:807-810)
-                         tp_devices=-1 if cfg.is_general_text
-                         else cfg.tp_devices,
-                         report_only=cfg.report_only, devices=devices)
-    if cfg.is_general_text:
-        return _run_general_text(cfg, engine)
 
-    null_db = EmpNullDatabase.load(
-        base + (".msnulldb" if ms else ".pmlnulldb"))
-    thr = binmax.max_value_threshold(
-        null_db.percentile_value, cfg.use_promotions, cfg.use_dna_letters,
-        cfg.mode)
+    def engine_for_run():
+        return make_engine(
+            base + (".thrbv.ms" if ms else ".thrbv.spumoni"), devices[0],
+            cfg.mode, cfg.use_doc, cfg.engine,
+            fast_start=not cfg.is_general_text,
+            # general text runs unsharded, as in the JAX package
+            # (spumoni_tpu/pipeline.py:807-810)
+            tp_devices=-1 if cfg.is_general_text else cfg.tp_devices,
+            report_only=cfg.report_only, devices=devices)
+
+    if cfg.is_general_text:
+        with trace.span("run.load"):
+            engine = engine_for_run()
+        return _run_general_text(cfg, engine)
 
     out_prefix = cfg.pattern_file
     P, p = cfg.process_count, cfg.process_index
@@ -880,25 +908,36 @@ def run(cfg: RunConfig) -> int:
 
     rep = report
     ks_test = ks_pending = None
-    if cfg.write_report and cfg.ks_report:
-        # classification starts with srand(0) (compute_ms_pml.cpp:892);
-        # reads this host does not yield (other hosts', or skipped by
-        # --resume) still consume their rand() draws, one per KS window:
-        # the pending queue counts them per yielded read
-        ks_test = kstest.KSTest(null_db, cfg.bin_size, rand=GlibcRand(0))
-        ks_thr = null_db.ks_stat_threshold
-        ks_pending = deque()
 
     def header():
         return (rep.ks_report_header(ks_thr) if cfg.ks_report
                 else rep.report_header(thr))
 
-    # a shard's report has no header: process 0's merge writes it
-    files = {k: open(dist.shard_path(v, p, P),
-                     ("a" if skip else "w") + ("" if k == "report" else "b"))
-             for k, v in paths.items()}
-    if cfg.write_report and P == 1 and not skip:
-        files["report"].write(header())
+    with trace.span("run.load"):
+        engine = engine_for_run()
+        with trace.span("load.null_db"):
+            null_db = EmpNullDatabase.load(
+                base + (".msnulldb" if ms else ".pmlnulldb"))
+        thr = binmax.max_value_threshold(
+            null_db.percentile_value, cfg.use_promotions,
+            cfg.use_dna_letters, cfg.mode)
+        if cfg.write_report and cfg.ks_report:
+            # classification starts with srand(0) (compute_ms_pml.cpp:892);
+            # reads this host does not yield (other hosts', or skipped by
+            # --resume) still consume their rand() draws, one per KS
+            # window: the pending queue counts them per yielded read
+            ks_test = kstest.KSTest(null_db, cfg.bin_size,
+                                    rand=GlibcRand(0))
+            ks_thr = null_db.ks_stat_threshold
+            ks_pending = deque()
+        with trace.span("load.files"):
+            # a shard's report has no header: process 0's merge writes it
+            files = {k: open(dist.shard_path(v, p, P),
+                             ("a" if skip else "w")
+                             + ("" if k == "report" else "b"))
+                     for k, v in paths.items()}
+            if cfg.write_report and P == 1 and not skip:
+                files["report"].write(header())
 
     # classification and file output run on a writer thread, overlapped
     # with the next batch's device work
@@ -906,6 +945,15 @@ def run(cfg: RunConfig) -> int:
     wq: queue.Queue = queue.Queue(maxsize=2)
 
     def _write_batch(ids, out):
+        with trace.span("writer.format"):
+            _format_batch(ids, out)
+        with trace.span("writer.flush"):
+            for f in files.values():
+                f.flush()
+            with open(cursor_path, "w") as f:
+                f.write(str(wstate["num"]))
+
+    def _format_batch(ids, out):
         if cfg.report_only:
             wstate["found"] += int(np.count_nonzero(out["found"]))
             for i, rid in enumerate(ids):
@@ -944,26 +992,26 @@ def run(cfg: RunConfig) -> int:
                         rid, res.status, res.avg_max, res.bins_above,
                         res.bins_below))
                 wstate["num"] += 1
-        for f in files.values():
-            f.flush()
-        with open(cursor_path, "w") as f:
-            f.write(str(wstate["num"]))
 
     def _writer():
         try:
-            while True:
-                item = wq.get()
+            for b in itertools.count():   # items arrive in batch order
+                with trace.span("writer.wait", batch=b):
+                    item = wq.get()
                 if item is None:
                     return
-                _write_batch(*item)
+                trace.set_batch(b)
+                with trace.span("writer.batch"):
+                    _write_batch(*item)
         except Exception as e:  # re-raised by run() after the join
             wstate["err"] = e
 
     def digested(pk):
         if not cfg.min_digest:
             return pk
-        return minimizers.digest_packed(
-            pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
+        with trace.span("prefetch.digest"):
+            return minimizers.digest_packed(
+                pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
 
     if P > 1:
         log("run", f"host-stride shard {p}/{P}")
@@ -977,9 +1025,15 @@ def run(cfg: RunConfig) -> int:
         owned_seen = 0   # owned records seen (the cursor's units)
         ks_carry = 0     # rand() draws owed for records not yielded
         max_lanes = 65536 if cfg.report_only else 8192
-        for pk in fb.iter_packed_batches(cfg.pattern_file, cfg.batch_bases,
-                                         upper=True):
+        batches = fb.iter_packed_batches(cfg.pattern_file, cfg.batch_bases,
+                                         upper=True)
+        while True:
+            with trace.span("prefetch.parse"):
+                pk = next(batches, None)
+            if pk is None:
+                return
             npk = len(pk)
+            in_lens = pk.lens    # input bases, before digestion
             first = (p - g) % P          # the batch's first owned record
             g += npk
             nown = -(-(npk - first) // P) if first < npk else 0
@@ -1018,32 +1072,41 @@ def run(cfg: RunConfig) -> int:
                                     (pk.offs[a:] - pk.offs[a]).copy())
             if ks_pending is None:
                 pk = digested(pk)
-            yield pk.ids, engine.stage(pk, max_lanes), pk.total_bases
+            bases = int(in_lens[sel].sum())
+            trace.count("reads", len(pk))
+            trace.count("bases", bases)
+            trace.count("symbols", pk.total_bases)
+            with trace.span("prefetch.stage"):
+                staged = engine.stage(pk, max_lanes)
+            yield pk.ids, staged, bases, pk.total_bases
 
     t0 = time.time()
-    total_bases = 0
-    wthread = threading.Thread(target=_writer, daemon=True)
+    total_bases = total_symbols = 0
+    wthread = threading.Thread(target=_writer, daemon=True, name="writer")
     wthread.start()
     try:
-        for ids, staged, bases in _prefetched(staged_batches()):
+        for ids, staged, bases, symbols in _prefetched(staged_batches()):
             total_bases += bases
+            total_symbols += symbols
             if cfg.report_only:
                 out = engine.classify_staged(staged, cfg.bin_size, thr)
             else:
                 out = engine.query_staged(staged)
             if wstate["err"] is not None:
                 break
-            wq.put((ids, out))
+            with trace.span("feed.wait_writer"):
+                wq.put((ids, out))
     finally:
-        while wthread.is_alive():   # a writer that failed takes no more
-            try:
-                wq.put(None, timeout=0.1)
-                break
-            except queue.Full:
-                continue
-        wthread.join()
-        for f in files.values():
-            f.close()
+        with trace.span("run.drain"):
+            while wthread.is_alive():   # a writer that failed takes no more
+                try:
+                    wq.put(None, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            wthread.join()
+            for f in files.values():
+                f.close()
     if wstate["err"] is not None:
         raise wstate["err"]
     num_reads = wstate["num"]
@@ -1063,7 +1126,8 @@ def run(cfg: RunConfig) -> int:
                        f"FOUND")
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
-    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)
+    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases,
+                          symbols=total_symbols, stream_s=dt)
     return num_reads
 
 
@@ -1119,5 +1183,6 @@ def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
                 dist.merge_shards(v, P)
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
-    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases, stream_s=dt)
+    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases,
+                          symbols=total_bases, stream_s=dt)
     return num_reads
