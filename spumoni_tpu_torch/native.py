@@ -3,10 +3,12 @@
 The C++ library (native/spumoni_native.cpp) replaces the reference's popen'd
 helper executables (Big-BWT, pfp_thresholds — src/spumoni.cpp:442-545)
 with an in-process build, and provides the multithreaded CPU query baseline.
+This package's csrc/minimizers.cpp adds the minimizer digestion.
 
 The shared object is compiled on demand with g++ from the repository's one
-copy of that source (both packages build byte-identical index files from it)
-and cached in this package's `_build/`, keyed by a hash of the source.
+copy of the shared source (both packages build byte-identical index files
+from it) and this package's own, and cached in this package's `_build/`,
+keyed by a hash of both sources.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(_HERE)
-_SRC = os.path.join(_REPO, "native", "spumoni_native.cpp")
+_SOURCES = (os.path.join(_REPO, "native", "spumoni_native.cpp"),
+            os.path.join(_HERE, "csrc", "minimizers.cpp"))
 _BUILD_DIR = os.path.join(_HERE, "_build")
 
 _lock = threading.Lock()
@@ -29,9 +32,11 @@ _lib = None
 
 
 def _compile() -> str:
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in _SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
     so_path = os.path.join(_BUILD_DIR, f"libspumoni_native_{tag}.so")
     if os.path.exists(so_path):
         return so_path
@@ -39,7 +44,7 @@ def _compile() -> str:
     tmp = so_path + f".tmp{os.getpid()}"
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        "-march=native", "-funroll-loops", _SRC, "-o", tmp,
+        "-march=native", "-funroll-loops", *_SOURCES, "-o", tmp,
     ]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, so_path)
@@ -124,6 +129,10 @@ def get_lib() -> ctypes.CDLL:
                                           p_u8, ctypes.c_int, ctypes.c_int,
                                           p_u8, p_u8, p_i32, c_i64,
                                           ctypes.c_int]
+            lib.spn_digest_reads.restype = c_i64
+            lib.spn_digest_reads.argtypes = [p_u8, p_i64, c_i64, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_int, p_u8,
+                                             p_i64, p_u8, c_i64, p_i64]
             _lib = lib
     return _lib
 
@@ -156,6 +165,32 @@ def fastx_extract(data: np.ndarray, fastq: bool, upper: bool = False):
         raise ValueError("malformed FASTA/FASTQ chunk")
     offs = offs[:nr + 1]
     return seq[:offs[-1]].copy(), offs.copy(), idpos[:2 * nr].copy()
+
+
+def digest_reads(buf: np.ndarray, offs: np.ndarray, dna: bool, k: int,
+                 w: int, hash4: np.ndarray):
+    """Minimizer digest of every read buf[offs[r]:offs[r+1]] in one native
+    pass per read (csrc/minimizers.cpp): the DNA-letter scheme if dna,
+    else the promotion scheme over the 4-entry CyclicHash table hash4.
+    Returns (digested bytes, their int64 offsets)."""
+    if k < 1:
+        raise ValueError(f"minimizer k must be >= 1, got {k}")
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    nreads = len(offs) - 1
+    # a read emits at most one minimizer per k-mer, of k bytes under -a
+    nk = np.maximum(np.diff(offs) - (k - 1), 0)
+    cap = int(nk.sum()) * (k if dna else 1)
+    scratch = np.empty(int(nk.max()) if nreads else 0, dtype=np.int64)
+    out = np.empty(cap, dtype=np.uint8)
+    out_offs = np.empty(nreads + 1, dtype=np.int64)
+    n = get_lib().spn_digest_reads(
+        _p_u8(buf), _p_i64(offs), nreads, int(dna), int(k), int(w),
+        _p_u8(np.ascontiguousarray(hash4, dtype=np.uint8)), _p_i64(scratch),
+        _p_u8(out), cap, _p_i64(out_offs))
+    if n < 0:
+        raise RuntimeError(f"spn_digest_reads failed ({n})")
+    return out[:n], out_offs
 
 
 _AMAP2_NONE = np.full(256, 255, dtype=np.uint8)

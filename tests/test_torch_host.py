@@ -141,21 +141,84 @@ def test_iter_packed_batches_matches_jax(tmp_path, fmt, upper):
         assert np.array_equal(g.offs, w.offs)
 
 
-@pytest.mark.parametrize("promotions,dna", [(True, False), (False, True)])
-def test_digest_and_digest_packed_match_jax(tmp_path, promotions, dna):
-    path = _fastx_files(tmp_path)["fasta"]
-    (want_pk,) = jax_fastx_batch.iter_packed_batches(path, 1 << 30,
-                                                     upper=True)
-    (pk,) = fastx_batch.iter_packed_batches(path, 1 << 30, upper=True)
-    got = minimizers.digest_packed(pk, promotions, dna)
-    want = jax_minimizers.digest_packed(want_pk, promotions, dna)
+def _digest_batch(kind, k, w):
+    """(reads, buf, offs) of a batch for the digest cases: "edges" holds
+    zero-length reads (first, inside, last), reads shorter than k, reads
+    with k <= len < w and of exactly w, runs of N, an N first or last, a
+    read all N and one all T; "errors" 64 reads of 1,024 bp with 8% of the bases replaced by
+    substitutions, N or lower case."""
+    rng = np.random.default_rng(7 + k * 100 + w)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if kind == "edges":
+        reads = [b"", rng.choice(acgt, k - 1).tobytes(), b"",
+                 rng.choice(acgt, k).tobytes(),
+                 rng.choice(acgt, max(k, w - 1)).tobytes(),
+                 rng.choice(acgt, w).tobytes(), b"N" * (3 * w),
+                 rng.choice(acgt, 40).tobytes() + b"N" * (w + 2)
+                 + rng.choice(acgt, 50).tobytes(),
+                 b"NN" + rng.choice(acgt, w + 3).tobytes() + b"N",
+                 b"N" + rng.choice(acgt, w + 5).tobytes(),
+                 b"T" * (2 * w), rng.choice(acgt, 300).tobytes(), b""]
+    else:
+        reads = []
+        for _ in range(64):
+            rd = rng.choice(acgt, 1024)
+            err = np.flatnonzero(rng.random(1024) < 0.08)
+            rd[err] = rng.choice(np.frombuffer(b"ACGTNacg", np.uint8),
+                                 len(err))
+            reads.append(rd.tobytes())
+    offs = np.zeros(len(reads) + 1, np.int64)
+    np.cumsum([len(rd) for rd in reads], out=offs[1:])
+    return reads, np.frombuffer(b"".join(reads), np.uint8).copy(), offs
+
+
+#: (promotions, dna, k, w, batch): the 40 seeded reads of _fastx_files at
+#: the defaults, then both schemes at four (k, w) on the two batches of
+#: _digest_batch ((5, 5) is one k-mer a window)
+_DIGEST_CASES = [
+    pytest.param(True, False, 4, 11, "fasta", id="True-False"),
+    pytest.param(False, True, 4, 11, "fasta", id="False-True"),
+] + [
+    pytest.param(promotions, not promotions, k, w, batch,
+                 id=f"{'m' if promotions else 'a'}-k{k}w{w}-{batch}")
+    for promotions in (True, False)
+    for k, w in ((4, 11), (3, 7), (5, 5), (8, 20))
+    for batch in ("edges", "errors")]
+
+
+@pytest.mark.parametrize("promotions,dna,k,w,batch", _DIGEST_CASES)
+def test_digest_and_digest_packed_match_jax(tmp_path, promotions, dna, k, w,
+                                            batch):
+    """The native pass gives the JAX package's digests byte for byte, on
+    a whole batch and read by read."""
+    if batch == "fasta":
+        path = _fastx_files(tmp_path)["fasta"]
+        (want_pk,) = jax_fastx_batch.iter_packed_batches(path, 1 << 30,
+                                                         upper=True)
+        (pk,) = fastx_batch.iter_packed_batches(path, 1 << 30, upper=True)
+    else:
+        _, buf, offs = _digest_batch(batch, k, w)
+        ids = [f"r{i}" for i in range(len(offs) - 1)]
+        pk = fastx_batch.PackedReads(ids, buf, offs)
+        want_pk = jax_fastx_batch.PackedReads(list(ids), buf.copy(),
+                                              offs.copy())
+    got = minimizers.digest_packed(pk, promotions, dna, k, w)
+    want = jax_minimizers.digest_packed(want_pk, promotions, dna, k, w)
     assert got.ids == want.ids
     assert np.array_equal(got.buf, want.buf)
     assert np.array_equal(got.offs, want.offs)
+    if batch != "fasta":
+        assert len(got.buf) > 0
     for i in range(len(pk)):
         rd = pk.buf[pk.offs[i]:pk.offs[i + 1]].tobytes()
-        assert minimizers.digest(rd, promotions, dna) == \
-            jax_minimizers.digest(rd, promotions, dna)
+        assert minimizers.digest(rd, promotions, dna, k, w) == \
+            jax_minimizers.digest(rd, promotions, dna, k, w)
+
+
+@pytest.mark.parametrize("promotions", [True, False])
+def test_digest_rejects_k_below_one(promotions):
+    with pytest.raises(ValueError):
+        minimizers.digest(b"ACGTACGTACGT", promotions, not promotions, 0, 11)
 
 
 def _values(seed, n=30):
