@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..utils import present_chars
 
 MAX_SIGMA = 15   # query-rank code of a character absent from the index
@@ -267,7 +268,8 @@ def build_blockbits(idx, P: Optional[int] = None, pack: Optional[int] = None,
             _write_cache(cache_path, cache_key, rows, idx, src_path)
     msrows = None
     if want_ms or want_doc:
-        msrows = _build_msrows(idx, P, pack, ms_cache_path, cache_key)
+        with trace.span("load.msrows"):
+            msrows = _build_msrows(idx, P, pack, ms_cache_path, cache_key)
     return _assemble(idx, rows, P, pack, wide, msrows=msrows,
                      want_ms=want_ms, want_doc=want_doc)
 
@@ -653,23 +655,24 @@ def _assemble(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
     ms = dict(msrows=None, jump_t=None, jump_d=None, text=None)
     if msrows is not None:
         ms["msrows"] = torch.from_numpy(np.ascontiguousarray(msrows))
-        if want_ms:
-            sdt = np.int64 if wide else np.int32
-            T = np.zeros(2 * r + 2, dtype=sdt)
-            T[0:2 * r:2] = np.asarray(idx.c_ssamp, dtype=sdt)
-            T[1:2 * r:2] = np.asarray(idx.c_esamp, dtype=sdt)
-            T[2 * r + 1] = idx.last_run_sample
-            ms["jump_t"] = torch.from_numpy(T)
-            if idx.text is not None:
-                ms["text"] = torch.from_numpy(
-                    np.ascontiguousarray(idx.text, dtype=np.uint8))
-        if want_doc:
-            D = np.zeros(2 * r + 2, dtype=np.int32)
-            D[0:2 * r:2] = np.asarray(idx.c_sdoc, dtype=np.int32)
-            D[1:2 * r:2] = np.asarray(idx.c_edoc, dtype=np.int32)
-            D[2 * r] = idx.first_run_sdoc     # the MS empty-char reset
-            D[2 * r + 1] = idx.last_run_edoc
-            ms["jump_d"] = torch.from_numpy(D)
+        with trace.span("load.jumps"):
+            if want_ms:
+                sdt = np.int64 if wide else np.int32
+                T = np.zeros(2 * r + 2, dtype=sdt)
+                T[0:2 * r:2] = np.asarray(idx.c_ssamp, dtype=sdt)
+                T[1:2 * r:2] = np.asarray(idx.c_esamp, dtype=sdt)
+                T[2 * r + 1] = idx.last_run_sample
+                ms["jump_t"] = torch.from_numpy(T)
+                if idx.text is not None:
+                    ms["text"] = torch.from_numpy(
+                        np.ascontiguousarray(idx.text, dtype=np.uint8))
+            if want_doc:
+                D = np.zeros(2 * r + 2, dtype=np.int32)
+                D[0:2 * r:2] = np.asarray(idx.c_sdoc, dtype=np.int32)
+                D[1:2 * r:2] = np.asarray(idx.c_edoc, dtype=np.int32)
+                D[2 * r] = idx.first_run_sdoc   # the MS empty-char reset
+                D[2 * r + 1] = idx.last_run_edoc
+                ms["jump_d"] = torch.from_numpy(D)
     table = CharTable(F, cnt, rmap, f_by_code, fnext_by_code, index_chars,
                       runbase_by_code if msrows is not None else None)
     index = BlockBitsIndex(torch.from_numpy(np.ascontiguousarray(rows)), meta,

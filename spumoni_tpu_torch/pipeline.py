@@ -726,6 +726,12 @@ def _sharded_index(dense, S: int, index_path: str, mode: str, use_doc: bool,
     return shard_layered(build_layered(dense), S), None
 
 
+#: the counters `index_bytes.<part>` of an index's buffers on the device;
+#: every other buffer (the rows or tables, the scalars) counts as `rows`
+_INDEX_PARTS = {"msrows": "msrows", "jump_t": "jumps", "jump_d": "jumps",
+                "text": "text"}
+
+
 def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                 use_doc: bool = False, engine: str = "auto",
                 fast_start: bool = True, tp_devices: int = 0,
@@ -803,7 +809,13 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                 index = build_layered(dense)
     with trace.span("load.upload"):
         index = index.to(device)
-    nbytes = sum(b.numel() * b.element_size() for b in index.buffers())
+    parts: dict = {}
+    for name, b in index.named_buffers():
+        part = _INDEX_PARTS.get(name, "rows")
+        parts[part] = parts.get(part, 0) + b.numel() * b.element_size()
+    for part, n in parts.items():
+        trace.count("index_bytes." + part, n)
+    nbytes = sum(parts.values())
     m = index.meta
     if table is None:
         layout = f"layered, D={m.depth}, W={m.width}, wide={m.wide}"
@@ -944,9 +956,17 @@ def _run(cfg: RunConfig) -> int:
     wstate = {"found": 0, "num": skip, "err": None}
     wq: queue.Queue = queue.Queue(maxsize=2)
 
+    value_files = [f for k, f in files.items() if k != "report"]
+
     def _write_batch(ids, out):
+        # the value text a batch writes: the files' growth, buffer included
+        at = (sum(f.tell() for f in value_files)
+              if value_files and trace.recording() else None)
         with trace.span("writer.format"):
             _format_batch(ids, out)
+        if at is not None:
+            trace.count("value_bytes",
+                        sum(f.tell() for f in value_files) - at)
         with trace.span("writer.flush"):
             for f in files.values():
                 f.flush()

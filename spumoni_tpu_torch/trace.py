@@ -96,6 +96,12 @@ def span(name: str, batch: int | None = None):
     return _Span(name, batch)
 
 
+def recording() -> bool:
+    """Whether spans and counters are recorded now: lets a caller skip
+    the work of measuring a count that `count()` would drop."""
+    return _on
+
+
 def count(name: str, n: int) -> None:
     """Adds n to the counter `name` of the thread's current batch."""
     if _on:

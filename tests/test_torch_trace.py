@@ -62,6 +62,40 @@ def indexes(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def ms_docs(tmp_path_factory):
+    """An MS + PML index of two 6-kbp documents (`build -i list -M -P -d
+    -n`), and reads of LENGTHS drawn from them with a few substitutions."""
+    tmp = tmp_path_factory.mktemp("trace_ms")
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 4, 6000)
+    docs = [base, np.where(rng.random(6000) < 0.02,
+                           rng.integers(0, 4, 6000), base)]
+    lst = str(tmp / "docs.txt")
+    with open(lst, "w") as f:
+        for i, d in enumerate(docs):
+            path = str(tmp / f"doc_{i}.fa")
+            with open(path, "w") as g:
+                g.write(f">doc_{i}\n" + "".join("ACGT"[c] for c in d) + "\n")
+            f.write(f"{path} {i + 1}\n")
+    reads = str(tmp / "reads.fa")
+    with open(reads, "w") as f:
+        for i, n in enumerate(LENGTHS):
+            d = docs[i % 2]
+            st = int(rng.integers(0, len(d) - n))
+            rd = d[st:st + n].copy()
+            k = rng.integers(0, n, n // 50)
+            rd[k] = (rd[k] + 1) % 4
+            f.write(f">read_{i}\n" + "".join("ACGT"[c] for c in rd) + "\n")
+    prefix = str(tmp / "idx")
+    tpl.build(tpl.BuildConfig(input_list=lst, output_prefix=prefix,
+                              ms_index=True, pml_index=True, build_doc=True,
+                              use_minimizers=False))
+    return dict(ref_file=prefix, pattern_file=reads, device="cpu",
+                batch_bases=BATCH_BASES, min_digest=False,
+                write_report=True)
+
+
 @pytest.fixture
 def tracer():
     trace.enable()
@@ -283,3 +317,75 @@ def test_threads_record_every_span(tracer):
             assert by_id[s["parent"]]["thread"] == s["thread"]
         else:
             assert s["parent"] is None
+
+
+MS_LOAD = {"load.msrows", "load.jumps"}
+VALUE_EXTS = (".lengths", ".pointers", ".doc_numbers")
+
+
+def test_ms_doc_load_spans_and_counters(ms_docs, tracer):
+    """`run -M -c -d -n`, two calls: the msrows and jump-table loads once a
+    call under `load.build`; the index's device bytes by part once a call;
+    `value_bytes` adding up to the value files' sizes."""
+    from spumoni_tpu_torch.index.format import load_dense_index
+
+    for _ in range(2):
+        _run(ms_docs, ms_requested=True, use_doc=True)
+    snap = tracer.snapshot()
+    names = _by_name(snap)
+    by_id = {s["id"]: s for s in snap["spans"]}
+    calls = sorted(s["call"] for s in names["run"])
+    assert len(calls) == 2
+    for name in MS_LOAD:
+        assert sorted(s["call"] for s in names[name]) == calls
+        for s in names[name]:
+            assert by_id[s["parent"]]["name"] == "load.build"
+            assert by_id[s["parent"]]["call"] == s["call"]
+    parts = {}
+    for c in snap["counts"]:
+        if c["name"].startswith("index_bytes."):
+            parts.setdefault(c["name"].split(".", 1)[1], []).append(c)
+    assert set(parts) == {"rows", "msrows", "jumps", "text"}
+    for cs in parts.values():
+        assert sorted(c["call"] for c in cs) == calls
+        assert len({c["n"] for c in cs}) == 1 and cs[0]["n"] > 0
+    dense = load_dense_index(ms_docs["ref_file"] + ".fa.thrbv.ms")
+    assert parts["text"][0]["n"] == dense.n - 1
+    # SA samples and doc ids, int32 each, 2r + 2 slots
+    assert parts["jumps"][0]["n"] == 2 * (2 * dense.r + 2) * 4
+    sizes = sum(os.path.getsize(ms_docs["pattern_file"] + e)
+                for e in VALUE_EXTS)
+    written = [sum(c["n"] for c in snap["counts"]
+                   if c["name"] == "value_bytes" and c["call"] == call)
+               for call in calls]
+    assert written == [sizes, sizes]
+    assert {c["batch"] for c in snap["counts"]
+            if c["name"] == "value_bytes"} == \
+        {s["batch"] for s in names["writer.batch"]}
+
+
+def test_fast_start_call_loads_no_ms_tables(ms_docs, tracer):
+    """`run -P -c` on the same index starts from the rows cache: neither
+    MS load span, the rows' bytes alone, no MS value files."""
+    _run(ms_docs, pml_requested=True)    # the rows cache, if not yet there
+    tracer.clear()
+    _run(ms_docs, pml_requested=True)
+    snap = tracer.snapshot()
+    names = set(_by_name(snap))
+    assert "load.rows" in names and "load.build" not in names
+    assert not MS_LOAD & names
+    parts = {c["name"] for c in snap["counts"]
+             if c["name"].startswith("index_bytes.")}
+    assert parts == {"index_bytes.rows"}
+    assert sum(c["n"] for c in snap["counts"]
+               if c["name"] == "value_bytes") == \
+        os.path.getsize(ms_docs["pattern_file"] + ".pseudo_lengths")
+
+
+def test_off_records_nothing_ms_doc(ms_docs):
+    trace.disable()
+    trace.clear()
+    _run(ms_docs, ms_requested=True, use_doc=True)
+    snap = trace.snapshot()
+    assert snap["spans"] == [] and snap["counts"] == []
+    assert snap["anchors"] == []
