@@ -3,12 +3,13 @@
 The C++ library (native/spumoni_native.cpp) replaces the reference's popen'd
 helper executables (Big-BWT, pfp_thresholds — src/spumoni.cpp:442-545)
 with an in-process build, and provides the multithreaded CPU query baseline.
-This package's csrc/minimizers.cpp adds the minimizer digestion.
+This package's csrc/minimizers.cpp adds the minimizer digestion, and
+csrc/values_writer.cpp the batch pass of the value files.
 
 The shared object is compiled on demand with g++ from the repository's one
 copy of the shared source (both packages build byte-identical index files
-from it) and this package's own, and cached in this package's `_build/`,
-keyed by a hash of both sources.
+from it) and this package's two, linked after it, and cached in this
+package's `_build/`, keyed by a hash of the three sources.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(_HERE)
 _SOURCES = (os.path.join(_REPO, "native", "spumoni_native.cpp"),
-            os.path.join(_HERE, "csrc", "minimizers.cpp"))
+            os.path.join(_HERE, "csrc", "minimizers.cpp"),
+            os.path.join(_HERE, "csrc", "values_writer.cpp"))
 _BUILD_DIR = os.path.join(_HERE, "_build")
 
 _lock = threading.Lock()
@@ -133,6 +135,11 @@ def get_lib() -> ctypes.CDLL:
             lib.spn_digest_reads.argtypes = [p_u8, p_i64, c_i64, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_int, p_u8,
                                              p_i64, p_u8, c_i64, p_i64]
+            lib.spn_format_records.restype = c_i64
+            lib.spn_format_records.argtypes = [p_i64, p_i64, c_i64,
+                                               ctypes.c_int, p_u8, p_i64,
+                                               p_u8, c_i64, p_i64, c_i64,
+                                               c_i64, p_i64, p_i64, p_i64]
             _lib = lib
     return _lib
 
@@ -191,6 +198,27 @@ def digest_reads(buf: np.ndarray, offs: np.ndarray, dna: bool, k: int,
     if n < 0:
         raise RuntimeError(f"spn_digest_reads failed ({n})")
     return out[:n], out_offs
+
+
+def format_records(addrs: np.ndarray, counts: np.ndarray, itemsize: int,
+                   id_blob: np.ndarray, id_offs: np.ndarray, out: np.ndarray,
+                   state: np.ndarray, bins=None, res=None) -> int:
+    """One call of the value files' batch pass (csrc/values_writer.cpp):
+    formats the records of reads state[0].. (row addresses, value counts,
+    int32 or int64 by itemsize; ids as bytes and int64 offsets) into out,
+    from the state the last call left, and leaves its own there. With bins
+    = (bin_width, max_value_thr), fills res = (above, below, sum_maxes)
+    for each read it starts. Returns the bytes written."""
+    width, thr = bins if bins is not None else (0, 0)
+    above, below, sums = (_p_i64(a) for a in res) if res is not None \
+        else (None, None, None)
+    m = get_lib().spn_format_records(
+        _p_i64(addrs), _p_i64(counts), len(counts), int(itemsize),
+        _p_u8(id_blob), _p_i64(id_offs), _p_u8(out), len(out), _p_i64(state),
+        int(width), int(thr), above, below, sums)
+    if m < 0:
+        raise RuntimeError(f"spn_format_records failed ({m})")
+    return m
 
 
 _AMAP2_NONE = np.full(256, 255, dtype=np.uint8)

@@ -48,6 +48,7 @@ import torch
 
 from . import trace
 from .classify import binmax, kstest, report
+from .classify.values_writer import BatchIds, ValuesWriter
 from .constants import (DEFAULT_BIN_SIZE, DEFAULT_MIN_K, DEFAULT_MIN_W,
                         MAX_BIN_SIZE, MIN_BIN_SIZE)
 from .engine.blockbits import build_blockbits, eligible_any, load_cached
@@ -957,6 +958,7 @@ def _run(cfg: RunConfig) -> int:
     wq: queue.Queue = queue.Queue(maxsize=2)
 
     value_files = [f for k, f in files.items() if k != "report"]
+    values_writer = ValuesWriter() if value_files else None
 
     def _write_batch(ids, out):
         # the value text a batch writes: the files' growth, buffer included
@@ -984,18 +986,20 @@ def _run(cfg: RunConfig) -> int:
                     int(out["above"][i]), int(out["below"][i])))
                 wstate["num"] += 1
         else:
-            for i, rid in enumerate(ids):
-                # the JAX package's writer order (spumoni_tpu/pipeline.py:
-                # 971-977)
-                if cfg.use_doc:
-                    rep.write_values_record(files["docs"], rid,
-                                            out["docs"][i])
-                if ms:
-                    rep.write_values_record(files["pointers"], rid,
-                                            out["pointers"][i])
-                lengths = out["lengths"][i]
-                rep.write_values_record(files["lengths"], rid, lengths)
-                if cfg.write_report and cfg.ks_report:
+            # one pass a value file, in the JAX package's writer order
+            # (spumoni_tpu/pipeline.py:971-977); the lengths' pass gives
+            # the bin-max verdicts
+            bids = BatchIds(ids)
+            for k in ("docs", "pointers"):
+                if k in files:
+                    values_writer.write(files[k], bids, out[k])
+            bins = (cfg.bin_size, thr) if cfg.write_report and \
+                not cfg.ks_report else None
+            res = values_writer.write(files["lengths"], bids,
+                                      out["lengths"], bins)
+            trace.count("value_records", len(ids) * len(value_files))
+            if cfg.write_report and cfg.ks_report:
+                for rid, lengths in zip(ids, out["lengths"]):
                     ks_test.rand.advance(ks_pending.popleft())
                     ks_list = ks_test.run_kstest(lengths)
                     above = sum(1 for x in ks_list if x >= ks_thr)
@@ -1005,13 +1009,15 @@ def _run(cfg: RunConfig) -> int:
                         rid, "FOUND" if found else "NOT_PRESENT",
                         sum(ks_list) / len(ks_list), above,
                         len(ks_list) - above))
-                elif cfg.write_report:
-                    res = binmax.classify(lengths, cfg.bin_size, thr)
-                    wstate["found"] += res.status == "FOUND"
+            elif res is not None:
+                above, below, sums = (a.tolist() for a in res)
+                for rid, a, b, s in zip(ids, above, below, sums):
+                    found = a / (a + b) > 0.50
+                    wstate["found"] += found
                     files["report"].write(rep.report_line(
-                        rid, res.status, res.avg_max, res.bins_above,
-                        res.bins_below))
-                wstate["num"] += 1
+                        rid, "FOUND" if found else "NOT_PRESENT",
+                        s / (a + b), a, b))
+            wstate["num"] += len(ids)
 
     def _writer():
         try:

@@ -6,6 +6,7 @@ layered engine's runs, digested indexes and general text are in
 tests/test_torch_layered_pipeline.py.
 """
 
+import functools
 import glob
 import os
 import re
@@ -19,6 +20,7 @@ from spumoni_tpu.pipeline import BuildConfig, RunConfig as JaxRunConfig
 from spumoni_tpu.pipeline import build, run as jax_run
 
 import spumoni_tpu_torch.pipeline as tpl
+from spumoni_tpu_torch.classify.values_writer import ValuesWriter
 
 from test_golden import GOLDEN, _generate
 from test_pipeline import _write_genome, _write_reads
@@ -196,14 +198,35 @@ _MSDOC_RUNS = {
     "P-d-c": dict(pml_requested=True, use_doc=True, write_report=True),
     "M-c-ks-report": dict(ms_requested=True, write_report=True,
                           ks_report=True),
+    # three reads a batch (--resume after 4 lands inside the second), and
+    # the value files' pass through a 64-byte buffer: records straddle its
+    # chunks and calls
+    "M-d-c-batches": dict(ms_requested=True, use_doc=True, write_report=True,
+                          batch_bases=700, value_chunk=64),
+    "P-c-batches": dict(pml_requested=True, write_report=True,
+                        batch_bases=700, value_chunk=64),
+    "P-c-ks-report-batches": dict(pml_requested=True, write_report=True,
+                                  ks_report=True, batch_bases=700,
+                                  value_chunk=64),
 }
 
 
+def _msdoc_run(monkeypatch, run_id):
+    """The run's RunConfig fields; a `value_chunk` sets the port's value
+    buffer."""
+    kw = dict(_MSDOC_RUNS[run_id])
+    chunk = kw.pop("value_chunk", None)
+    if chunk:
+        monkeypatch.setattr(tpl, "ValuesWriter",
+                            functools.partial(ValuesWriter, chunk))
+    return kw
+
+
 @pytest.mark.parametrize("run_id", sorted(_MSDOC_RUNS))
-def test_ms_and_doc_runs_match_jax(msdoc, run_id):
+def test_ms_and_doc_runs_match_jax(msdoc, run_id, monkeypatch):
     """-M and -d runs write the files the JAX package's block-bits engine
     writes, byte for byte."""
-    kw = _MSDOC_RUNS[run_id]
+    kw = _msdoc_run(monkeypatch, run_id)
     reads_path = msdoc["pattern_file"]
     _clear(reads_path)
     n_jax = jax_run(JaxRunConfig(**msdoc, engine="bits", **kw))
@@ -221,12 +244,12 @@ def test_ms_and_doc_runs_match_jax(msdoc, run_id):
 
 
 @pytest.mark.parametrize("run_id", sorted(_MSDOC_RUNS))
-def test_ms_doc_resume_continues_the_files(msdoc, run_id):
+def test_ms_doc_resume_continues_the_files(msdoc, run_id, monkeypatch):
     """--resume after 4 durable reads appends the rest of every file
     byte-identically to the JAX package's uninterrupted run (with
     --ks-report, the rand() draws owed for the skipped reads included)."""
     reads_path = msdoc["pattern_file"]
-    kw = _MSDOC_RUNS[run_id]
+    kw = _msdoc_run(monkeypatch, run_id)
     _clear(reads_path)
     full = jax_run(JaxRunConfig(**msdoc, engine="bits", **kw))
     want = _outputs(reads_path, _VALUE_EXTS)

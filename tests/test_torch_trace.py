@@ -389,3 +389,30 @@ def test_off_records_nothing_ms_doc(ms_docs):
     snap = trace.snapshot()
     assert snap["spans"] == [] and snap["counts"] == []
     assert snap["anchors"] == []
+
+
+@pytest.mark.parametrize("flags,exts", [
+    (dict(pml_requested=True), (".pseudo_lengths",)),
+    (dict(ms_requested=True), (".lengths", ".pointers")),
+    (dict(ms_requested=True, use_doc=True), VALUE_EXTS),
+    (dict(pml_requested=True, report_only=True), ()),
+], ids=["P-c", "M-c", "M-c-d", "P-c-report-only"])
+def test_value_records_count_every_record(ms_docs, tracer, flags, exts):
+    """`value_records` a batch: the batch's reads times its value files
+    (none in a report-only run); `writer.format`, `device.split` and
+    `value_bytes` as before, the bytes the value files' sizes."""
+    _run(ms_docs, **flags)
+    snap = tracer.snapshot()
+    names = set(_by_name(snap))
+    reads = {c["batch"]: c["n"] for c in snap["counts"]
+             if c["name"] == "reads"}
+    records = {c["batch"]: c["n"] for c in snap["counts"]
+               if c["name"] == "value_records"}
+    assert len(reads) >= 3 and sum(reads.values()) == len(LENGTHS)
+    assert records == ({b: n * len(exts) for b, n in reads.items()}
+                       if exts else {})
+    assert "writer.format" in names
+    assert ("device.split" in names) == bool(exts)
+    written = sum(c["n"] for c in snap["counts"] if c["name"] == "value_bytes")
+    assert written == sum(os.path.getsize(ms_docs["pattern_file"] + e)
+                          for e in exts)
