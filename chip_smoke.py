@@ -1156,6 +1156,28 @@ def _read_report(path):
         return {p[0]: p[1] for p in (ln.split() for ln in f) if p}
 
 
+def _unorder(dense, field: str):
+    """Dense tables are char-grouped; the CPU engine ctor wants run-major
+    inputs. Rebuild run-major order via run_heads' stable argsort inverse."""
+    arr = getattr(dense, field)
+    if arr is None:
+        return None
+    order = np.argsort(np.asarray(dense.run_heads), kind="stable")
+    out = np.empty_like(np.asarray(arr))
+    out[order] = np.asarray(arr)
+    return out
+
+
+def _unorder_samples(dense, field: str):
+    """Same as _unorder, but undo the (sa-1) mod n storage convention since
+    the CPU-engine ctor re-applies it."""
+    arr = _unorder(dense, field)
+    if arr is None:
+        return None
+    n = dense.n
+    return np.where(arr == n - 1, 0, arr + 1)
+
+
 def _native_engine(index_path):
     """The native CPU engine over a dense index, with its SA samples, doc
     arrays and text where the index has them (the JAX package's CPU
@@ -1165,13 +1187,13 @@ def _native_engine(index_path):
 
     dense = pl.load_dense_index(index_path)
     zeros = np.zeros(dense.r, dtype=np.int64)
-    ss = pl._unorder_samples(dense, "c_ssamp")
-    es = pl._unorder_samples(dense, "c_esamp")
+    ss = _unorder_samples(dense, "c_ssamp")
+    es = _unorder_samples(dense, "c_esamp")
     return NativeQueryEngine(
         dense.n, dense.run_heads, dense.run_starts,
-        pl._unorder(dense, "c_thr"), zeros if ss is None else ss,
-        zeros if es is None else es, start_doc=pl._unorder(dense, "c_sdoc"),
-        end_doc=pl._unorder(dense, "c_edoc"), text=dense.text)
+        _unorder(dense, "c_thr"), zeros if ss is None else ss,
+        zeros if es is None else es, start_doc=_unorder(dense, "c_sdoc"),
+        end_doc=_unorder(dense, "c_edoc"), text=dense.text)
 
 
 class _KernelTimer:

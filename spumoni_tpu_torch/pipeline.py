@@ -12,9 +12,10 @@ occ-block kernels and writes the reference's output files.
 engine choice (block-bits where it holds the index and the mode, else
 layered; `--engine bits|layered|occ` to force one), the fast start from the
 `.bbrows.npz` cache (block-bits PML without -d), the null-DB threshold,
-the prefetch thread that parses, digests and stages batches, the writer
-thread, the durable read cursor with `--resume`, and `--ks-report` with
-its glibc rand() draws kept in global read order. Outputs
+the prefetch thread that parses, digests and stages batches (feed.py), the
+writer thread and the output files with the durable read cursor of
+`--resume` (outputs.py), and `--ks-report` with its glibc rand() draws
+kept in global read order. Outputs
 (`.pseudo_lengths`, `.lengths`, `.pointers`, `.doc_numbers`, `.report`)
 are byte-identical to the JAX package's. `--tp-devices S` shards the
 index (parallel/tp.py) for report-only PML and -M value runs, as the JAX
@@ -36,32 +37,29 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import itertools
 import os
-import queue
-import threading
 import time
-from collections import deque
 
 import numpy as np
 import torch
 
 from . import trace
 from .classify import binmax, kstest, report
-from .classify.values_writer import BatchIds, ValuesWriter
 from .constants import (DEFAULT_BIN_SIZE, DEFAULT_MIN_K, DEFAULT_MIN_W,
                         MAX_BIN_SIZE, MIN_BIN_SIZE)
 from .engine.blockbits import build_blockbits, eligible_any, load_cached
 from .engine.layered import build_layered
 from .engine import occblock
 from .engine.scan_engine import ScanEngine
+from .feed import general_text_feed, prefetched, read_feed
 from .glibc_rand import GlibcRand
 from .index import refbuilder
 from .index.format import (DenseIndex, build_dense_index, build_doc_arrays,
                            load_dense_index, save_dense_index)
 from .index.null_db import EmpNullDatabase
-from .io import fasta, fastx_batch, minimizers
+from .io import fasta
 from .native import NativeQueryEngine, build_raw_index
+from .outputs import OutputSet, Writer
 from .parallel import distributed as dist
 from .parallel.tp import (MAX_SHARDED_TEXT, MAX_SHARDS, place_shards,
                           shard_blockbits, shard_blockbits_ms, shard_layered,
@@ -547,71 +545,14 @@ class RunConfig:
             if self.engine == "occ":
                 raise ValueError("--tp-devices supports the layered and "
                                  "block-bits engines")
-
-
-def _unorder(dense: DenseIndex, field: str):
-    """Dense tables are char-grouped; the CPU engine ctor wants run-major
-    inputs. Rebuild run-major order via run_heads' stable argsort inverse."""
-    arr = getattr(dense, field)
-    if arr is None:
-        return None
-    order = np.argsort(np.asarray(dense.run_heads), kind="stable")
-    out = np.empty_like(np.asarray(arr))
-    out[order] = np.asarray(arr)
-    return out
-
-
-def _unorder_samples(dense: DenseIndex, field: str):
-    """Same as _unorder, but undo the (sa-1) mod n storage convention since
-    the CPU-engine ctor re-applies it."""
-    arr = _unorder(dense, field)
-    if arr is None:
-        return None
-    n = dense.n
-    return np.where(arr == n - 1, 0, arr + 1)
-
-
-def _prefetched(gen, depth: int = 2):
-    """Runs `gen` in a daemon thread, keeping up to `depth` items ready —
-    host FASTA decode + digestion overlap device compute (SURVEY.md §7.8;
-    the role of the reference's threaded BatchLoader). Item b is the
-    tracer's batch b on both threads."""
-    q: "queue.Queue" = queue.Queue(maxsize=depth)
-    SENTINEL = object()
-
-    def producer():
-        try:
-            for b in itertools.count():
-                trace.set_batch(b)
-                item = next(gen, SENTINEL)
-                with trace.span("prefetch.wait_consumer"):
-                    q.put(item)
-                if item is SENTINEL:
-                    return
-        except BaseException as e:  # surface errors on the consumer side
-            q.put(e)
-
-    threading.Thread(target=producer, daemon=True, name="prefetch").start()
-    for b in itertools.count():
-        with trace.span("feed.wait_input", batch=b):
-            item = q.get()
-        if item is SENTINEL:
-            trace.set_batch(None)
-            return
-        if isinstance(item, BaseException):
-            raise item
-        trace.set_batch(b)
-        yield item
-
-
-def _check_supported(cfg: RunConfig) -> None:
-    if not 0 <= cfg.process_index < cfg.process_count:
-        raise ValueError(f"process_index {cfg.process_index} is not in [0, "
-                         f"{cfg.process_count})")
-    if cfg.tp_devices > MAX_SHARDS:
-        raise ValueError(f"--tp-devices takes at most {MAX_SHARDS} shards")
-    if cfg.device not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda or cpu, not {cfg.device!r}")
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {self.process_index} is not in "
+                             f"[0, {self.process_count})")
+        if self.tp_devices > MAX_SHARDS:
+            raise ValueError(f"--tp-devices takes at most {MAX_SHARDS} shards")
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(f"--device must be cuda or cpu, not "
+                             f"{self.device!r}")
 
 
 def select_devices(name: str) -> list:
@@ -863,7 +804,6 @@ def run(cfg: RunConfig) -> int:
     With SPUMONI_TRACE=<path> the call's spans and counters (trace.py) go
     to <path> (a file a host under P > 1)."""
     cfg.validate()
-    _check_supported(cfg)
     export = os.environ.get(trace.ENV) or None
     if export:
         export = dist.shard_path(export, cfg.process_index,
@@ -873,15 +813,24 @@ def run(cfg: RunConfig) -> int:
 
 
 def _run(cfg: RunConfig) -> int:
+    """The run: the engine, the null DB and the output files loaded; the
+    feed (feed.py), prefetched on its own thread, into the engine on this
+    one, and its output into the writer thread (outputs.py); then the
+    files closed and, under P > 1, merged."""
     devices = select_devices(cfg.device)
     if cfg.is_general_text:
         base = cfg.ref_file
     else:
         base = cfg.ref_file + (".bin" if cfg.use_promotions else ".fa")
     ms = cfg.mode == "ms"
-
-    def engine_for_run():
-        return make_engine(
+    P, p = cfg.process_count, cfg.process_index
+    outputs = OutputSet(cfg)
+    if outputs.skip:
+        log("run", f"resuming after {outputs.skip} completed reads"
+                   + (f" (host {p})" if P > 1 else ""))
+    thr = ks_test = header = None
+    with trace.span("run.load"):
+        engine = make_engine(
             base + (".thrbv.ms" if ms else ".thrbv.spumoni"), devices[0],
             cfg.mode, cfg.use_doc, cfg.engine,
             fast_start=not cfg.is_general_text,
@@ -889,326 +838,61 @@ def _run(cfg: RunConfig) -> int:
             # (spumoni_tpu/pipeline.py:807-810)
             tp_devices=-1 if cfg.is_general_text else cfg.tp_devices,
             report_only=cfg.report_only, devices=devices)
-
-    if cfg.is_general_text:
-        with trace.span("run.load"):
-            engine = engine_for_run()
-        return _run_general_text(cfg, engine)
-
-    out_prefix = cfg.pattern_file
-    P, p = cfg.process_count, cfg.process_index
-    paths = {}
-    if not cfg.report_only:
-        if ms:
-            paths["lengths"] = out_prefix + ".lengths"
-            paths["pointers"] = out_prefix + ".pointers"
-        else:
-            paths["lengths"] = out_prefix + ".pseudo_lengths"
-        if cfg.use_doc:
-            paths["docs"] = out_prefix + ".doc_numbers"
-    if cfg.write_report:
-        paths["report"] = out_prefix + ".report"
-
-    # restartable streaming: the cursor records how many of this host's
-    # records are durably written
-    cursor_path = dist.shard_path(out_prefix + ".cursor", p, P)
-    skip = 0
-    if cfg.resume and os.path.exists(cursor_path):
-        with open(cursor_path) as f:
-            skip = int(f.read().strip() or 0)
-        log("run", f"resuming after {skip} completed reads"
-                   + (f" (host {p})" if P > 1 else ""))
-
-    rep = report
-    ks_test = ks_pending = None
-
-    def header():
-        return (rep.ks_report_header(ks_thr) if cfg.ks_report
-                else rep.report_header(thr))
-
-    with trace.span("run.load"):
-        engine = engine_for_run()
-        with trace.span("load.null_db"):
-            null_db = EmpNullDatabase.load(
-                base + (".msnulldb" if ms else ".pmlnulldb"))
-        thr = binmax.max_value_threshold(
-            null_db.percentile_value, cfg.use_promotions,
-            cfg.use_dna_letters, cfg.mode)
+        if not cfg.is_general_text:
+            with trace.span("load.null_db"):
+                null_db = EmpNullDatabase.load(
+                    base + (".msnulldb" if ms else ".pmlnulldb"))
+            thr = binmax.max_value_threshold(
+                null_db.percentile_value, cfg.use_promotions,
+                cfg.use_dna_letters, cfg.mode)
+            header = report.report_header(thr)
         if cfg.write_report and cfg.ks_report:
             # classification starts with srand(0) (compute_ms_pml.cpp:892);
             # reads this host does not yield (other hosts', or skipped by
             # --resume) still consume their rand() draws, one per KS
-            # window: the pending queue counts them per yielded read
-            ks_test = kstest.KSTest(null_db, cfg.bin_size,
-                                    rand=GlibcRand(0))
-            ks_thr = null_db.ks_stat_threshold
-            ks_pending = deque()
+            # window: the writer's pending queue counts them per yielded
+            # read
+            ks_test = kstest.KSTest(null_db, cfg.bin_size, rand=GlibcRand(0))
+            header = report.ks_report_header(null_db.ks_stat_threshold)
         with trace.span("load.files"):
-            # a shard's report has no header: process 0's merge writes it
-            files = {k: open(dist.shard_path(v, p, P),
-                             ("a" if skip else "w")
-                             + ("" if k == "report" else "b"))
-                     for k, v in paths.items()}
-            if cfg.write_report and P == 1 and not skip:
-                files["report"].write(header())
-
-    # classification and file output run on a writer thread, overlapped
+            outputs.open(header)
+    # classification and file output run on the writer thread, overlapped
     # with the next batch's device work
-    wstate = {"found": 0, "num": skip, "err": None}
-    wq: queue.Queue = queue.Queue(maxsize=2)
-
-    value_files = [f for k, f in files.items() if k != "report"]
-    values_writer = ValuesWriter() if value_files else None
-
-    def _write_batch(ids, out):
-        # the value text a batch writes: the files' growth, buffer included
-        at = (sum(f.tell() for f in value_files)
-              if value_files and trace.recording() else None)
-        with trace.span("writer.format"):
-            _format_batch(ids, out)
-        if at is not None:
-            trace.count("value_bytes",
-                        sum(f.tell() for f in value_files) - at)
-        with trace.span("writer.flush"):
-            for f in files.values():
-                f.flush()
-            with open(cursor_path, "w") as f:
-                f.write(str(wstate["num"]))
-
-    def _format_batch(ids, out):
-        if cfg.report_only:
-            wstate["found"] += int(np.count_nonzero(out["found"]))
-            for i, rid in enumerate(ids):
-                nbins = int(out["above"][i] + out["below"][i])
-                status = "FOUND" if out["found"][i] else "NOT_PRESENT"
-                files["report"].write(rep.report_line(
-                    rid, status, out["sum_maxes"][i] / max(nbins, 1),
-                    int(out["above"][i]), int(out["below"][i])))
-                wstate["num"] += 1
-        else:
-            # one pass a value file, in the JAX package's writer order
-            # (spumoni_tpu/pipeline.py:971-977); the lengths' pass gives
-            # the bin-max verdicts
-            bids = BatchIds(ids)
-            for k in ("docs", "pointers"):
-                if k in files:
-                    values_writer.write(files[k], bids, out[k])
-            bins = (cfg.bin_size, thr) if cfg.write_report and \
-                not cfg.ks_report else None
-            res = values_writer.write(files["lengths"], bids,
-                                      out["lengths"], bins)
-            trace.count("value_records", len(ids) * len(value_files))
-            if cfg.write_report and cfg.ks_report:
-                for rid, lengths in zip(ids, out["lengths"]):
-                    ks_test.rand.advance(ks_pending.popleft())
-                    ks_list = ks_test.run_kstest(lengths)
-                    above = sum(1 for x in ks_list if x >= ks_thr)
-                    found = above / len(ks_list) > 0.50
-                    wstate["found"] += found
-                    files["report"].write(rep.ks_report_line(
-                        rid, "FOUND" if found else "NOT_PRESENT",
-                        sum(ks_list) / len(ks_list), above,
-                        len(ks_list) - above))
-            elif res is not None:
-                above, below, sums = (a.tolist() for a in res)
-                for rid, a, b, s in zip(ids, above, below, sums):
-                    found = a / (a + b) > 0.50
-                    wstate["found"] += found
-                    files["report"].write(rep.report_line(
-                        rid, "FOUND" if found else "NOT_PRESENT",
-                        s / (a + b), a, b))
-            wstate["num"] += len(ids)
-
-    def _writer():
-        try:
-            for b in itertools.count():   # items arrive in batch order
-                with trace.span("writer.wait", batch=b):
-                    item = wq.get()
-                if item is None:
-                    return
-                trace.set_batch(b)
-                with trace.span("writer.batch"):
-                    _write_batch(*item)
-        except Exception as e:  # re-raised by run() after the join
-            wstate["err"] = e
-
-    def digested(pk):
-        if not cfg.min_digest:
-            return pk
-        with trace.span("prefetch.digest"):
-            return minimizers.digest_packed(
-                pk, cfg.use_promotions, cfg.use_dna_letters, cfg.k, cfg.w)
-
+    writer = Writer(outputs, report_only=cfg.report_only, ks_test=ks_test,
+                    bins=(cfg.bin_size, thr) if cfg.write_report
+                    and not cfg.ks_report else None)
     if P > 1:
         log("run", f"host-stride shard {p}/{P}")
-
-    def staged_batches():
-        # host-stride sharding (spumoni_tpu/pipeline.py:1018-1082): every
-        # host parses the whole file and keeps the records it owns (global
-        # index % P == p); the cursor counts owned records
-        fb = fastx_batch
-        g = 0            # global record index at the batch's start
-        owned_seen = 0   # owned records seen (the cursor's units)
-        ks_carry = 0     # rand() draws owed for records not yielded
-        max_lanes = 65536 if cfg.report_only else 8192
-        batches = fb.iter_packed_batches(cfg.pattern_file, cfg.batch_bases,
-                                         upper=True)
-        while True:
-            with trace.span("prefetch.parse"):
-                pk = next(batches, None)
-            if pk is None:
-                return
-            npk = len(pk)
-            in_lens = pk.lens    # input bases, before digestion
-            first = (p - g) % P          # the batch's first owned record
-            g += npk
-            nown = -(-(npk - first) // P) if first < npk else 0
-            csum = None
-            if ks_pending is not None:
-                # one draw per KS window of the DIGESTED read, for every
-                # record of the batch (spumoni_tpu/pipeline.py:1040-1050)
-                pk = digested(pk)
-                nw = kstest.n_windows_batch(pk.lens, cfg.bin_size)
-                csum = np.zeros(npk + 1, dtype=np.int64)
-                np.cumsum(nw, out=csum[1:])
-            if owned_seen + nown <= skip:   # resume: skip whole batches
-                owned_seen += nown
-                if csum is not None:
-                    ks_carry += int(csum[npk])
-                continue
-            a = max(0, skip - owned_seen)   # owned records already durable
-            owned_seen += nown
-            sel = np.arange(first, npk, P, dtype=np.int64)[a:]
-            if len(sel) == 0:
-                if csum is not None:
-                    ks_carry += int(csum[npk])
-                continue
-            if csum is not None:
-                # per yielded read: the draws of the records between it and
-                # the previous yielded one (advanced before its test)
-                gaps = np.empty(len(sel), dtype=np.int64)
-                gaps[0] = ks_carry + csum[sel[0]]
-                gaps[1:] = csum[sel[1:]] - csum[sel[:-1] + 1]
-                ks_carry = int(csum[npk] - csum[sel[-1] + 1])
-                ks_pending.extend(int(v) for v in gaps)
-            if P > 1:
-                pk = fb.select_records(pk, sel)
-            elif a:                          # resume: a partial batch
-                pk = fb.PackedReads(pk.ids[a:], pk.buf[pk.offs[a]:].copy(),
-                                    (pk.offs[a:] - pk.offs[a]).copy())
-            if ks_pending is None:
-                pk = digested(pk)
-            bases = int(in_lens[sel].sum())
-            trace.count("reads", len(pk))
-            trace.count("bases", bases)
-            trace.count("symbols", pk.total_bases)
-            with trace.span("prefetch.stage"):
-                staged = engine.stage(pk, max_lanes)
-            yield pk.ids, staged, bases, pk.total_bases
+    if cfg.is_general_text:
+        batches = general_text_feed(cfg, outputs.skip)
+    else:
+        batches = read_feed(cfg, engine, outputs.skip, writer.ks_pending)
 
     t0 = time.time()
     total_bases = total_symbols = 0
-    wthread = threading.Thread(target=_writer, daemon=True, name="writer")
-    wthread.start()
     try:
-        for ids, staged, bases, symbols in _prefetched(staged_batches()):
+        for ids, work, bases, symbols in prefetched(batches):
             total_bases += bases
             total_symbols += symbols
-            if cfg.report_only:
-                out = engine.classify_staged(staged, cfg.bin_size, thr)
+            if cfg.is_general_text:
+                out = engine.query(work)
+            elif cfg.report_only:
+                out = engine.classify_staged(work, cfg.bin_size, thr)
             else:
-                out = engine.query_staged(staged)
-            if wstate["err"] is not None:
+                out = engine.query_staged(work)
+            if not writer.put(ids, out):
                 break
-            with trace.span("feed.wait_writer"):
-                wq.put((ids, out))
     finally:
-        with trace.span("run.drain"):
-            while wthread.is_alive():   # a writer that failed takes no more
-                try:
-                    wq.put(None, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-            wthread.join()
-            for f in files.values():
-                f.close()
-    if wstate["err"] is not None:
-        raise wstate["err"]
-    num_reads = wstate["num"]
+        writer.close()
+        outputs.close()
+    found, num_reads = writer.result()
     dt = time.time() - t0
-    if os.path.exists(cursor_path):
-        os.remove(cursor_path)
-    if P > 1:
-        # the one collective, after every host closed its files: the
-        # all-gather of the counts is the barrier before process 0's merge
-        # (spumoni_tpu/pipeline.py:1118-1132)
-        gf, num_reads = dist.global_found_counts(wstate["found"], num_reads)
-        if p == 0:
-            for k, v in paths.items():
-                dist.merge_shards(v, P, header=header() if k == "report"
-                                  else None)
-            log("run", f"merged {P} host shards; {gf}/{num_reads} reads "
-                       f"FOUND")
+    found, num_reads = outputs.finish(found, num_reads)
+    if outputs.merges:
+        log("run", f"merged {P} host shards; {found}/{num_reads} reads "
+                   f"FOUND")
     log("run", f"processed {num_reads} reads ({total_bases} bases) in "
                f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
     LAST_RUN_STATS.update(reads=num_reads, bases=total_bases,
                           symbols=total_symbols, stream_s=dt)
-    return num_reads
-
-
-def _run_general_text(cfg: RunConfig, engine: ScanEngine) -> int:
-    """General-text querying (spumoni_tpu/pipeline.py:1141-1201): reads
-    separated by \\x01 (compute_ms_pml.cpp:1219-1297), streamed in batches
-    through engine.query; writes `.pseudo_lengths`, or `.lengths` and
-    `.pointers`, and no report; keeps the durable cursor and --resume, and
-    the host stride, shard files and merge of `run`."""
-    out_prefix = cfg.pattern_file
-    P, p = cfg.process_count, cfg.process_index
-    paths = {"lengths": out_prefix + (".lengths" if cfg.mode == "ms"
-                                      else ".pseudo_lengths")}
-    if cfg.mode == "ms":
-        paths["pointers"] = out_prefix + ".pointers"
-    cursor_path = dist.shard_path(out_prefix + ".cursor", p, P)
-    skip = 0
-    if cfg.resume and os.path.exists(cursor_path):
-        with open(cursor_path) as f:
-            skip = int(f.read().strip() or 0)
-        log("run", f"resuming after {skip} completed reads"
-                   + (f" (host {p})" if P > 1 else ""))
-    fa = fasta
-    records = (item for own, (_, item) in enumerate(dist.host_shard_reads(
-        fa.iter_general_reads(cfg.pattern_file), p, P)) if own >= skip)
-    num_reads = skip
-    t0 = time.time()
-    total_bases = 0
-    files = {k: open(dist.shard_path(v, p, P), "ab" if skip else "wb")
-             for k, v in paths.items()}
-    try:
-        for batch in _prefetched(fa.batch_iter(records, cfg.batch_bases)):
-            out = engine.query([rd for _, rd in batch])
-            for i, (rid, rd) in enumerate(batch):
-                for k, f in files.items():   # lengths, then pointers
-                    report.write_values_record(f, rid, out[k][i])
-                num_reads += 1
-                total_bases += len(rd)
-            for f in files.values():
-                f.flush()
-            with open(cursor_path, "w") as f:
-                f.write(str(num_reads))
-    finally:
-        for f in files.values():
-            f.close()
-    if os.path.exists(cursor_path):
-        os.remove(cursor_path)
-    dt = time.time() - t0
-    if P > 1:
-        _, num_reads = dist.global_found_counts(0, num_reads)
-        if p == 0:
-            for v in paths.values():
-                dist.merge_shards(v, P)
-    log("run", f"processed {num_reads} reads ({total_bases} bases) in "
-               f"{dt:.2f}s -> {num_reads / max(dt, 1e-9):.1f} reads/s")
-    LAST_RUN_STATS.update(reads=num_reads, bases=total_bases,
-                          symbols=total_bases, stream_s=dt)
     return num_reads

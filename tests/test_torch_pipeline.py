@@ -20,6 +20,7 @@ from spumoni_tpu.pipeline import BuildConfig, RunConfig as JaxRunConfig
 from spumoni_tpu.pipeline import build, run as jax_run
 
 import spumoni_tpu_torch.pipeline as tpl
+from spumoni_tpu_torch import outputs
 from spumoni_tpu_torch.classify.values_writer import ValuesWriter
 
 from test_golden import GOLDEN, _generate
@@ -217,7 +218,7 @@ def _msdoc_run(monkeypatch, run_id):
     kw = dict(_MSDOC_RUNS[run_id])
     chunk = kw.pop("value_chunk", None)
     if chunk:
-        monkeypatch.setattr(tpl, "ValuesWriter",
+        monkeypatch.setattr(outputs, "ValuesWriter",
                             functools.partial(ValuesWriter, chunk))
     return kw
 

@@ -147,12 +147,16 @@ def test_wrappers_check_their_shards(bad):
     text, index, table = _ms_index(9, 3000)
     sh = tp.shard_blockbits_ms(index, 3)
     tab, rev, fwd, lens = ranked_rows(table, _reads(text, 10, 4, 100), 256)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError) as err:
         if bad == "shard_device":      # one shard elsewhere than the reads
             sh.bblocks.shard1 = sh.bblocks.shard1.to("meta")
             kernels.pml_classify_tp(sh, tab, rev, lens, 7, 150)
         elif bad == "too_many_shards":   # more than a kernel takes
-            tpl._check_supported(tpl.RunConfig(tp_devices=17))
+            # a config that passes every other check: -P -c --report-only
+            tpl.RunConfig(ref_file="x", pattern_file=__file__,
+                          pml_requested=True, write_report=True,
+                          report_only=True, min_digest=False,
+                          tp_devices=17).validate()
         elif bad == "mode":
             kernels.ms_scan_tp(sh, tab, rev, lens, "pml", False)
         elif bad == "no_jump_d":
@@ -181,6 +185,8 @@ def test_wrappers_check_their_shards(bad):
                                        kernels.layered_tp_tables(lsh))
             finally:
                 assert kernels.layered_classify_tp.launches == 0
+    if bad == "too_many_shards":
+        assert "at most 16 shards" in str(err.value)
 
 
 @pytest.mark.parametrize("S", [1, 3, 4])
