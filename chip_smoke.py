@@ -114,7 +114,10 @@ Phases, each of which fails the script (exit != 0) on any fault:
      on the main-path index; in 5-5f every kernel on a 10-strain run is
      also timed at the lanes the runs launch (B = 8,192 and 32,768:
      LAUNCH_SHAPES), outputs equal to the full batch's rows, with its
-     bound there;
+     bound there; and K1 in one grouped launch over a value batch of mixed
+     lengths staged by the engine (1 to 9,000 bp, a Lanes over many length
+     groups: _grouped_batch), equal to its plain version on the same Lanes,
+     one launch (5b: K3 in each mode and K4 the same way);
   5b. K3 (all three modes), K4 and K5 vs plain at the same shape on the
      MS index, and K6 through the gather-chase script's entry point at its
      shape (R = 9,728, W = 128, L = 64), also on the card alone
@@ -2077,6 +2080,73 @@ def _decoded(engine, g):
     return g
 
 
+#: 5's and 5b's grouped batch: 1 bp, both sides of the 128 and 4,096
+#: bucket edges and 9,000 bp, and GROUPED_DRAWN reads of 200 to 6,000 bp
+GROUPED_EDGES = (1, 127, 128, 129, 4095, 4096, 4097, 9000)
+GROUPED_DRAWN = 120
+
+
+def _grouped_batch(engine, seed=2300):
+    """A value batch of mixed lengths (GROUPED_EDGES and GROUPED_DRAWN
+    more: mutated substrings of phase 4's first strain and random reads,
+    in turns) staged by `engine` as a value run stages it (ScanEngine.stage,
+    8,192 lanes a group: every group in one Lanes, longest lane first),
+    and its flat reversed rows and, for MS, forward rows, decoded as
+    query_staged decodes them: (lanes, tab, rev, fwd)."""
+    from spumoni_tpu_torch.engine.scan_engine import _packed
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(WORK, "pangenome.fa"), "rb") as f:
+        f.readline()
+        text = np.frombuffer(f.readline().rstrip(b"\n"), np.uint8)
+    reads = []
+    for i, m in enumerate(int(x) for x in np.concatenate(
+            [GROUPED_EDGES, rng.integers(200, 6000, GROUPED_DRAWN)])):
+        if i % 2:
+            rd = rng.choice(ACGT, size=m)
+        else:
+            st = int(rng.integers(0, len(text) - m))
+            rd = text[st:st + m].copy()
+            mut = rng.random(m) < 0.08
+            rd[mut] = rng.choice(ACGT, size=int(mut.sum()))
+        reads.append(rd.tobytes())
+    staged = engine.stage(_packed(reads), 8192)
+    lanes = staged[0]["lanes"]
+    if lanes.groups != len(staged) or len(staged) < 5 \
+            or lanes.desc.shape[1] != len(reads):
+        raise AssertionError(f"the grouped batch staged {len(staged)} "
+                             f"groups into {lanes.groups} (one Lanes)")
+    fwd = (engine._flat_rows(staged, engine._fwd_d)
+           if engine.mode == "ms" else None)
+    return (lanes, staged[0]["tab"],
+            engine._flat_rows(staged, engine._rev_d), fwd)
+
+
+def _grouped_check(label, kern, plain, args, lanes, device):
+    """A grouped launch (args hold the flat rows and `lanes`) held to its
+    plain version on the same Lanes, max |err| 0; it must launch its
+    kernel once and no other. Returns (outputs, {lanes, groups, ms}: the
+    event time of a call, warm-up + 3 calls)."""
+    from spumoni_tpu_torch.engine import kernels
+
+    name = label.split()[0]
+    kernels.reset_launch_counts()
+    got = kern(*args)
+    sync(device)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    if counts != {name: 1}:
+        raise AssertionError(f"{label}: launched {counts}, not one {name}")
+    ms = _time_ms(lambda: kern(*args), 3)[0]
+    err = _max_err(got, plain(*args))
+    if err:
+        raise AssertionError(f"{label}: kernel != plain on the same lanes "
+                             f"(max |err| {err})")
+    n, width = lanes.desc.shape[1], lanes.width
+    print(f"{label}: one launch over {n} lanes in {lanes.groups} groups "
+          f"(longest {width}), {ms:.3f} ms/call; == plain, max |err| 0")
+    return got, dict(lanes=n, groups=lanes.groups, ms=ms)
+
+
 def timing_phase(device, prefix, reads, n_reads):
     phase(f"5. kernel vs plain at the main-path shape (B={n_reads})")
     from spumoni_tpu_torch.engine import kernels
@@ -2089,12 +2159,17 @@ def timing_phase(device, prefix, reads, n_reads):
           f"rows {engine.index.bblocks.numel() * 4 / 1e6:.1f} MB")
     src = "spumoni_tpu_torch/csrc/blockbits_pml.cu"
     rows = (engine.index.bblocks,)
+    lanes, tab, rev, _ = _grouped_batch(engine)
+    grouped = _grouped_check("pml_scan grouped", kernels.pml_scan,
+                             kernels.pml_scan_reference,
+                             (engine.index, tab, rev, lanes), lanes,
+                             device)[1]
     return [
         dict(_time_kernel("pml_scan", kernels.pml_scan,
                           kernels.pml_scan_reference, args, src,
                           "spumoni_tpu/engine/scan_engine.py:145",
                           _reads_work("pml_scan", rows)),
-             group=kernels.GROUP),
+             group=kernels.GROUP, grouped=grouped),
         dict(_time_kernel("pml_classify", kernels.pml_classify,
                           kernels.pml_classify_reference,
                           (*args, 7, BIN_WIDTH), src,
@@ -2158,7 +2233,9 @@ def _with_modes(name, timed):
 
 
 #: lane counts the runs launch: value runs stage at most 8,192 lanes a
-#: group (pipeline.py), report-only runs a parse batch of 32,768 reads
+#: group (feed.py; the layered, occ-block and sharded engines launch a
+#: group), report-only runs and block-bits value runs' grouped launches a
+#: parse batch of 32,768 reads
 LAUNCH_SHAPES = (8192, 32768)
 
 
@@ -2262,13 +2339,30 @@ def ms_timing_phase(device, ms_prefix, reads, n_reads):
             args, src, replaces,
             _reads_work("ms_scan", (index.bblocks, index.msrows,
                                     *tables[label]), dependent=2))
-    results = [dict(_with_modes("ms_scan", modes), group=kernels.GROUP)]
+    # grouped launches of K3 in each mode and K4 on its ms pointers
+    lanes, tab, rev, fwd = _grouped_batch(engine)
+    grouped = {}
+    for label, mode, doc in (("ms", "ms", False), ("ms+doc", "ms", True),
+                             ("pml+doc", "pml", True)):
+        out, grouped[label] = _grouped_check(
+            f"ms_scan {label} grouped", kernels.ms_scan,
+            kernels.ms_scan_reference, (index, tab, rev, lanes, mode, doc),
+            lanes, device)
+        if label == "ms":
+            gptrs = out[0]
+    extend = _grouped_check(
+        "ms_extend grouped", kernels.ms_extend, kernels.ms_extend_reference,
+        (index.text, index.text_bound, fwd, lanes, gptrs), lanes, device)[1]
+    results = [dict(_with_modes("ms_scan", modes), group=kernels.GROUP,
+                    grouped=grouped)]
     results += [
-        _time_kernel("ms_extend", kernels.ms_extend,
-                     kernels.ms_extend_reference,
-                     (index.text, index.text_bound, g["fwd_d"], lens, ptrs),
-                     src, "spumoni_tpu/engine/scan_engine.py:1042",
-                     _extend_work("ms_extend", (index.text,))),
+        dict(_time_kernel("ms_extend", kernels.ms_extend,
+                          kernels.ms_extend_reference,
+                          (index.text, index.text_bound, g["fwd_d"], lens,
+                           ptrs),
+                          src, "spumoni_tpu/engine/scan_engine.py:1042",
+                          _extend_work("ms_extend", (index.text,))),
+             grouped=extend),
         _time_kernel("binmax_values", kernels.binmax_values,
                      kernels.binmax_values_reference,
                      (ms_len, lens, 7, BIN_WIDTH), src,
@@ -2690,13 +2784,16 @@ def _annotate(results, runs, chase_counts):
 
 def _run_lanes(path):
     """The lanes of each launch of a 10-strain run (phases 4-4e): a
-    report-only run's parse batch of 32,768 reads, a value run's group of
-    8,192 (pipeline.py); None for 3e's runs, the digested runs (-m, -a)
+    report-only run's parse batch of 32,768 reads, a block-bits value
+    run's grouped launch of the same batch (its four groups of 8,192), a
+    value run's group of 8,192 on the other engines (feed.py,
+    ScanEngine.grouped); None for 3e's runs, the digested runs (-m, -a)
     and 4f's 8,192-read runs, whose launches take other shapes."""
     if path.startswith(("S-", "m-", "a-", "D-", "F-", "H-")) \
             or path == "exp_vmem_gather":
         return None
-    return 32768 if path.endswith("report-only") else 8192
+    grouped = path in ("P-c", "M-c-d", "P-d-c")
+    return 32768 if grouped or path.endswith("report-only") else 8192
 
 
 def _run_line(r, path):

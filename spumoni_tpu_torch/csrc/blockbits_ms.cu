@@ -26,7 +26,7 @@
 //   K3 is a dependent chase: step t's row and msrow are those of the
 //   block holding the position step t-1 computed. What bounds it on the
 //   H100 is the latency of that chain, and at the lane counts the runs
-//   launch (8,192 a value-run group, 32,768 a report-only batch) the card
+//   launch (a value batch's reads, 32,768 a report-only batch) the card
 //   is mostly empty. The first design, one thread per read with a loop
 //   over the char words and one over the run-start words before the
 //   offset, ran each step as up to 16 dependent L1 / L2 round trips: ptxas
@@ -58,6 +58,14 @@
 //   the runs launch (8,192 and 32,768) and at 65,536, and one 16-byte
 //   window a round trip beat two (time_scan's k4-w2), so only these are
 //   built.
+//   K3 and K4 run a value batch's staged groups, of every padded length,
+//   in one grouped launch each (lanes.cuh): each lane's row, length and
+//   output offset come from the batch's lane descriptors, the longest
+//   reads first, and the values go to flat outputs without padding (K4
+//   reads K3's pointers there). One launch a group cost the sum over the
+//   groups of each group's longest chain; the grouped launch costs the
+//   batch's longest. K4 stages a grouped launch's rows in shared memory
+//   only where its longest lane fits, as it does a matrix's widest row.
 //   K5 is one warp per read: coalesced reads of the value row, a warp max
 //   per bin. Bandwidth-bound on the [B, L] matrix.
 //   K15 / K16 are K3 / K4's bodies with each table read from its shard:
@@ -76,6 +84,7 @@
 
 #include "blockbits_pml.cuh"
 #include "extend_step.cuh"
+#include "lanes.cuh"
 #include "ms_step.cuh"
 #include "sharded.cuh"
 
@@ -97,8 +106,7 @@ __global__ void __launch_bounds__(kThreads)
 ms_scan_kernel(const uint32_t* __restrict__ rows,
                const uint32_t* __restrict__ msrows,
                const long long* __restrict__ tab_g, int sq,
-               const uint8_t* __restrict__ reads,
-               const long long* __restrict__ lens, long long B, long long L,
+               const uint8_t* __restrict__ reads, const spn::Lanes lanes,
                const PosOf<WIDE>* __restrict__ jump_t,
                const int32_t* __restrict__ jump_d, PosOf<WIDE>* vals,
                PosOf<WIDE>* docs, spn::IndexScalars s, int mode) {
@@ -111,14 +119,13 @@ ms_scan_kernel(const uint32_t* __restrict__ rows,
   __syncthreads();
   const long long b =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;  // the whole group leaves together
+  if (b >= lanes.B) return;  // the whole group leaves together
   const int lane = (int)(threadIdx.x & (G - 1));
-  long long len = lens[b];
-  len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
-  spn::MsSlots<PosT> out = {vals + b * L + len - 1,
-                            docs ? docs + b * L + len - 1 : nullptr, 0, 0,
-                            0, mode};
+  const long long len = lanes.len(b);
+  const uint8_t* rd = reads + lanes.row(b);  // reversed read, left-aligned
+  const long long o = lanes.off(b) + len - 1;
+  spn::MsSlots<PosT> out = {vals + o, docs ? docs + o : nullptr, 0, 0, 0,
+                            mode};
   const int empty_id = (int)(2 * s.r);  // EMPTY; INIT is 2r+1
   long long pos = s.n - 1;
   int jidx = empty_id + 1;
@@ -154,12 +161,10 @@ template <typename PosT, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 ms_extend_kernel(const uint8_t* __restrict__ text, long long ntext,
                  long long nt, const uint8_t* __restrict__ reads,
-                 const long long* __restrict__ lens, const PosT* ptrs,
-                 long long B, long long L, PosT* out) {
+                 const spn::Lanes lanes, const PosT* ptrs, PosT* out) {
   extern __shared__ __align__(16) uint8_t extend_smem[];
   spn::group_extend<kExtendGroup, STAGED>(
-      spn::FlatText{text, ntext}, nt, reads, lens, ptrs, B, L, out,
-      extend_smem);
+      spn::FlatText{text, ntext}, nt, reads, lanes, ptrs, out, extend_smem);
 }
 
 // K15: K3 with the tables in shards: the step's row and msrow from their
@@ -231,8 +236,8 @@ ms_extend_tp_kernel(const spn::ShardedRows<uint8_t> text, long long ntext,
                     long long B, long long L, PosT* out) {
   extern __shared__ __align__(16) uint8_t extend_smem[];
   spn::group_extend<kExtendGroup, STAGED>(
-      spn::ShardedText{text, ntext}, nt, reads, lens, ptrs, B, L, out,
-      extend_smem);
+      spn::ShardedText{text, ntext}, nt, reads,
+      spn::Lanes{nullptr, lens, nullptr, B, L}, ptrs, out, extend_smem);
 }
 
 template <typename V>
@@ -289,6 +294,8 @@ struct ScanArgs {
   int sq;
   const uint8_t* reads;
   const long long* lens;
+  const long long* lane_rows;  // K3: a grouped launch's lanes, or null
+  const long long* lane_offs;
   long long B, L;
   int P, pack, mode;
   bool wide;
@@ -324,7 +331,8 @@ bool launch_scan(const ScanArgs& a) {
     return true;
   }
   ms_scan_kernel<P, PACK, WIDE><<<grid, kThreads, 0, a.stream>>>(
-      a.rows, a.msrows, a.tab, a.sq, a.reads, a.lens, a.B, a.L,
+      a.rows, a.msrows, a.tab, a.sq, a.reads,
+      spn::Lanes{a.lane_rows, a.lens, a.lane_offs, a.B, a.L},
       (const PosT*)a.jump_t, a.jump_d, (PosT*)a.vals, (PosT*)a.docs, a.s,
       a.mode);
   return true;
@@ -382,18 +390,25 @@ ScanArgs scan_args(long long nb, int P, int pack, int wide, long long n,
 
 }  // namespace
 
+// K3: lane_rows and lane_offs null for a [B, L] matrix, else a grouped
+// launch's B lanes over the flat rows at `reads`, L the widest row
+// (spn::Lanes).
 extern "C" int spn_ms_scan(const void* rows, const void* msrows, long long nb,
                            int P, int pack, int wide, long long n,
                            long long term_pos, long long F_term,
                            int term_code, long long r, long long term_runidx,
                            const void* tab, int sq, const void* reads,
-                           const void* lens, long long B, long long L,
+                           const void* lens, const void* lane_rows,
+                           const void* lane_offs, long long B, long long L,
                            const void* jump_t, const void* jump_d, int mode,
                            void* vals, void* docs, void* stream) {
   if (B == 0) return 0;
+  if ((lane_rows == nullptr) != (lane_offs == nullptr)) return kUnsupported;
   ScanArgs a = scan_args(nb, P, pack, wide, n, term_pos, F_term, term_code,
                          r, term_runidx, tab, sq, reads, lens, B, L, mode,
                          vals, docs, stream);
+  a.lane_rows = (const long long*)lane_rows;
+  a.lane_offs = (const long long*)lane_offs;
   a.rows = (const uint32_t*)rows;
   a.msrows = (const uint32_t*)msrows;
   a.jump_t = jump_t;
@@ -464,25 +479,30 @@ int launch_extend(Kernel staged, Kernel direct, long long B, long long L,
 
 }  // namespace
 
-// K4: text 16-byte aligned, ntext bytes.
+// K4: text 16-byte aligned, ntext bytes; lane_rows and lane_offs null for
+// [B, L] matrices of reads, pointers and lengths, else a grouped launch's B
+// lanes over the flat rows at `reads`, with the pointers and lengths at
+// each lane's output offset, L the longest lane (spn::Lanes).
 extern "C" int spn_ms_extend(const void* text, long long ntext, long long nt,
                              const void* reads, const void* lens,
+                             const void* lane_rows, const void* lane_offs,
                              const void* ptrs, long long B, long long L,
                              int wide, void* out, void* stream) {
   if (B == 0) return 0;
+  if ((lane_rows == nullptr) != (lane_offs == nullptr)) return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* t = (const uint8_t*)text;
   const uint8_t* rd = (const uint8_t*)reads;
-  const long long* ln = (const long long*)lens;
+  const spn::Lanes lanes{(const long long*)lane_rows, (const long long*)lens,
+                         (const long long*)lane_offs, B, L};
   if (wide)
     return launch_extend<long long>(
         ms_extend_kernel<long long, true>, ms_extend_kernel<long long, false>,
-        B, L, st, t, ntext, nt, rd, ln, (const long long*)ptrs, B, L,
+        B, L, st, t, ntext, nt, rd, lanes, (const long long*)ptrs,
         (long long*)out);
   return launch_extend<int32_t>(
       ms_extend_kernel<int32_t, true>, ms_extend_kernel<int32_t, false>, B,
-      L, st, t, ntext, nt, rd, ln, (const int32_t*)ptrs, B, L,
-      (int32_t*)out);
+      L, st, t, ntext, nt, rd, lanes, (const int32_t*)ptrs, (int32_t*)out);
 }
 
 // K16: the text as a host array of S shard pointers of bytes_per_shard

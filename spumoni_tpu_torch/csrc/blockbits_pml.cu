@@ -20,11 +20,17 @@
 // Bound: each step is one DEPENDENT random read of one index row (400 B at
 // P = 512, pack = 2) — the next position comes from this row — so a lane
 // is a pointer chase and the kernel is latency-bound. At the lanes the runs
-// launch (8,192 a value-run group, 32,768 a report-only batch) the card is
-// mostly empty, so the time is the chain's length in round trips. The
+// launch (a value batch's reads, 32,768 a report-only batch) the card is
+// mostly empty, so the time is the longest chain in round trips. The
 // per-character table sits in shared memory; steps past a read's length
 // are not run: their outputs are never read (mesh.py:102-111,
 // scan_engine.py:1966).
+//   K1 runs a value batch's staged groups, of every padded length, in one
+//   grouped launch (lanes.cuh): each lane's row, length and output offset
+//   come from the batch's lane descriptors, the longest reads first, and
+//   the lengths go to one flat output without padding. One launch a group
+//   cost the sum over the groups of each group's longest chain; the
+//   grouped launch costs the batch's longest.
 //   The step is K3's without the msrow run ranks (spn::group_probe, RUNS
 //   false): the block's character words up to the offset as fixed,
 //   predicated 16-, 8- or 4-byte loads split over the group, issued at
@@ -52,6 +58,7 @@
 
 #include "binmax.cuh"
 #include "blockbits_pml.cuh"
+#include "lanes.cuh"
 #include "ms_step.cuh"
 #include "sharded.cuh"
 
@@ -69,8 +76,7 @@ template <int P, int PACK, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 pml_scan_kernel(const uint32_t* __restrict__ rows,
                 const long long* __restrict__ tab_g, int sq,
-                const uint8_t* __restrict__ reads,
-                const long long* __restrict__ lens, long long B, long long L,
+                const uint8_t* __restrict__ reads, const spn::Lanes lanes,
                 int32_t* __restrict__ out, spn::IndexScalars s) {
   constexpr int G = kGroup;
   constexpr int W = spn::Layout<P, PACK, WIDE>::W;
@@ -79,13 +85,12 @@ pml_scan_kernel(const uint32_t* __restrict__ rows,
   __syncthreads();
   const long long b =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;  // the whole group leaves together
+  if (b >= lanes.B) return;  // the whole group leaves together
   const int lane = (int)(threadIdx.x & (G - 1));
-  long long len = lens[b];
-  len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd = reads + b * L;  // reversed read, left-aligned
+  const long long len = lanes.len(b);
+  const uint8_t* rd = reads + lanes.row(b);  // reversed read, left-aligned
   // forward position len-1-t: column -t
-  spn::GroupSlots<int32_t, G> o = {out + b * L + len - 1, 0};
+  spn::GroupSlots<int32_t, G> o = {out + lanes.off(b) + len - 1, 0};
   long long pos = s.n - 1;
   int32_t length = 0;
   int qn = len > 0 ? __ldg(rd) : 0;  // the next step's character ...
@@ -96,10 +101,14 @@ pml_scan_kernel(const uint32_t* __restrict__ rows,
     const spn::MsProbe pr = spn::group_probe<P, PACK, WIDE, G, false>(
         rows + spn::block_of<P>(s, pos) * W, nullptr, tab, s, pos, qc, code,
         lane);
+    // the next code before the store: after it, nvcc sank the look-up
+    // into the next step, whose checkpoint and up-bit loads then waited on
+    // it and issued a round trip after the character words (48 registers
+    // against 43; 1.134 against 0.881 ms at 8,192 lanes on an H100)
+    cn = tab.code[qn];
     length = pr.is_match ? length + 1 : 0;
     o.put(t, length, lane);
     pos = pr.new_pos;
-    cn = tab.code[qn];
   }
   o.flush(len, lane);
 }
@@ -209,6 +218,8 @@ struct Args {
   int sq;
   const uint8_t* reads;
   const long long* lens;
+  const long long* lane_rows;  // K1: a grouped launch's lanes, or null
+  const long long* lane_offs;
   long long B, L;
   int P, pack;
   bool wide;
@@ -234,7 +245,8 @@ template <int P, int PACK, bool WIDE>
 void launch_scan(const Args& a) {
   pml_scan_kernel<P, PACK, WIDE>
       <<<grid_of(a.B * kGroup), kThreads, 0, a.stream>>>(
-      a.rows, a.tab, a.sq, a.reads, a.lens, a.B, a.L, a.out, a.s);
+      a.rows, a.tab, a.sq, a.reads,
+      spn::Lanes{a.lane_rows, a.lens, a.lane_offs, a.B, a.L}, a.out, a.s);
 }
 
 // K2 / K13: kClassifyGroup threads per read.
@@ -313,15 +325,22 @@ Args common(const void* rows, long long nb, int P, int pack, int wide,
 
 }  // namespace
 
+// K1: lane_rows and lane_offs null for a [B, L] matrix, else a grouped
+// launch's B lanes over the flat rows at `reads`, L the widest row
+// (spn::Lanes).
 extern "C" int spn_pml_scan(const void* rows, long long nb, int P, int pack,
                             int wide, long long n, long long term_pos,
                             long long F_term, int term_code, const void* tab,
                             int sq, const void* reads, const void* lens,
+                            const void* lane_rows, const void* lane_offs,
                             long long B, long long L, void* out,
                             void* stream) {
   if (B == 0) return 0;
+  if ((lane_rows == nullptr) != (lane_offs == nullptr)) return kUnsupported;
   Args a = common(rows, nb, P, pack, wide, n, term_pos, F_term, term_code,
                   tab, sq, reads, lens, B, L, stream);
+  a.lane_rows = (const long long*)lane_rows;
+  a.lane_offs = (const long long*)lane_offs;
   a.out = (int32_t*)out;
   return dispatch_scan(a) ? (int)cudaGetLastError() : kUnsupported;
 }

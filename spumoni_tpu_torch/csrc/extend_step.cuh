@@ -42,6 +42,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "lanes.cuh"
 #include "sharded.cuh"
 
 namespace spn {
@@ -252,35 +253,36 @@ __host__ __device__ constexpr long long extend_row_bytes(long long L) {
 }
 
 // K4 / K16 for the read of this thread's group: G threads a read, the
-// whole group leaves together; with STAGED, `smem` holds the block's rows
-// (extend_row_bytes each). Lengths into out's row (columns >= len are left
-// as they are: the wrapper's zeros).
+// whole group leaves together; the lane's row, length and the offset of its
+// pointers and lengths from `lanes` (lanes.cuh). With STAGED, `smem` holds
+// the block's rows (extend_row_bytes(lanes.L) each). Lengths over the
+// lane's len outputs (those past it are left as they are: the wrapper's
+// zeros of a matrix; a grouped launch's flat output has none).
 template <int G, bool STAGED, typename PosT, typename Text>
 __device__ __forceinline__ void group_extend(
     const Text& text, long long nt, const uint8_t* __restrict__ reads,
-    const long long* __restrict__ lens, const PosT* ptrs, long long B,
-    long long L, PosT* out, uint8_t* smem) {
+    const Lanes& lanes, const PosT* ptrs, PosT* out, uint8_t* smem) {
   static_assert(G == 8 || G == 16 || G == 32, "G in {8, 16, 32}");
   const long long b =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;
+  if (b >= lanes.B) return;
   const int lane = (int)(threadIdx.x & (G - 1));
   const unsigned mask = extend_mask<G>();
-  long long len = lens[b];
-  len = len < 0 ? 0 : len > L ? L : len;
-  const uint8_t* rd_g = reads + b * L;
-  const PosT* pp_g = ptrs + b * L;
-  PosT* o_g = out + b * L;
+  const long long len = lanes.len(b);
+  const uint8_t* rd_g = reads + lanes.row(b);
+  const PosT* pp_g = ptrs + lanes.off(b);
+  PosT* o_g = out + lanes.off(b);
   PosT* row = o_g;                              // pointers, then lengths
   const PosT* src = pp_g;
   using Bytes = typename std::conditional<STAGED, SharedBytes,
                                           GlobalBytes>::type;
   Bytes rd;
   if constexpr (STAGED) {
-    uint8_t* region = smem + (threadIdx.x / G) * extend_row_bytes<PosT>(L);
+    uint8_t* region =
+        smem + (threadIdx.x / G) * extend_row_bytes<PosT>(lanes.L);
     row = reinterpret_cast<PosT*>(region + ((uintptr_t)pp_g & 15));
     src = row;
-    uint8_t* bytes = region + extend_ptr_bytes<PosT>(L);
+    uint8_t* bytes = region + extend_ptr_bytes<PosT>(lanes.L);
     const int off = (int)((uintptr_t)rd_g & 15);
     copy_row<G, PosT>(reinterpret_cast<uint8_t*>(row),
                       reinterpret_cast<const uint8_t*>(pp_g),

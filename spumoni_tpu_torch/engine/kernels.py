@@ -37,7 +37,14 @@ K2, K8 and K10 in `csrc/binmax.cuh`, the sharded row source in
 for a group of threads per read, in `csrc/ms_step.cuh`,
 `csrc/layered_step.cuh` and `csrc/occ_step.cuh`, and K4 / K16's group
 walk in `csrc/extend_step.cuh`).
-K4 takes a text and its bound, so both engines share it. Each
+K4 takes a text and its bound, so both engines share it.
+
+K1, K3 and K4 take their reads either as a [B, L] matrix with its [B]
+lengths, or as the flat rows of a grouped launch with its `Lanes`: every
+staged group of a value batch on one device in one launch, the outputs
+flat and unpadded in the batch's read order (csrc/lanes.cuh,
+ScanEngine.stage). The plain versions run a grouped launch's lanes in
+runs of the longest first (`_lane_runs`). Each
 source is compiled with nvcc for sm_90a on first use, all at once, into
 `_build/` next to this package, keyed by a hash of the sources, and bound
 with ctypes.
@@ -60,6 +67,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -74,8 +82,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: every file the libraries are built from: a change to any rebuilds all
 _SOURCES = ("binmax.cuh", "blockbits_pml.cu", "blockbits_pml.cuh",
             "blockbits_ms.cu", "extend_step.cuh", "gather_chase.cu",
-            "layered.cu", "layered_step.cuh", "ms_step.cuh", "occ_step.cuh",
-            "occblock.cu", "sharded.cuh", "staging.cu")
+            "lanes.cuh", "layered.cu", "layered_step.cuh", "ms_step.cuh",
+            "occ_step.cuh", "occblock.cu", "sharded.cuh", "staging.cu")
 #: library name -> its translation unit
 LIBRARIES = {"blockbits_pml": "blockbits_pml.cu",
              "blockbits_ms": "blockbits_ms.cu",
@@ -149,7 +157,7 @@ _U32, _U64 = ctypes.c_uint, ctypes.c_ulonglong
 _SIGNATURES = {
     "blockbits_pml": {
         "spn_pml_scan": [_P, _I64, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
-                         _P, _I32, _P, _P, _I64, _I64, _P, _P],
+                         _P, _I32, _P, _P, _P, _P, _I64, _I64, _P, _P],
         "spn_pml_classify": [_P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
                              _I32, _P, _I32, _P, _P, _I64, _I64, _I64, _I32,
                              _P, _P, _P, _P, _P],
@@ -160,10 +168,10 @@ _SIGNATURES = {
     "blockbits_ms": {
         "spn_enable_peer_access": [_I32],
         "spn_ms_scan": [_P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64,
-                        _I32, _I64, _I64, _P, _I32, _P, _P, _I64, _I64, _P,
-                        _P, _I32, _P, _P, _P],
-        "spn_ms_extend": [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _I32, _P,
-                          _P],
+                        _I32, _I64, _I64, _P, _I32, _P, _P, _P, _P, _I64,
+                        _I64, _P, _P, _I32, _P, _P, _P],
+        "spn_ms_extend": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64,
+                          _I32, _P, _P],
         "spn_ms_scan_tp": [_P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _I64,
                            _I64, _I64, _I32, _I64, _I64, _P, _I32, _P, _P,
                            _I64, _I64, _P, _P, _I64, _I32, _P, _P, _P],
@@ -209,21 +217,87 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+class Lanes(NamedTuple):
+    """The lanes of one grouped launch of K1, K3 or K4 on one device
+    (csrc/lanes.cuh; laid out by ScanEngine.stage): lane i reads lens[i]
+    symbols of the row that starts rows[i] bytes into the launch's flat
+    rows, and writes its values to [offs[i], offs[i] + lens[i]) of a flat
+    output of `size` elements. The lanes go longest first; the outputs
+    hold each read's values in the batch's read order, with no padding.
+    `desc` is the [3, N] int64 (rows, lens, offs) on the launch's device,
+    `width` the longest lane, `groups` the staged groups it serves."""
+    desc: torch.Tensor
+    size: int
+    width: int
+    groups: int
+
+    @property
+    def rows(self) -> torch.Tensor:
+        return self.desc[0]
+
+    @property
+    def lens(self) -> torch.Tensor:
+        return self.desc[1]
+
+    @property
+    def offs(self) -> torch.Tensor:
+        return self.desc[2]
+
+
+def _check_lanes(reads: torch.Tensor, lanes: Lanes):
+    """A grouped launch's flat rows and descriptors."""
+    if reads.dtype != torch.uint8 or reads.dim() != 1:
+        raise ValueError("a grouped launch's rows must be a flat uint8 "
+                         "tensor")
+    d = lanes.desc
+    if d.dtype != torch.int64 or d.dim() != 2 or d.shape[0] != 3:
+        raise ValueError("lanes.desc must be a [3, N] int64 tensor")
+
+
+def _lane_args(reads: torch.Tensor, lens) -> list:
+    """The entry points' (reads, lens, lane rows, lane offsets, B, L) of a
+    [B, L] matrix and its [B] lens (no descriptors: lane b reads row b and
+    writes at b * L), or of a grouped launch's flat rows and Lanes (L its
+    longest lane)."""
+    if isinstance(lens, Lanes):
+        return [reads.data_ptr(), lens.lens.data_ptr(), lens.rows.data_ptr(),
+                lens.offs.data_ptr(), lens.desc.shape[1], lens.width]
+    return [reads.data_ptr(), lens.data_ptr(), None, None, reads.shape[0],
+            reads.shape[1]]
+
+
+def _values_out(reads: torch.Tensor, lens, dtype) -> torch.Tensor:
+    """A scan's output: the [B, L] zeros of a matrix, or a grouped launch's
+    flat values, every element of which the launch writes."""
+    if isinstance(lens, Lanes):
+        return torch.empty(lens.size, dtype=dtype, device=reads.device)
+    return torch.zeros(reads.shape, dtype=dtype, device=reads.device)
+
+
 def _check_inputs(rows: torch.Tensor, tab: torch.Tensor,
-                  reads_rev: torch.Tensor, lens: torch.Tensor):
+                  reads_rev: torch.Tensor, lens, grouped: bool = False):
     """Device, dtype, shape and contiguity checks of the wrappers that take
     rank-mapped rows and a CharTable table; `rows` is the index's row
-    tensor (a BlockBitsIndex's bblocks, an OccIndex's blocks). Returns the
-    device kind: 'cpu' or 'cuda'."""
+    tensor (a BlockBitsIndex's bblocks, an OccIndex's blocks). With
+    `grouped`, lens may be the Lanes of a grouped launch over the flat rows
+    reads_rev. Returns the device kind: 'cpu' or 'cuda'."""
     dev = reads_rev.device
+    lanes = lens if isinstance(lens, Lanes) else None
+    if lanes is not None:
+        if not grouped:
+            raise ValueError("this kernel takes no grouped launch")
+        lens = lanes.desc
     for name, t in (("index rows", rows), ("tab", tab), ("lens", lens)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, reads on {dev}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if reads_rev.dtype != torch.uint8 or reads_rev.dim() != 2:
+    if lanes is not None:
+        _check_lanes(reads_rev, lanes)
+    elif reads_rev.dtype != torch.uint8 or reads_rev.dim() != 2:
         raise ValueError("reads_rev must be a [B, L] uint8 tensor")
-    if lens.dtype != torch.int64 or tuple(lens.shape) != (reads_rev.shape[0],):
+    elif lens.dtype != torch.int64 \
+            or tuple(lens.shape) != (reads_rev.shape[0],):
         raise ValueError("lens must be a [B] int64 tensor")
     if tab.dtype != torch.int64 or tab.dim() != 2 or tab.shape[1] != 5 \
             or not 0 < tab.shape[0] <= 256:
@@ -234,13 +308,11 @@ def _check_inputs(rows: torch.Tensor, tab: torch.Tensor,
     return dev.type
 
 
-def _launch_head(index: BlockBitsIndex, tab, reads_rev, lens):
+def _launch_head(index: BlockBitsIndex, tab):
     m = index.meta
-    B, L = reads_rev.shape
     return [index.bblocks.data_ptr(), index.bblocks.shape[0], m.P, m.pack,
             int(m.wide), m.n, m.term_pos, m.F_term, m.term_code,
-            tab.data_ptr(), tab.shape[0], reads_rev.data_ptr(),
-            lens.data_ptr(), B, L]
+            tab.data_ptr(), tab.shape[0]]
 
 
 def _raise_on(rc: int, name: str, index: BlockBitsIndex = None):
@@ -317,21 +389,22 @@ def enable_peer_access(devices) -> None:
 
 
 def pml_scan(index: BlockBitsIndex, tab: torch.Tensor,
-             reads_rev: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+             reads_rev: torch.Tensor, lens) -> torch.Tensor:
     """K1. reads_rev: [B, L] uint8 query-rank codes, each read REVERSED and
     left-aligned; lens: [B] int64. Returns [B, L] int32 PML lengths in
-    FORWARD order (columns >= lens[b] are 0)."""
-    if _check_inputs(index.bblocks, tab, reads_rev, lens) == "cpu":
+    FORWARD order (columns >= lens[b] are 0). With lens the Lanes of a
+    grouped launch, reads_rev is its flat rows, and the lengths come back
+    flat (Lanes)."""
+    if _check_inputs(index.bblocks, tab, reads_rev, lens, True) == "cpu":
         return pml_scan_reference(index, tab, reads_rev, lens)
     _check_aligned("pml_scan", (("rows", index.bblocks),))
-    out = torch.zeros(reads_rev.shape, dtype=torch.int32,
-                      device=reads_rev.device)
+    out = _values_out(reads_rev, lens, torch.int32)
     if out.numel() == 0:
         return out
     _launch(
         pml_scan, "blockbits_pml", "spn_pml_scan", reads_rev.device,
-        *_launch_head(index, tab, reads_rev, lens), out.data_ptr(),
-        index=index)
+        *_launch_head(index, tab), *_lane_args(reads_rev, lens),
+        out.data_ptr(), index=index)
     return out
 
 
@@ -360,7 +433,8 @@ def pml_classify(index: BlockBitsIndex, tab: torch.Tensor,
         return found, above, below, summ
     _launch(
         pml_classify, "blockbits_pml", "spn_pml_classify", dev,
-        *_launch_head(index, tab, reads_rev, lens), int(max_value_thr),
+        *_launch_head(index, tab), reads_rev.data_ptr(), lens.data_ptr(),
+        B, reads_rev.shape[1], int(max_value_thr),
         int(bin_width), found.data_ptr(), above.data_ptr(), below.data_ptr(),
         summ.data_ptr(), index=index)
     return found, above, below, summ
@@ -403,14 +477,14 @@ def _check_aligned(name, tables):
 
 
 def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
-            reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
-            use_doc: bool):
-    """K3. Same read inputs as pml_scan; mode 'ms' (with or without doc
-    ids) or 'pml' with use_doc. Returns (vals, docs): [B, L] tensors of
-    index.meta.pos_dtype in FORWARD order (columns >= lens[b] are 0):
-    MS pointers jump_t[jidx] - d, or PML lengths; docs = jump_d[jidx], or
-    None without use_doc."""
-    kind = _check_inputs(index.bblocks, tab, reads_rev, lens)
+            reads_rev: torch.Tensor, lens, mode: str, use_doc: bool):
+    """K3. Same read inputs as pml_scan, a matrix or a grouped launch's
+    flat rows and Lanes; mode 'ms' (with or without doc ids) or 'pml' with
+    use_doc. Returns (vals, docs): [B, L] tensors of index.meta.pos_dtype
+    in FORWARD order (columns >= lens[b] are 0), or a grouped launch's flat
+    values: MS pointers jump_t[jidx] - d, or PML lengths; docs =
+    jump_d[jidx], or None without use_doc."""
+    kind = _check_inputs(index.bblocks, tab, reads_rev, lens, True)
     code = _MS_MODES.get((mode, bool(use_doc)))
     if code is None:
         raise ValueError(f"ms_scan: mode={mode!r}, use_doc={use_doc} (plain "
@@ -430,9 +504,8 @@ def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
     dev = reads_rev.device
     _check_aligned("ms_scan", (("rows", index.bblocks),
                                ("msrows", index.msrows)))
-    vals = torch.zeros(reads_rev.shape, dtype=index.meta.pos_dtype,
-                       device=dev)
-    docs = torch.zeros_like(vals) if use_doc else None
+    vals = _values_out(reads_rev, lens, index.meta.pos_dtype)
+    docs = _values_out(reads_rev, lens, vals.dtype) if use_doc else None
     if vals.numel() == 0:
         return vals, docs
     m = index.meta
@@ -442,8 +515,7 @@ def ms_scan(index: BlockBitsIndex, tab: torch.Tensor,
         index.bblocks.data_ptr(), index.msrows.data_ptr(),
         index.bblocks.shape[0], m.P, m.pack, int(m.wide), m.n, m.term_pos,
         m.F_term, m.term_code, m.r, m.term_runidx, tab.data_ptr(),
-        tab.shape[0], reads_rev.data_ptr(), lens.data_ptr(),
-        reads_rev.shape[0], reads_rev.shape[1], ptr(index.jump_t),
+        tab.shape[0], *_lane_args(reads_rev, lens), ptr(index.jump_t),
         ptr(index.jump_d), code, vals.data_ptr(), ptr(docs), index=index)
     return vals, docs
 
@@ -474,21 +546,29 @@ def _check_matrix_inputs(name, mats, lens):
 
 
 def ms_extend(text: torch.Tensor, text_bound: int, reads_fwd: torch.Tensor,
-              lens: torch.Tensor, ptrs: torch.Tensor) -> torch.Tensor:
+              lens, ptrs: torch.Tensor) -> torch.Tensor:
     """K4. text: [ntext] uint8, read as 0 past its end up to text_bound
     (the index's `text_bound`); reads_fwd: [B, L] uint8 raw read bytes in
     natural order; ptrs: [B, L] forward MS pointers (int32 / int64, from
     ms_scan or layered_scan). Returns the [B, L] MS lengths in the pointer
-    dtype (columns >= lens[b] are 0)."""
+    dtype (columns >= lens[b] are 0). With lens the Lanes of a grouped
+    launch, reads_fwd is its flat forward rows (at the lanes' row offsets)
+    and ptrs its flat pointers (ms_scan's grouped output), and the lengths
+    come back flat in their place."""
     if text is None:
         raise ValueError("ms_extend: the index has no text (build -M)")
-    kind = _check_matrix_inputs("ms_extend", (
-        ("reads_fwd", reads_fwd, (torch.uint8,)),
-        ("ptrs", ptrs, (torch.int32, torch.int64))), lens)
-    if reads_fwd.shape != ptrs.shape:
-        raise ValueError("ms_extend: reads_fwd and ptrs differ in shape")
-    if text.device != lens.device:
-        raise ValueError(f"text is on {text.device}, lens on {lens.device}")
+    if isinstance(lens, Lanes):
+        kind = _check_grouped_extend(reads_fwd, lens, ptrs)
+    else:
+        kind = _check_matrix_inputs("ms_extend", (
+            ("reads_fwd", reads_fwd, (torch.uint8,)),
+            ("ptrs", ptrs, (torch.int32, torch.int64))), lens)
+        if reads_fwd.shape != ptrs.shape:
+            raise ValueError("ms_extend: reads_fwd and ptrs differ in "
+                             "shape")
+    dev = ptrs.device
+    if text.device != dev:
+        raise ValueError(f"text is on {text.device}, ptrs on {dev}")
     if text.dtype != torch.uint8 or text.dim() != 1 \
             or not text.is_contiguous():
         raise ValueError("ms_extend: text must be a contiguous 1-D uint8 "
@@ -496,20 +576,41 @@ def ms_extend(text: torch.Tensor, text_bound: int, reads_fwd: torch.Tensor,
     if kind == "cpu":
         return ms_extend_reference(text, text_bound, reads_fwd, lens, ptrs)
     _check_aligned("ms_extend", (("text", text),))
-    out = torch.zeros_like(ptrs)
+    grouped = isinstance(lens, Lanes)
+    out = torch.empty_like(ptrs) if grouped else torch.zeros_like(ptrs)
     if out.numel() == 0:
         return out
-    dev = lens.device
+    rd, ln, lane_rows, lane_offs, B, L = _lane_args(reads_fwd, lens)
     _launch(
         ms_extend, "blockbits_ms", "spn_ms_extend", dev,
-        text.data_ptr(), text.shape[0], int(text_bound),
-        reads_fwd.data_ptr(), lens.data_ptr(), ptrs.data_ptr(),
-        ptrs.shape[0], ptrs.shape[1], int(ptrs.dtype == torch.int64),
+        text.data_ptr(), text.shape[0], int(text_bound), rd, ln, lane_rows,
+        lane_offs, ptrs.data_ptr(), B, L, int(ptrs.dtype == torch.int64),
         out.data_ptr())
     return out
 
 
 ms_extend.launches = 0
+
+
+def _check_grouped_extend(reads_fwd: torch.Tensor, lanes: Lanes,
+                          ptrs: torch.Tensor) -> str:
+    """K4's grouped inputs: flat forward rows, the Lanes and the flat
+    pointers, on one device, contiguous; returns the device kind."""
+    dev = ptrs.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for label, t in (("reads_fwd", reads_fwd), ("lanes", lanes.desc)):
+        if t.device != dev:
+            raise ValueError(f"{label} is on {t.device}, ptrs on {dev}")
+    _check_lanes(reads_fwd, lanes)
+    if ptrs.dtype not in (torch.int32, torch.int64) \
+            or tuple(ptrs.shape) != (lanes.size,):
+        raise ValueError("ms_extend: a grouped launch's ptrs must be its "
+                         "flat int32 / int64 values")
+    if not (reads_fwd.is_contiguous() and lanes.desc.is_contiguous()
+            and ptrs.is_contiguous()):
+        raise ValueError("ms_extend: inputs must be contiguous")
+    return dev.type
 
 
 def binmax_values(vals: torch.Tensor, lens: torch.Tensor, max_value_thr: int,
@@ -858,14 +959,27 @@ def _table_word(values) -> int:
     return sum(v << (8 * i) for i, v in enumerate(values))
 
 
-def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor):
+def _check_decode_out(name: str, out, shape, dev) -> None:
+    """K11 / K12's `out`: None, or a contiguous uint8 tensor of the rows'
+    shape on the packed rows' device."""
+    if out is not None and (out.dtype != torch.uint8
+                            or tuple(out.shape) != shape
+                            or out.device != dev
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {list(shape)} "
+                         f"uint8 tensor on {dev}")
+
+
+def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor,
+            out: torch.Tensor = None):
     """K11. packed: [B, Q] uint8 of 2-bit codes, four per byte with the low
     bits first (native.pack_rows_native with bits=2); values: the 4-entry
     table code -> byte (the ranks of A, C, G, T, or their raw bytes); exc:
     None or a [k, 3] int32 tensor of (row, col, byte) exceptions in any
     order (triples outside [B, 4Q] are dropped); lens: [B] int64. Returns
     the [B, 4Q] uint8 rows: values[code], the exceptions over their cells,
-    and 0 at every column >= lens[b]."""
+    and 0 at every column >= lens[b]; written into `out` where given (a
+    view of a grouped launch's flat rows)."""
     kind = _check_packed("unpack2", packed, lens)
     values = _byte_table("unpack2", values, 4)
     if exc is not None:
@@ -876,10 +990,14 @@ def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor):
                 or not exc.is_contiguous():
             raise ValueError("unpack2: exc must be a contiguous [k, 3] int32 "
                              "tensor")
-    if kind == "cpu":
-        return unpack2_reference(packed, values, exc, lens)
     B, Q = packed.shape
-    out = torch.empty((B, 4 * Q), dtype=torch.uint8, device=packed.device)
+    _check_decode_out("unpack2", out, (B, 4 * Q), packed.device)
+    if kind == "cpu":
+        rows = unpack2_reference(packed, values, exc, lens)
+        return rows if out is None else out.copy_(rows)
+    if out is None:
+        out = torch.empty((B, 4 * Q), dtype=torch.uint8,
+                          device=packed.device)
     if out.numel() == 0:
         return out
     k = 0 if exc is None else exc.shape[0]
@@ -893,19 +1011,24 @@ def unpack2(packed: torch.Tensor, values, exc, lens: torch.Tensor):
 unpack2.launches = 0
 
 
-def unpack4(packed: torch.Tensor, lens: torch.Tensor, table=None):
+def unpack4(packed: torch.Tensor, lens: torch.Tensor, table=None,
+            out: torch.Tensor = None):
     """K12. packed: [B, H] uint8 of nibbles, the low nibble first
     (native.pack_rows_native with bits=4); lens: [B] int64; table: None
     (the nibbles themselves) or 16 bytes, nibble -> byte (an alphabet's
     rank -> raw byte: _decode_alpha). Returns the [B, 2H] uint8 rows, 0 at
-    every column >= lens[b]."""
+    every column >= lens[b]; written into `out` where given."""
     kind = _check_packed("unpack4", packed, lens)
     if table is not None:
         table = _byte_table("unpack4", table, 16)
-    if kind == "cpu":
-        return unpack4_reference(packed, lens, table)
     B, H = packed.shape
-    out = torch.empty((B, 2 * H), dtype=torch.uint8, device=packed.device)
+    _check_decode_out("unpack4", out, (B, 2 * H), packed.device)
+    if kind == "cpu":
+        rows = unpack4_reference(packed, lens, table)
+        return rows if out is None else out.copy_(rows)
+    if out is None:
+        out = torch.empty((B, 2 * H), dtype=torch.uint8,
+                          device=packed.device)
     if out.numel() == 0:
         return out
     table = tuple(range(16)) if table is None else table
@@ -1161,10 +1284,42 @@ def _scan_steps(index, tab, reads_rev, lens):
         yield t, length
 
 
+#: lanes a run of the plain versions of a grouped launch
+PLAIN_LANES = 256
+
+
+def _lane_runs(lanes: Lanes):
+    """The plain versions' walk over a grouped launch: (lens [n], row index
+    [n, W], output index [n, W], mask [n, W]) of each run of up to
+    PLAIN_LANES lanes, W the run's longest lane (the lanes go longest
+    first, so a run holds little padding). Past a lane's length the mask
+    is False and the indexes repeat its first byte and output."""
+    rows, lens, offs = lanes.desc
+    for lo in range(0, lanes.desc.shape[1], PLAIN_LANES):
+        ln = lens[lo:lo + PLAIN_LANES]
+        cols = torch.arange(int(ln.max()), device=ln.device)
+        mask = cols < ln[:, None]
+        at = torch.where(mask, cols, 0)
+        yield (ln, rows[lo:lo + PLAIN_LANES, None] + at,
+               offs[lo:lo + PLAIN_LANES, None] + at, mask)
+
+
+def _run_rows(flat: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor):
+    """A run's [n, W] matrix of flat[idx], 0 past each lane's length."""
+    return torch.where(mask, flat[idx], torch.zeros((), dtype=flat.dtype))
+
+
 def pml_scan_reference(index: BlockBitsIndex, tab: torch.Tensor,
-                       reads_rev: torch.Tensor,
-                       lens: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1 (query_batch_kernel_v4 + the flip)."""
+                       reads_rev: torch.Tensor, lens) -> torch.Tensor:
+    """Plain PyTorch version of K1 (query_batch_kernel_v4 + the flip); a
+    grouped launch's lanes in runs (_lane_runs)."""
+    if isinstance(lens, Lanes):
+        out = torch.empty(lens.size, dtype=torch.int32,
+                          device=reads_rev.device)
+        for ln, ri, oi, m in _lane_runs(lens):
+            out[oi[m]] = pml_scan_reference(
+                index, tab, _run_rows(reads_rev, ri, m), ln)[m]
+        return out
     B, L = reads_rev.shape
     lens = lens.clamp(0, L)
     out = torch.zeros((B, L), dtype=torch.int32, device=reads_rev.device)
@@ -1218,12 +1373,23 @@ def _binmax_fold(steps, lens: torch.Tensor, max_value_thr: int,
 
 
 def ms_scan_reference(index: BlockBitsIndex, tab: torch.Tensor,
-                      reads_rev: torch.Tensor, lens: torch.Tensor, mode: str,
+                      reads_rev: torch.Tensor, lens, mode: str,
                       use_doc: bool):
     """Plain PyTorch version of K3 (query_batch_kernel_v4ms with
     ms_initial_state and the jump-table reconstruction, in forward
-    order)."""
+    order); a grouped launch's lanes in runs (_lane_runs)."""
     m = index.meta
+    if isinstance(lens, Lanes):
+        vals = torch.empty(lens.size, dtype=m.pos_dtype,
+                           device=reads_rev.device)
+        docs = torch.empty_like(vals) if use_doc else None
+        for ln, ri, oi, mk in _lane_runs(lens):
+            v, d = ms_scan_reference(index, tab, _run_rows(reads_rev, ri, mk),
+                                     ln, mode, use_doc)
+            vals[oi[mk]] = v[mk]
+            if use_doc:
+                docs[oi[mk]] = d[mk]
+        return vals, docs
     B, L = reads_rev.shape
     dev = reads_rev.device
     lens = lens.clamp(0, L)
@@ -1257,7 +1423,7 @@ def ms_scan_reference(index: BlockBitsIndex, tab: torch.Tensor,
 
 
 def ms_extend_reference(text: torch.Tensor, text_bound: int,
-                        reads_fwd: torch.Tensor, lens: torch.Tensor,
+                        reads_fwd: torch.Tensor, lens,
                         ptrs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: extend_pointers_kernel's two-pointer
     loop (scan_engine.py:1041-1101). Each iteration either extends a lane's
@@ -1265,7 +1431,16 @@ def ms_extend_reference(text: torch.Tensor, text_bound: int,
     keeping max(l - 1, 0) characters (MS are 1-Lipschitz), so a lane takes
     at most 3 L iterations. A position mismatches when its pointer is
     negative (the reference's unsigned underflow) or the text position is
-    past text_bound, where text past its end reads as 0."""
+    past text_bound, where text past its end reads as 0. A grouped launch's
+    lanes go in runs (_lane_runs), each lane's pointers from its output
+    offset."""
+    if isinstance(lens, Lanes):
+        out = torch.empty_like(ptrs)
+        for ln, ri, oi, mk in _lane_runs(lens):
+            out[oi[mk]] = ms_extend_reference(
+                text, text_bound, _run_rows(reads_fwd, ri, mk), ln,
+                _run_rows(ptrs, oi, mk))[mk]
+        return out
     B, L = reads_fwd.shape
     dev = reads_fwd.device
     ntext, nt = int(text.shape[0]), int(text_bound)

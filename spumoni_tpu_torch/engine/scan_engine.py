@@ -34,6 +34,15 @@ go through the same kernels in one launch: the carry is per lane, so no
 chunk state is kept (the occ-block scan resolves its one-step lag per lane
 too).
 
+On block-bits (`grouped`), a value batch's staged groups on one device run
+in one grouped launch of K1, or of K3 then K4 (kernels.Lanes): stage lays
+the groups' decoded rows out one after another in one flat tensor and
+uploads each lane's row offset, length and output offset, the longest
+reads first; query_staged decodes every group into its place, launches
+once and fetches each field's values, flat and unpadded in the batch's
+read order, with one copy. The layered, occ-block and sharded engines, and
+classify_staged, launch once a group.
+
 `to_devices` makes an engine data-parallel, as the JAX package's `to_mesh`
 does over a mesh's `data` axis: each staged group's lanes are cut into one
 contiguous slice per listed device (a device may repeat), each slice
@@ -84,6 +93,8 @@ class ScanEngine:
         self.sharded = isinstance(index, (ShardedBlockBits, ShardedLayered))
         self.layered = isinstance(index, (LayeredIndex, ShardedLayered))
         self.occ = isinstance(index, OccIndex)
+        #: value batches in one grouped launch a device (block-bits)
+        self.grouped = not (self.sharded or self.layered or self.occ)
         if self.layered or self.occ:
             has_ms, has_doc = index.meta.has_samples, index.meta.has_doc
         else:
@@ -175,14 +186,16 @@ class ScanEngine:
 
     def stage(self, packed, max_lanes: int = 65536) -> list:
         """Host prep + device upload for one PackedReads batch: bucketing,
-        packing at 2, 4 or 8 bits (_pack_rev, _pack_raw) and the copy to
-        the device. Runs in the prefetch thread while the device works on
-        the previous batch. Returns the staged groups that classify_staged /
+        packing at 2, 4 or 8 bits (_pack) and the copy to the device. Runs
+        in the prefetch thread while the device works on the previous
+        batch. Returns the staged groups that classify_staged /
         query_staged consume; each carries its bits, its 2-bit values
         (`ranks2`) and its alphabet, which later batches may extend. On a
         data-parallel engine (to_devices) each group is cut into one
         staged part per device, lanes in order, all with the group's
-        `group` id; part k carries `replica` k. Counts (trace.py) the
+        `group` id; part k carries `replica` k. A grouped engine stages
+        every group of a batch in one alphabet and lays each device's
+        parts out for one grouped launch (_lay_out). Counts (trace.py) the
         batch's staged groups, lanes, lane slots (lanes x L) and the bytes
         uploaded."""
         lens_all = np.asarray(packed.lens)
@@ -192,64 +205,112 @@ class ScanEngine:
                 f"{packed.ids[i]} was empty after digestion; remove the read "
                 f"or run without minimizer digestion")
         Lb = self._bucket_L(lens_all)
-        offs, buf = packed.offs, packed.buf
         if not self.layered:
             self._ensure_alpha()
-        groups = []
-        ngroups = lanes = slots = htod = 0
+        packs = []
         for L in np.unique(Lb):
-            L = int(L)
             idxs = np.flatnonzero(Lb == L)
-            for c0 in range(0, len(idxs), max_lanes):
-                sel = idxs[c0:c0 + max_lanes]
-                starts, ends = offs[sel], offs[sel + 1]
-                lens = lens_all[sel].astype(np.int64)
-                if self.layered:
-                    bits, rows, exc = _pack_raw(buf, starts, ends, L, True, 2)
-                    ranks2, alpha = _ACGT, None
-                else:
-                    bits, rows, exc = self._pack_rev(buf, starts, ends, L)
-                    alpha = self._stage_alpha
-                    ranks2 = tuple(int(self._stage_amap[c]) for c in _ACGT)
-                if self.mode == "ms":
-                    if bits == 4:   # ranks, mapped back to bytes by K12
-                        fbits, fwd, fexc = 4, pack_rows_native(
-                            buf, starts, ends, len(sel), L, self._stage_amap,
-                            False, 4)[0], None
-                    else:
-                        fbits, fwd, fexc = _pack_raw(buf, starts, ends, L,
-                                                     False, bits)
-                gid = next(self._groups)
-                ngroups += 1
-                lanes += len(sel)
-                slots += len(sel) * L
-                htod += rows.nbytes + lens.nbytes + _nbytes(exc)
-                if self.mode == "ms":
-                    htod += fwd.nbytes + _nbytes(fexc)
-                for k, (lo, hi) in enumerate(_slices(len(sel),
-                                                     len(self.devices))):
-                    if lo == hi:
-                        continue
-                    dev = self.devices[k]
-                    g = {"idxs": sel[lo:hi], "L": L, "lens": lens[lo:hi],
-                         "bits": bits, "ranks2": ranks2, "alpha": alpha,
-                         "rev_p": _put(rows[lo:hi], dev),
-                         "exc_d": _put(_exc_rows(exc, lo, hi, len(sel)),
-                                       dev),
-                         "lens_d": _put(lens[lo:hi], dev),
-                         "group": gid, "replica": k}
-                    if not self.layered:
-                        g["tab"] = self._table(alpha, dev)
-                    if self.mode == "ms":
-                        g.update(fwd_bits=fbits, fwd_p=_put(fwd[lo:hi], dev),
-                                 fexc_d=_put(_exc_rows(fexc, lo, hi,
-                                                       len(sel)), dev))
-                    groups.append(g)
-        trace.count("groups", ngroups)
+            packs += [self._pack(packed, idxs[c0:c0 + max_lanes], int(L))
+                      for c0 in range(0, len(idxs), max_lanes)]
+        if self.grouped:
+            # a grouped launch reads every group through one table: the
+            # groups packed before the batch grew the alphabet, packed
+            # again in the alphabet it grew to (no byte of the batch
+            # misses it now); nothing is uploaded before this
+            packs = [p if p["alpha"] == self._stage_alpha
+                     else self._pack(packed, p["idxs"], p["L"])
+                     for p in packs]
+        groups = []
+        lanes = slots = htod = 0
+        for p in packs:
+            sel, L, lens = p.pop("idxs"), p["L"], p.pop("lens")
+            rows, exc = p.pop("rows"), p.pop("exc")
+            fwd, fexc = p.pop("fwd", None), p.pop("fexc", None)
+            gid = next(self._groups)
+            lanes += len(sel)
+            slots += len(sel) * L
+            htod += rows.nbytes + lens.nbytes + _nbytes(exc)
+            if fwd is not None:
+                htod += fwd.nbytes + _nbytes(fexc)
+            for k, (lo, hi) in enumerate(_slices(len(sel),
+                                                 len(self.devices))):
+                if lo == hi:
+                    continue
+                dev = self.devices[k]
+                g = dict(p, idxs=sel[lo:hi], lens=lens[lo:hi],
+                         rev_p=_put(rows[lo:hi], dev),
+                         exc_d=_put(_exc_rows(exc, lo, hi, len(sel)), dev),
+                         lens_d=_put(lens[lo:hi], dev), group=gid, replica=k)
+                if not self.layered:
+                    g["tab"] = self._table(p["alpha"], dev)
+                if fwd is not None:
+                    g.update(fwd_p=_put(fwd[lo:hi], dev),
+                             fexc_d=_put(_exc_rows(fexc, lo, hi, len(sel)),
+                                         dev))
+                groups.append(g)
+        if self.grouped:
+            for parts in _by_device(groups):
+                htod += self._lay_out(parts)
+        trace.count("groups", len(packs))
         trace.count("lanes", lanes)
         trace.count("slots", slots)
         trace.count("htod_bytes", htod)
         return groups
+
+    def _lay_out(self, parts) -> int:
+        """Lays one device's staged parts of a batch out for one grouped
+        launch: part g's decoded rows at g['at'] bytes into the
+        device's flat rows, its reads' values at g['offs'] of the flat
+        outputs (each read's in the batch's read order, no padding), and
+        the device's kernels.Lanes, uploaded here, as g['lanes'] of every
+        part. Returns the bytes uploaded."""
+        at = 0
+        for g in parts:
+            g["at"] = at
+            at += len(g["idxs"]) * g["L"]
+        idxs = np.concatenate([g["idxs"] for g in parts])
+        lens = np.concatenate([g["lens"] for g in parts])
+        rows = np.concatenate([g["at"] + np.arange(len(g["idxs"])) * g["L"]
+                               for g in parts])
+        order = np.argsort(idxs, kind="stable")     # read order
+        offs = np.empty_like(lens)
+        offs[order] = np.cumsum(lens[order]) - lens[order]
+        first = np.argsort(-lens, kind="stable")    # longest first
+        desc = np.ascontiguousarray(np.stack([rows, lens, offs])[:, first])
+        lanes = kernels.Lanes(_put(desc, self.devices[parts[0]["replica"]]),
+                              int(lens.sum()), int(lens.max()), len(parts))
+        cuts = np.cumsum([len(g["idxs"]) for g in parts])[:-1]
+        for g, goffs in zip(parts, np.split(offs, cuts)):
+            g.update(offs=goffs, lanes=lanes)
+        return desc.nbytes
+
+    def _pack(self, packed, sel, L: int) -> dict:
+        """One group's rows packed on the host: the batch's reads `sel` at
+        width L, reversed (_pack_rev; raw bytes at 2 bits on the layered
+        engine) and, for MS, forward (the extension's input). The keys of
+        a staged group, with the host arrays `rows`, `exc`, `lens` and, for
+        MS, `fwd`, `fexc` in place of their uploads."""
+        buf, starts, ends = packed.buf, packed.offs[sel], packed.offs[sel + 1]
+        p = {"idxs": sel, "L": L,
+             "lens": np.asarray(packed.lens)[sel].astype(np.int64)}
+        if self.layered:
+            p["bits"], p["rows"], p["exc"] = _pack_raw(buf, starts, ends, L,
+                                                       True, 2)
+            p.update(ranks2=_ACGT, alpha=None)
+        else:
+            p["bits"], p["rows"], p["exc"] = self._pack_rev(buf, starts,
+                                                            ends, L)
+            p.update(alpha=self._stage_alpha, ranks2=tuple(
+                int(self._stage_amap[c]) for c in _ACGT))
+        if self.mode == "ms":
+            if p["bits"] == 4:   # ranks, mapped back to bytes by K12
+                p.update(fwd_bits=4, fexc=None, fwd=pack_rows_native(
+                    buf, starts, ends, len(sel), L, self._stage_amap, False,
+                    4)[0])
+            else:
+                p["fwd_bits"], p["fwd"], p["fexc"] = _pack_raw(
+                    buf, starts, ends, L, False, p["bits"])
+        return p
 
     def _pack_rev(self, buf, starts, ends, L: int):
         """(bits, packed reversed rows, exceptions) in staged-alphabet ranks,
@@ -282,28 +343,42 @@ class ScanEngine:
     # device work
     # ------------------------------------------------------------------
 
-    def _rev_d(self, g) -> torch.Tensor:
+    def _rev_d(self, g, out=None) -> torch.Tensor:
         """[B, L] uint8 reversed rows of a staged group on the device: K11
         decodes 2-bit rows through the group's ranks2 and exceptions, K12
-        4-bit rows; 8-bit rows are used as uploaded."""
+        4-bit rows; 8-bit rows are used as uploaded. Written into `out`
+        where given (the group's place in a grouped launch's flat rows)."""
         if g["bits"] == 2:
             return kernels.unpack2(g["rev_p"], g["ranks2"], g["exc_d"],
-                                   g["lens_d"])
+                                   g["lens_d"], out)
         if g["bits"] == 4:
-            return kernels.unpack4(g["rev_p"], g["lens_d"])
-        return g["rev_p"]
+            return kernels.unpack4(g["rev_p"], g["lens_d"], out=out)
+        return g["rev_p"] if out is None else out.copy_(g["rev_p"])
 
-    def _fwd_d(self, g) -> torch.Tensor:
+    def _fwd_d(self, g, out=None) -> torch.Tensor:
         """[B, L] uint8 raw forward rows (the MS extension's input) on the
         device: K11 with the identity values, K12 through the group's
-        alphabet (rank -> byte), or the 8-bit rows as uploaded."""
+        alphabet (rank -> byte), or the 8-bit rows as uploaded; into `out`
+        where given."""
         if g["fwd_bits"] == 2:
             return kernels.unpack2(g["fwd_p"], _ACGT, g["fexc_d"],
-                                   g["lens_d"])
+                                   g["lens_d"], out)
         if g["fwd_bits"] == 4:
             return kernels.unpack4(g["fwd_p"], g["lens_d"],
-                                   _alpha_table(g["alpha"]))
-        return g["fwd_p"]
+                                   _alpha_table(g["alpha"]), out)
+        return g["fwd_p"] if out is None else out.copy_(g["fwd_p"])
+
+    def _flat_rows(self, parts, decode) -> torch.Tensor:
+        """A grouped launch's flat rows: each part's decoded [B, L] rows
+        (`decode`: _rev_d or _fwd_d) at its place, g['at']."""
+        last = parts[-1]
+        flat = torch.empty(last["at"] + len(last["idxs"]) * last["L"],
+                           dtype=torch.uint8,
+                           device=self.devices[last["replica"]])
+        for g in parts:
+            n = len(g["idxs"]) * g["L"]
+            decode(g, flat[g["at"]:g["at"] + n].view(-1, g["L"]))
+        return flat
 
     def _index(self, g):
         """The index the staged part g's launches read (its device's)."""
@@ -402,47 +477,77 @@ class ScanEngine:
         order: 'lengths' (PML: K1, or K3 with doc tracking, K7 on the
         layered engine, K9 on the occ-block engine; MS: K4, K16 on a sharded
         index), 'pointers' (MS: K3, K7, K9 or K15) and 'docs' (doc tracking:
-        K3, K7, K9 or K15). A sharded index has no PML value scan. The
-        parts of a group on several devices are all launched before any is
-        fetched. Spans `device.launch` a round, `device.fetch` and
-        `device.split` (the cut into per-read arrays) a part; counts as
-        classify_staged does."""
+        K3, K7, K9 or K15). A sharded index has no PML value scan. On a
+        grouped engine each device's parts go in one grouped launch
+        (_grouped_values), else each part in its own. Every launch of a round (a grouped launch a device, or a
+        group's parts) is made before any is fetched. Spans
+        `device.launch` a round, `device.fetch` and `device.split` (the
+        cut into per-read arrays) a launch; counts as classify_staged
+        does."""
         n = sum(len(g["idxs"]) for g in staged)
         fields = ["pointers", "lengths"] if self.mode == "ms" else ["lengths"]
         if self.use_doc:
             fields.append("docs")
         out = {f: [None] * n for f in fields}
         before, fetched = trace.launches(), 0
-        for parts in _rounds(staged):
+        if self.grouped:
+            rounds, launch = [_by_device(staged)], self._grouped_values
+        else:
+            rounds = ([[g] for g in parts] for parts in _rounds(staged))
+            launch = self._values
+        for launches in rounds:
             with trace.span("device.launch"):
-                launched = [(g, self._values(g)) for g in parts]
-            for g, mats in launched:
+                launched = [(parts, launch(parts)) for parts in launches]
+            for parts, mats in launched:
                 with trace.span("device.fetch"):
-                    host = {f: mats[f].cpu().numpy() for f in fields}
+                    host = {f: _fetched(mats[f]) for f in fields}
                 fetched += sum(v.nbytes for v in host.values())
                 with trace.span("device.split"):
                     for f in fields:
-                        vals = host[f]
-                        for j, i in enumerate(g["idxs"]):
-                            out[f][i] = vals[j, :g["lens"][j]]
+                        for g in parts:
+                            _split(g, host[f], out[f])
         trace.count("dtoh_bytes", fetched)
         trace.count_launches(before)
         return out
 
-    def _values(self, g) -> dict:
-        """The staged part g's value matrices on its device, launched, not
-        fetched."""
+    def _values(self, parts) -> dict:
+        """A staged part's value matrices on its device ([g]: one part),
+        launched, not fetched: the layered, occ-block and sharded
+        engines."""
+        (g,) = parts
         rev = self._rev_d(g)
         if self.mode == "ms":
             return self._ms_values(g, rev, self.use_doc)
-        if self.use_doc or self.layered or self.occ:
-            lengths, docs = self._scan(g, rev, "pml", self.use_doc)
-            return {"lengths": lengths, "docs": docs}
-        if self.sharded:
+        if self.sharded and not self.use_doc:
             raise ValueError("a sharded index serves PML values only with "
                              "doc ids (report-only PML: classify_staged)")
-        return {"lengths": kernels.pml_scan(self._index(g), g["tab"], rev,
-                                            g["lens_d"])}
+        lengths, docs = self._scan(g, rev, "pml", self.use_doc)
+        return {"lengths": lengths, "docs": docs}
+
+    def _grouped_values(self, parts) -> dict:
+        """One device's laid-out parts of a value batch (_lay_out) in one
+        grouped launch of K1 (PML), or K3 (MS, PML with doc ids) and then
+        K4 (MS) on K3's pointers: the parts decoded by K11 / K12 into the
+        flat rows, the values flat in the batch's read order; launched, not
+        fetched. Counts the staged groups each launch serves
+        (`scan.groups`)."""
+        lanes = parts[0]["lanes"]
+        index, tab = self._index(parts[0]), parts[0]["tab"]
+        rev = self._flat_rows(parts, self._rev_d)
+        if self.mode == "pml" and not self.use_doc:
+            mats = {"lengths": kernels.pml_scan(index, tab, rev, lanes)}
+        else:
+            vals, docs = kernels.ms_scan(index, tab, rev, lanes, self.mode,
+                                         self.use_doc)
+            mats = {"pointers" if self.mode == "ms" else "lengths": vals,
+                    "docs": docs}
+        trace.count("scan.groups", lanes.groups)
+        if self.mode == "ms":
+            mats["lengths"] = kernels.ms_extend(
+                index.text, index.text_bound,
+                self._flat_rows(parts, self._fwd_d), lanes, mats["pointers"])
+            trace.count("scan.groups", lanes.groups)
+        return mats
 
     # ------------------------------------------------------------------
     # list API
@@ -452,8 +557,9 @@ class ScanEngine:
                  max_lanes: int = 65536) -> dict:
         """Fused report-only classification of a list of byte-string
         reads."""
-        return self.classify_staged(self.stage(_packed(reads), max_lanes),
-                                    bin_width, max_value_thr)
+        return self.classify_staged(
+            self.stage(_packed(reads), max_lanes),
+            bin_width, max_value_thr)
 
     def query(self, reads, max_lanes: int = 8192) -> dict:
         """Per-read value arrays (query_staged's fields) for a list of
@@ -509,6 +615,41 @@ def _rounds(staged):
     """The staged parts in runs of one group each (one part per device)."""
     return (list(parts) for _, parts in itertools.groupby(
         staged, key=lambda g: g["group"]))
+
+
+def _by_device(staged) -> list:
+    """The staged parts of each device (replica), in staged order."""
+    parts: dict = {}
+    for g in staged:
+        parts.setdefault(g["replica"], []).append(g)
+    return list(parts.values())
+
+
+def _fetched(t: torch.Tensor) -> np.ndarray:
+    """t's values on the host. A CUDA tensor comes through a pinned buffer,
+    which PyTorch's caching host allocator keeps for the next batch's. A
+    grouped launch's flat values (123 MB a field in a 2,048-read value
+    call) fetched into fresh pageable memory took 3.4 times as long a
+    byte as one launch a group's 27 smaller fetches (H100 80GB HBM3
+    host): past glibc's 32 MB mmap threshold each fetch maps new pages
+    and faults on every one."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def _split(g, vals: np.ndarray, out: list) -> None:
+    """Part g's reads' values into out (read index -> array): views of a
+    grouped launch's flat values at the part's offsets, or the rows of its
+    [B, L] matrix cut to each read's length."""
+    if "offs" in g:
+        for i, o, n in zip(g["idxs"], g["offs"], g["lens"]):
+            out[i] = vals[o:o + n]
+    else:
+        for j, i in enumerate(g["idxs"]):
+            out[i] = vals[j, :g["lens"][j]]
 
 
 def _pack_raw(buf, starts, ends, L: int, reverse: bool, bits: int):

@@ -4,7 +4,7 @@ points, with controls whose step the redesigns must leave as it was.
 
     python -m spumoni_tpu_torch.scripts.time_scan --parent DIR \
         [--families pml,bbclassify,classify,lclassify_tp,occclassify,ms,
-                    layered,occ,extend,staging,chase] \
+                    layered,occ,extend,staging,chase,grouped] \
         [--ablate] [--graph] \
         [--shapes 8192,32768,65536] [--out DIR]
 
@@ -54,6 +54,16 @@ printed), outputs equal (max |err| 0):
     batch_bases holds 4,096 and 2,048 of them) at int32 and int64
     pointers (LONG_READS): the rows that take the opt-in shared memory or
     the unstaged walk;
+  * family grouped: a value batch of 2,048 whole reads of the value
+    cells' lengths (GROUPED_LENGTH: gamma, mean 15 kbp, one multiset)
+    over the strains, staged as the engine stages it, every group decoded
+    once: K1 `pml_scan` on the block-bits PML rows, and K3 `ms_scan`
+    (ms+doc) then K4 `ms_extend` on its pointers, on the MS + doc rows, in
+    one grouped launch each against one launch a staged group, back to
+    back on the stream (`Case.parent_call`, the rows `per-group`), both on
+    this tree's build: a one-group launch is the matrix form, whose code
+    the controls hold to the parent's; outputs equal read by read
+    (`Case.compare`);
   * family staging: K11 `unpack2` on the reads' 2-bit rows as staged (no
     exceptions) and, at the largest shape only, on the same reads with 1
     in 128 bytes set to N (its exceptions name rows of the whole batch),
@@ -693,6 +703,7 @@ FAMILIES = {
         {"k6-c1": _K6_C1, "k6-c2": _K6_C2, "k6-k1": _K6_K1, "k6-k4": _K6_K4,
          "k6-t512": _K6_T512, "k6-mod": _K6_MOD, "k6-no-copy": _K6_NO_COPY,
          "k6-plain-magic": _K6_PLAIN_MAGIC}),
+    "grouped": Family("blockbits_ms", (), "", {}),
 }
 
 
@@ -900,8 +911,12 @@ class Case(NamedTuple):
     library: str
     call: object       # call(B) -> outputs, B None for the case's own lanes
     own_lanes: int = 0  # > 0: timed once, at these lanes (the -m bucket)
-    #: call(B) for the builds from DIR's sources (PARENT_ARGS), else None
+    #: call(B) for the builds from DIR's sources (PARENT_ARGS), or the
+    #: per-group side of family grouped, else None
     parent_call: object = None
+    #: compare(got, want) -> max |err| of the two calls' outputs, where
+    #: they differ in form (family grouped), else None: _err
+    compare: object = None
 
 
 def _cut(t, B):
@@ -1000,6 +1015,119 @@ def _chase_calls(table, idx0, steps):
     return call, parent_call
 
 
+#: family grouped's read lengths: whole nanopore reads, gamma with mean
+#: 15,000 and sd 13,000 bp clipped to 200-100,000, 2,048 drawn from one
+#: seed (the value cells' multiset: 27 length buckets, longest 95,007 bp)
+GROUPED_LENGTH = dict(reads=2048, mean=15000, sd=13000, min=200, max=100000,
+                      seed=20231017)
+
+
+def grouped_lengths():
+    """Family grouped's 2,048 read lengths (GROUPED_LENGTH)."""
+    import numpy as np
+
+    p = GROUPED_LENGTH
+    shape, scale = (p["mean"] / p["sd"]) ** 2, p["sd"] ** 2 / p["mean"]
+    r = np.random.default_rng(p["seed"])
+    return np.clip(np.rint(r.gamma(shape, scale, size=p["reads"])),
+                   p["min"], p["max"]).astype(np.int64)
+
+
+def _grouped_reads(work: str, seed: int = 1) -> str:
+    """A read FASTA of grouped_lengths' reads over chip_smoke.py's strains:
+    even reads substrings of a random strain with 8% substitutions, odd
+    reads random; returns its path."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(work, "pangenome.fa"), "rb") as f:
+        strains = [np.frombuffer(line, np.uint8) for line in
+                   f.read().split(b"\n")[1::2] if line]
+    path = os.path.join(work, "grouped_reads.fa")
+    with open(path, "wb") as f:
+        for i, m in enumerate(int(x) for x in grouped_lengths()):
+            if i % 2:
+                rd = rng.choice(cs.ACGT, size=m)
+            else:
+                text = strains[rng.integers(len(strains))]
+                st = int(rng.integers(0, len(text) - m))
+                rd = text[st:st + m].copy()
+                mut = rng.random(m) < 0.08
+                rd[mut] = rng.choice(cs.ACGT, size=int(mut.sum()))
+            f.write(b">r%d\n" % i + rd.tobytes() + b"\n")
+    return path
+
+
+def _grouped_compare(staged):
+    """compare(got, want) of family grouped: a grouped launch's flat
+    outputs against one launch a group's [B, L] outputs (a list, a tuple a
+    group), read by read at the lanes' offsets."""
+    def compare(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        err = 0
+        for k, flat in enumerate(got):
+            if flat is None:
+                continue
+            for g, mats in zip(staged, want):
+                mat = (mats if isinstance(mats, tuple) else (mats,))[k]
+                for j, (o, n) in enumerate(zip(g["offs"], g["lens"])):
+                    err = max(err, _err(flat[o:o + n], mat[j, :n]))
+        return err
+    return compare
+
+
+def _grouped_cases(pml, msx, reads) -> list:
+    """Family grouped: the value batch of `reads` staged by each engine,
+    its rows decoded once, K1 and K3 (ms+doc) then K4 in one grouped
+    launch each (call) and in one launch a staged group (parent_call)."""
+    from ..io.fastx_batch import iter_packed_batches
+
+    pk = next(iter_packed_batches(reads, 1 << 40, upper=True))
+    cases = []
+    for engine in (pml, msx):
+        staged = engine.stage(pk, 8192)
+        lanes, index = staged[0]["lanes"], engine.index
+        tab = staged[0]["tab"]
+        rev = engine._flat_rows(staged, engine._rev_d)
+        revs = [engine._rev_d(g) for g in staged]
+        label = f"{len(staged)} groups"
+        if engine.mode == "pml":
+            cases.append(Case(
+                "pml_scan", label, "grouped", "blockbits_pml",
+                lambda B, rev=rev, lanes=lanes, tab=tab, index=index:
+                kernels.pml_scan(index, tab, rev, lanes),
+                own_lanes=len(pk),
+                parent_call=lambda B, revs=revs, staged=staged, tab=tab,
+                index=index: [kernels.pml_scan(index, tab, r, g["lens_d"])
+                              for r, g in zip(revs, staged)],
+                compare=_grouped_compare(staged)))
+            continue
+        fwd = engine._flat_rows(staged, engine._fwd_d)
+        fwds = [engine._fwd_d(g) for g in staged]
+
+        def call(B, rev=rev, fwd=fwd, lanes=lanes, tab=tab, index=index):
+            ptrs, docs = kernels.ms_scan(index, tab, rev, lanes, "ms", True)
+            return ptrs, docs, kernels.ms_extend(
+                index.text, index.text_bound, fwd, lanes, ptrs)
+
+        def parent_call(B, revs=revs, fwds=fwds, staged=staged, tab=tab,
+                        index=index):
+            out = []
+            for r, f, g in zip(revs, fwds, staged):
+                ptrs, docs = kernels.ms_scan(index, tab, r, g["lens_d"],
+                                             "ms", True)
+                out.append((ptrs, docs, kernels.ms_extend(
+                    index.text, index.text_bound, f, g["lens_d"], ptrs)))
+            return out
+        cases.append(Case("ms_scan+ms_extend", f"ms+doc {label}", "grouped",
+                          "blockbits_ms", call, own_lanes=len(pk),
+                          parent_call=parent_call,
+                          compare=_grouped_compare(staged)))
+    return cases
+
+
 def _chase_cases(dev) -> list:
     """Family chase: K6 at exp_vmem_gather's shape, and the latency probe
     (the table's first column, one wave of chains) at 64 and 1,024
@@ -1055,6 +1183,8 @@ def _cases(families, dev, reads, shapes) -> list:
         cases += _staging_cases(pml, reads)
     msx = cs._engine(ms_prefix + ".fa.thrbv.ms", dev, "ms", use_doc=True)
     gm, cm = staged(msx)
+    if "grouped" in families:
+        cases += _grouped_cases(pml, msx, _grouped_reads(cs.WORK))
     sharded = tp.shard_blockbits_ms(msx.index, SHARDS)
     for kernel, idx, wrapper, labels in (
             ("ms_scan", msx.index, kernels.ms_scan,
@@ -1266,19 +1396,21 @@ def main(argv=None) -> int:
                 continue
             lanes = case.own_lanes or B
             arg = None if case.own_lanes else B
-            parent = libs["parent", case.library][0]
+            # family grouped: both sides on this tree's build
+            grouped = case.family == "grouped"
+            parent = None if grouped else libs["parent", case.library][0]
             p1, want, pg1 = timed(case, parent, arg, True)
             c1, got, cg1 = timed(case, None, arg)
             c2, _, cg2 = timed(case, None, arg)
             p2, _, pg2 = timed(case, parent, arg, True)
-            err = _err(got, want)
-            row(case, lanes, "parent", (p1 + p2) / 2, 0, turns=[p1, p2],
-                **graph_kw(pg1, pg2))
+            err = (case.compare or _err)(got, want)
+            row(case, lanes, "per-group" if grouped else "parent",
+                (p1 + p2) / 2, 0, turns=[p1, p2], **graph_kw(pg1, pg2))
             if err:
                 raise AssertionError(f"{case.kernel} {case.mode} B={lanes}: "
                                      f"!= parent (max |err| {err})")
-            row(case, lanes, "current", (c1 + c2) / 2, err, turns=[c1, c2],
-                **graph_kw(cg1, cg2))
+            row(case, lanes, "grouped" if grouped else "current",
+                (c1 + c2) / 2, err, turns=[c1, c2], **graph_kw(cg1, cg2))
             if case.family in families and args.ablate:
                 fam = FAMILIES[case.family]
                 for label in (*fam.ablations, *fam.variants):

@@ -115,11 +115,20 @@ def test_wrappers_raise_for_non_cpu_tensors(wrapper):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device_mix",
-                                 "contiguity", "table"])
+                                 "contiguity", "table", "lanes_on_matrix",
+                                 "lanes_for_classify"])
 def test_wrappers_check_their_inputs(bad):
     text, index, table, _ = _index(5, 2000)
     tab, rev, lens = _stage(table, _reads(6, text, 4, 100), 128)
-    if bad == "dtype":
+    # a grouped launch's lanes: one read of 5 symbols at byte 0
+    lanes = kernels.Lanes(torch.tensor([[0], [5], [0]]), 5, 5, 1)
+    if bad == "lanes_on_matrix":     # its rows must be flat
+        lens = lanes
+    elif bad == "lanes_for_classify":   # K2 launches a group at a time
+        with pytest.raises(ValueError, match="no grouped launch"):
+            kernels.pml_classify(index, tab, rev.reshape(-1), lanes, 7, 150)
+        return
+    elif bad == "dtype":
         rev = rev.to(torch.int32)
     elif bad == "shape":
         lens = lens[:-1]

@@ -116,7 +116,8 @@ def test_wrappers_raise_for_non_cpu_tensors(wrapper):
 
 
 @pytest.mark.parametrize("bad", ["mode", "no_tables", "ptr_dtype",
-                                 "shape", "device_mix", "bin_width"])
+                                 "shape", "device_mix", "bin_width",
+                                 "grouped_ptrs"])
 def test_wrappers_check_their_inputs(bad):
     text, index, table, _ = _ms_index(5, [1500, 1200])
     tab, rev, fwd, lens = _stage(table, _reads(6, text, 4, 100), 128)
@@ -137,6 +138,10 @@ def test_wrappers_check_their_inputs(bad):
                               fwd[:, :64].contiguous(), lens, ptrs)
         elif bad == "device_mix":
             kernels.binmax_values(ptrs, lens.to("meta"), 9, 150)
+        elif bad == "grouped_ptrs":   # a grouped launch's flat pointers
+            lanes = kernels.Lanes(torch.tensor([[0], [5], [0]]), 5, 5, 1)
+            kernels.ms_extend(index.text, index.text_bound, fwd.reshape(-1),
+                              lanes, ptrs.reshape(-1))
         else:
             kernels.binmax_values(ptrs, lens, 9, 0)
 

@@ -185,7 +185,12 @@ def test_counters(indexes, tracer, key):
         sum(p - n for n, p in zip(lens, padded)) / sum(padded))
     assert c["groups"] >= len(set(padded))
     assert c["htod_bytes"] > c["symbols"] // 4
-    assert c["dtoh_bytes"] >= 4 * c["slots"]   # one value matrix at least
+    if key == "n":   # block-bits: the values of a grouped launch, unpadded
+        assert c["dtoh_bytes"] == 4 * c["symbols"]
+        assert c["scan.groups"] == c["groups"]   # one K1 a batch
+    else:
+        assert "scan.groups" not in c
+        assert c["dtoh_bytes"] >= 4 * c["slots"]   # layered: matrices
     # the plain versions launch no kernel
     assert not any(k.startswith("launches.") for k in c)
     st = tpl.LAST_RUN_STATS
