@@ -6,10 +6,10 @@
 Phases, each of which fails the script (exit != 0) on any fault:
   1. device: torch version, the GPU's name and power limit;
   2. the inputs of phases 4-4e, and the CPU-bound index builds of 4, 4b
-     and 4c (`build -P -n`, `-i list -M -P -d -n`, `-P -m`, `-P -a`) in a
-     background process of this script (`--builds-only`), one after
-     another while phases 2b-3f run; phase 4 waits for them, and the
-     script ends the process if a phase fails first;
+     and 4c (`build -P -n`, `-i list -M -P -d -n`, `-P -m`, `-M -m`,
+     `-P -a`) in a background process of this script (`--builds-only`),
+     one after another while phases 2b-3f run; phase 4 waits for them, and
+     the script ends the process if a phase fails first;
   2b. kernel build: nvcc builds K1 `pml_scan`, K2 `pml_classify`, K3
      `ms_scan`, K4 `ms_extend`, K5 `binmax_values`, K6 `gather_chase`, K7
      `layered_scan`, K8 `layered_classify`, K9 `occ_scan`, K10
@@ -88,10 +88,13 @@ Phases, each of which fails the script (exit != 0) on any fault:
      .doc_numbers (PML) equal the native CPU engine, FOUND rates;
   4c. the layered engine: 4b's runs and `-P -c [--report-only]` with
      `--engine layered` on 4b's index, every output file byte-identical to
-     the block-bits run's; then `build -m -P` and `build -a -P` of the
-     phase-4 FASTA, `run -m -P -c --report-only` (K8), `run -m -P -c` (K7;
-     sampled reads equal the native engine on their digested bytes) and
-     `run -a -P -c --report-only` (K2); FOUND rates checked as in 4;
+     the block-bits run's; then `build -m -P`, `build -m -M` and `build -a
+     -P` of the phase-4 FASTA, `run -m -P -c --report-only` (K8), `run -m
+     -P -c` (K7; sampled reads equal the native engine on their digested
+     bytes), `run -m -M -c` (K7 in MS mode, K4 over the digested text;
+     sampled reads' .pointers and .lengths equal the native engine's, and
+     K7 and K4 on 256 of their digested reads equal their plain versions)
+     and `run -a -P -c --report-only` (K2); FOUND rates checked as in 4;
   4d. the occ-block engine: 4b's runs and `-P -c [--report-only]` with
      `--engine occ` on 4b's index (n ~ 92 M, past the JAX package's 2^24
      bound), every output file byte-identical to the block-bits run's;
@@ -1033,7 +1036,7 @@ def small_tp_phase(device, num_reads=60, max_len=128):
                                  f"(max |err| {errs})")
         m = shards[3].meta
         print(f"layered{'-docs' if docs else '':9s} D={m.depth} W={m.width} "
-              f"r={m.r} S={TP_SHARDS} (bound {m.probe_bound} at S=3) "
+              f"r={m.r} S={TP_SHARDS} "
               f"B={len(reads)}: K14 == plain == K8, max |err| 0")
     _k14_edge_check(device)
 
@@ -1257,6 +1260,7 @@ PATH_KERNELS = {
     "L-P-d-c": ("layered_scan", "unpack2"),
     "m-P-c-report-only": ("layered_classify",),   # -m rows stage at 8 bits
     "m-P-c": ("layered_scan",),
+    "m-M-c": ("layered_scan", "ms_extend"),
     "a-P-c-report-only": ("pml_classify", "unpack2"),
     "O-P-c-report-only": ("occ_classify", "unpack2"),
     "O-P-c": ("occ_scan", "unpack2"),
@@ -1368,6 +1372,8 @@ def _build_args():
                      "-P", "-d", "-n", "-o", os.path.join(WORK, "msidx")],
         "-m -P": ["build", "-r", ref, "-P", "-m", "-o",
                   os.path.join(WORK, "idx-m")],
+        "-m -M": ["build", "-r", ref, "-M", "-m", "-o",
+                  os.path.join(WORK, "idx-mM")],
         "-a -P": ["build", "-r", ref, "-P", "-a", "-o",
                   os.path.join(WORK, "idx-a")],
     }
@@ -1857,40 +1863,50 @@ def data_parallel_phase(device, prefix, reads, ms_prefix, smi,
 
 def digested_main_path_phase(device, builds, reads, n_reads, n_check=2048,
                              cpu_run=False):
-    """4c, second half: the 10-strain FASTA built with -m -P (promoted
-    minimizers: sigma > 8, the layered engine) and -a -P (DNA-letter
-    minimizers: block-bits), and phase 4's reads: `run -m -P -c
-    --report-only` (K8), `run -m -P -c` (K7) and `run -a -P -c
-    --report-only` (K2). Checks: the two -m reports identical, sampled
-    reads' .pseudo_lengths equal the native engine on their digested
-    bytes, >= 95% of positives and <= 5% of negatives FOUND in both
-    reports."""
-    phase(f"4c. digested main path: build -m -P and -a -P, {n_reads} "
+    """4c, second half: the 10-strain FASTA built with -m -P and -m -M
+    (promoted minimizers: sigma > 8, the layered engine) and -a -P
+    (DNA-letter minimizers: block-bits), and phase 4's reads: `run -m -P -c
+    --report-only` (K8), `run -m -P -c` (K7), `run -m -M -c` (K7 in MS
+    mode, K4 over the digested text) and `run -a -P -c --report-only`
+    (K2). Checks: the two -m -P reports identical, sampled reads'
+    .pseudo_lengths, .pointers and .lengths equal the native engine on
+    their digested bytes; 256 of those reads, each with a symbol past the
+    index's last put in, on the -m -M tables: K7 (pml, ms) and K4's plain
+    versions equal the native engine, and on a card K7 and K4 equal the
+    plain versions; >= 95% of positives and <= 5% of
+    negatives FOUND in the -m -P and -a reports (the -m -M report's rates
+    are printed)."""
+    phase(f"4c. digested main path: build -m -P, -m -M and -a -P, {n_reads} "
           f"reads, through the CLI")
-    from spumoni_tpu_torch.engine.layered import depth_for
+    from spumoni_tpu_torch.engine.layered import build_layered, depth_for
     from spumoni_tpu_torch.index.format import load_dense_index
     from spumoni_tpu_torch.io.minimizers import digest
 
     m_prefix = os.path.join(WORK, "idx-m")
+    mm_prefix = os.path.join(WORK, "idx-mM")
     dense = load_dense_index(m_prefix + ".bin.thrbv.spumoni")
     sigma = int((np.asarray(dense.cnt) > 0).sum())
     print(f"build -m -P: {builds['-m -P']:.1f} s (sigma={sigma}, "
-          f"n={dense.n}, r={dense.r}, D={depth_for(dense.char_off)}); build -a -P: "
+          f"n={dense.n}, r={dense.r}, D={depth_for(dense.char_off)}); build "
+          f"-m -M: {builds['-m -M']:.1f} s; build -a -P: "
           f"{builds['-a -P']:.1f} s")
     m_reads = os.path.join(WORK, "reads_m.fa")
     shutil.copy(reads, m_reads)
+    mm_reads = os.path.join(WORK, "reads_mM.fa")
+    shutil.copy(reads, mm_reads)
     a_reads = os.path.join(WORK, "reads_a.fa")
     shutil.copy(reads, a_reads)
     dev = ["--device", "cpu"] if cpu_run else []
     stats = {}
     for label, args, rd in (
-            ("m-P-c-report-only", ["-r", m_prefix, "-m", "-c",
+            ("m-P-c-report-only", ["-r", m_prefix, "-m", "-P", "-c",
                                    "--report-only"], m_reads),
-            ("m-P-c", ["-r", m_prefix, "-m", "-c"], m_reads),
+            ("m-P-c", ["-r", m_prefix, "-m", "-P", "-c"], m_reads),
+            ("m-M-c", ["-r", mm_prefix, "-m", "-M", "-c"], mm_reads),
             ("a-P-c-report-only", ["-r", os.path.join(WORK, "idx-a"), "-a",
-                                   "-c", "--report-only"], a_reads)):
+                                   "-P", "-c", "--report-only"], a_reads)):
         stats[label] = _timed_cli_run(device, label,
-                                      ["run", "-p", rd, "-P", *args, *dev],
+                                      ["run", "-p", rd, *args, *dev],
                                       cpu_run)
         shutil.copy(rd + ".report", rd + f".{label}.report")
     with open(m_reads + ".m-P-c-report-only.report", "rb") as f:
@@ -1900,27 +1916,91 @@ def digested_main_path_phase(device, builds, reads, n_reads, n_check=2048,
             raise AssertionError("-m --report-only .report differs from "
                                  "the -m value run's")
     chk, chk_seqs = _sampled_reads(m_reads, n_reads, n_check)
-    vals = _read_values(m_reads + ".pseudo_lengths", set(chk))
-    if len(vals) != n_reads:
-        raise AssertionError(f"{len(vals)} value records, {n_reads} reads")
     digested = [digest(s.upper(), True, False) for s in chk_seqs]
+    threads = os.cpu_count() or 1
     want = _native_engine(m_prefix + ".bin.thrbv.spumoni").query_pml(
-        digested, threads=os.cpu_count() or 1)
-    for rid, w in zip(chk, want):
-        if not np.array_equal(vals[rid], w):
-            raise AssertionError(f"{rid}: -m .pseudo_lengths != native "
-                                 f"engine on its digested bytes")
-    rates = {label: _found_rates(rd + f".{label}.report")
-             for label, rd in (("m-P-c-report-only", m_reads),
-                               ("a-P-c-report-only", a_reads))}
+        digested, threads=threads)
+    mm_index = mm_prefix + ".bin.thrbv.ms"
+    mm_native = _native_engine(mm_index)
+    wptr, wlen = mm_native.query_ms(digested, threads=threads)
+    for path, ext, expect in ((m_reads, ".pseudo_lengths", want),
+                              (mm_reads, ".pointers", wptr),
+                              (mm_reads, ".lengths", wlen)):
+        vals = _read_values(path + ext, set(chk))
+        if len(vals) != n_reads:
+            raise AssertionError(f"{len(vals)} {ext} records, {n_reads} "
+                                 f"reads")
+        for rid, w in zip(chk, expect):
+            if not np.array_equal(vals[rid], w):
+                raise AssertionError(f"{rid}: -m {ext} != native engine on "
+                                     f"its digested bytes")
+    mm_dense = load_dense_index(mm_index)
+    top = int(np.nonzero(np.asarray(mm_dense.cnt))[0].max())
+    past = sum(max(d) > top for d in digested if d)
+    plain = _layered_past_index_check(device, build_layered(mm_dense),
+                                      mm_native, digested[:256], top)
+    rates = {label: _found_rates(rd + f".{label}.report", check)
+             for label, rd, check in (("m-P-c-report-only", m_reads, True),
+                                      ("m-M-c", mm_reads, False),
+                                      ("a-P-c-report-only", a_reads, True))}
     _print_runs(stats)
     print(f"checks: -m reports identical; {len(chk)} sampled reads' -m "
-          f".pseudo_lengths == native engine on the digested reads; FOUND "
-          f"(pos, neg): -m {rates['m-P-c-report-only'][0]:.4f} "
-          f"{rates['m-P-c-report-only'][1]:.4f}, -a "
-          f"{rates['a-P-c-report-only'][0]:.4f} "
-          f"{rates['a-P-c-report-only'][1]:.4f}")
+          f".pseudo_lengths and -m -M .pointers / .lengths == native engine "
+          f"on the digested reads ({past} of them hold a symbol past the "
+          f"index's last, {top}); {plain}; FOUND (pos, neg): "
+          + ", ".join(f"{label} {p:.4f} {q:.4f}"
+                      for label, (p, q) in rates.items()))
     return m_prefix, m_reads, stats
+
+
+def _layered_past_index_check(device, index, native, reads, top) -> str:
+    """`reads` (digested bytes), each with the symbol top + 1, past every
+    symbol of the index, put in its middle: the plain versions of K7 (pml,
+    ms) and of K4 on its pointers against the native engine (SPUMONI's
+    query loop), then, on a card, K7 and K4 there against the plain
+    versions, exactly; returns the line that says what was compared."""
+    from spumoni_tpu_torch.engine import kernels
+    from spumoni_tpu_torch.engine.layered import raw_rows
+
+    if top + 1 > 255:
+        raise AssertionError(f"the index's last symbol is {top}: no byte "
+                             f"sorts after it")
+    past = [r[:len(r) // 2] + bytes([top + 1]) + r[len(r) // 2:]
+            for r in reads]
+    L = max(len(r) for r in past)
+    rev, fwd, lens = raw_rows(past, L)
+    pml = kernels.layered_scan_reference(index, rev, lens, "pml", False)[0]
+    ptrs = kernels.layered_scan_reference(index, rev, lens, "ms", False)[0]
+    mslen = kernels.ms_extend_reference(index.text, index.text_bound, fwd,
+                                        lens, ptrs)
+    threads = os.cpu_count() or 1
+    wpml = native.query_pml(past, threads=threads)
+    wptr, wlen = native.query_ms(past, threads=threads)
+    for i, m in enumerate(lens.tolist()):
+        for name, got, want in (("K7 pml", pml, wpml), ("K7 ms", ptrs, wptr),
+                                ("K4", mslen, wlen)):
+            if not np.array_equal(got[i, :m].numpy(), want[i]):
+                raise AssertionError(f"-m -M: {name}'s plain version != "
+                                     f"native engine on digested read {i} "
+                                     f"with the symbol {top + 1}")
+    line = (f"{len(past)} digested reads (L = {L}), each with the symbol "
+            f"{top + 1} past the index's last: plain K7 pml / ms and K4 == "
+            f"native engine")
+    if device.type != "cuda":
+        return line
+    on = index.to(device)
+    rev_d, lens_d = rev.to(device), lens.to(device)
+    gpml = kernels.layered_scan(on, rev_d, lens_d, "pml", False)[0]
+    gptr = kernels.layered_scan(on, rev_d, lens_d, "ms", False)[0]
+    glen = kernels.ms_extend(on.text, on.text_bound, fwd.to(device), lens_d,
+                             gptr)
+    sync(device)
+    for name, got, want in (("K7 pml", gpml, pml), ("K7 ms", gptr, ptrs),
+                            ("K4", glen, mslen)):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"-m -M: {name} != its plain version on "
+                                 f"reads with the symbol {top + 1}")
+    return line + "; K7 pml / ms and K4 on the card == plain, max |err| 0"
 
 
 # ---------------------------------------------------------------------------
@@ -2699,8 +2779,7 @@ def tp_timing_phase(device, prefix, reads, ms_prefix, ms_reads, n_reads,
     cut = {k: tp.shard_layered(engine.index, k) for k in (S, 1)}
     m = cut[S].meta
     print(f"layered: D={m.depth} W={m.width} r={m.r}, {S} shards of "
-          f"{cut[S].fields.rows_per_shard} field rows, bound "
-          f"{m.probe_bound}")
+          f"{cut[S].fields.rows_per_shard} field rows")
     args = (cut[S], g["rev_d"], g["lens_d"], 7, BIN_WIDTH)
     r = _time_kernel("layered_classify_tp", kernels.layered_classify_tp,
                      kernels.layered_classify_tp_reference, args,

@@ -13,9 +13,7 @@
 //       layered step: K7's PML scan with the windowed bin-max folded into
 //       the carry (binmax.cuh, shared with K2).
 //   K14: spumoni_tpu/parallel/tp.py::TpPmlClassifier._classify_fn with the
-//       layered step: K8's body with `fields` in S shards (sharded.cuh),
-//       the probe clipped to the JAX sharded table's padded row count
-//       (engine/layered.py:327-342) instead of the replicated one.
+//       layered step: K8's body with `fields` in S shards (sharded.cuh).
 //
 // Layout (spumoni_tpu_torch/engine/layered.py; T = int32 or int64):
 //   charmeta [256, 16] T   F, cnt, lo0, hi0, then the row offset of the
@@ -27,10 +25,10 @@
 //                          sdoc_{k+1} (W = 8)
 //
 // A position past the BWT (n, after a byte that sorts after every index
-// character) makes the descent count the sentinels; the JAX step then reads
-// clamped level rows and padded field rows, and so does this one: level
-// rows clamp to the level's last row, a field probe clips to the JAX row
-// count (probe_bound), and a row past r reads as padding (start n, zeros).
+// character) makes the descent count the sentinels; level rows clamp to
+// the level's last row, and the field probe stops at c's last run, as
+// SPUMONI's query loop does (the JAX step reads padded field rows there):
+// a probe never passes row hi0 <= r.
 //
 // Bound: a step is a chain of dependent random reads (the level rows of
 // the descent, one 64-entry row a level, each row's choice from the last
@@ -273,13 +271,11 @@ bool launch_modes(const ScanArgs& a, int mode) {
   }
 }
 
-// Index arguments shared by both entry points; false for a depth or width
+// Index arguments shared by the entry points; false for a depth or width
 // this file does not take.
-bool index_args(const void* level_ptrs, int depth, long long rows,
-                long long probe_bound, int width, long long n, Levels& levels,
-                Scalars& s) {
-  if (depth < 1 || depth > kMaxDepth || (width != 4 && width != 8) ||
-      rows < 1 || probe_bound < 1)
+bool index_args(const void* level_ptrs, int depth, int width, long long n,
+                Levels& levels, Scalars& s) {
+  if (depth < 1 || depth > kMaxDepth || (width != 4 && width != 8))
     return false;
   // host array: the D level pointers, then their row counts
   const long long* p = (const long long*)level_ptrs;
@@ -287,8 +283,6 @@ bool index_args(const void* level_ptrs, int depth, long long rows,
     levels.p[t] = t < depth ? (const void*)p[t] : nullptr;
     levels.rows[t] = t < depth ? p[depth + t] : 0;
   }
-  s.rows = rows;
-  s.probe_bound = probe_bound;
   s.depth = depth;
   s.width = width;
   s.n = n;
@@ -298,9 +292,8 @@ bool index_args(const void* level_ptrs, int depth, long long rows,
 }  // namespace
 
 extern "C" int spn_layered_scan(const void* charmeta, const void* level_ptrs,
-                                int depth, const void* fields, long long rows,
-                                long long probe_bound, int width, int wide,
-                                long long n,
+                                int depth, const void* fields, int width,
+                                int wide, long long n,
                                 long long last_run_sample,
                                 long long last_run_edoc,
                                 long long first_run_sdoc, const void* reads,
@@ -309,8 +302,7 @@ extern "C" int spn_layered_scan(const void* charmeta, const void* level_ptrs,
                                 void* stream) {
   if (B == 0) return 0;
   ScanArgs a = {};
-  if (!index_args(level_ptrs, depth, rows, probe_bound, width, n, a.levels,
-                  a.s))
+  if (!index_args(level_ptrs, depth, width, n, a.levels, a.s))
     return kUnsupported;
   // the MS modes read the sample slots, the doc modes the doc slots
   if (mode != kPml && width != 8) return kUnsupported;
@@ -333,8 +325,7 @@ extern "C" int spn_layered_scan(const void* charmeta, const void* level_ptrs,
 
 extern "C" int spn_layered_classify(const void* charmeta,
                                     const void* level_ptrs, int depth,
-                                    const void* fields, long long rows,
-                                    long long probe_bound, int width,
+                                    const void* fields, int width,
                                     int wide, long long n,
                                     const void* reads, const void* lens,
                                     long long B, long long L, long long thr,
@@ -344,8 +335,7 @@ extern "C" int spn_layered_classify(const void* charmeta,
   if (B == 0) return 0;
   Levels levels = {};
   Scalars s = {};
-  if (!index_args(level_ptrs, depth, rows, probe_bound, width, n, levels, s) ||
-      bin_width <= 0)
+  if (!index_args(level_ptrs, depth, width, n, levels, s) || bin_width <= 0)
     return kUnsupported;
   const cudaStream_t st = (cudaStream_t)stream;
   const unsigned grid = grid_of(B * kClassifyGroup);
@@ -365,12 +355,11 @@ extern "C" int spn_layered_classify(const void* charmeta,
 }
 
 // K14: fields is a host array of S shard pointers, rows_per_shard rows
-// each; rows = r + 1 (the real field rows), probe_bound the padded bound.
+// each.
 extern "C" int spn_layered_classify_tp(const void* charmeta,
                                        const void* level_ptrs, int depth,
                                        const void* fields, int S,
                                        long long rows_per_shard,
-                                       long long rows, long long probe_bound,
                                        int width, int wide, long long n,
                                        const void* reads, const void* lens,
                                        long long B, long long L,
@@ -380,8 +369,7 @@ extern "C" int spn_layered_classify_tp(const void* charmeta,
   if (B == 0) return 0;
   Levels levels = {};
   Scalars s = {};
-  if (!index_args(level_ptrs, depth, rows, probe_bound, width, n, levels, s) ||
-      bin_width <= 0)
+  if (!index_args(level_ptrs, depth, width, n, levels, s) || bin_width <= 0)
     return kUnsupported;
   spn::ShardedRows<char> shards;
   if (!spn::sharded_rows(shards, fields, S, rows_per_shard))

@@ -44,8 +44,6 @@ struct Levels {
 };
 
 struct Scalars {
-  long long rows;         // field rows (r + 1)
-  long long probe_bound;  // the JAX package's padded field-row count
   int depth, width;
   long long n, last_run_sample, last_run_edoc, first_run_sdoc;
 };
@@ -167,21 +165,21 @@ __device__ __forceinline__ void group_step(
     m = group_sum<G>(lane_count_le<T>(v, pos));
     rank = rank * kNode + (m > 0 ? m - 1 : 0);
   }
-  // row k+1 holds run k and the next run's targets; a dead lane reads row
-  // lo0, whose threshold (run lo0's) is 0: the jump down the reference
-  // takes when rank(pos, c) == 0 (compute_ms_pml.cpp:259-268)
+  // row k+1 holds run k and the next run's targets; the probe stops at
+  // row hi0, c's last run: past the BWT (pos = n, after a byte that sorts
+  // after every index character) every entry counts, padding too, and the
+  // run is c's last, as SPUMONI's upper bound over c's run starts finds
+  // it. A dead lane reads row lo0, whose threshold (run lo0's) is 0: the
+  // jump down the reference takes when rank(pos, c) == 0
+  // (compute_ms_pml.cpp:259-268)
   long long probe = dead ? lo0 : lo0 + rank + 1;
-  probe = probe < 0 ? 0 : probe < s.probe_bound - 1 ? probe
-                                                    : s.probe_bound - 1;
-  const bool pad = probe >= s.rows;  // padding: start n, zeros
-  const uint4* f =
-      reinterpret_cast<const uint4*>(fields.row(pad ? 0 : probe, s.width));
+  probe = probe < hi0 ? probe : hi0;
+  const uint4* f = reinterpret_cast<const uint4*>(fields.row(probe, s.width));
   uint4 fv[Lay::kField];
 #pragma unroll
   for (int i = 0; i < Lay::kField; ++i) fv[i] = __ldg(f + i);
   const auto slot = [&](int k) {
-    return pad ? (k == kStart ? s.n : 0)
-               : entry<T>(fv[k / Lay::kPer], k % Lay::kPer);
+    return entry<T>(fv[k / Lay::kPer], k % Lay::kPer);
   };
   const long long start = slot(kStart), len = slot(kLen), cum = slot(kCum),
                   thr = slot(kThr);

@@ -183,15 +183,13 @@ _SIGNATURES = {
         "spn_gather_chase": [_P, _P, _I32, _I32, _I32, _U32, _I32, _I32,
                              _P, _P]},
     "layered": {
-        "spn_layered_scan": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32, _I64,
-                             _I64, _I64, _I64, _P, _P, _I64, _I64, _I32, _P,
-                             _P, _P],
-        "spn_layered_classify": [_P, _P, _I32, _P, _I64, _I64, _I32, _I32,
-                                 _I64, _P, _P, _I64, _I64, _I64, _I32, _P, _P,
-                                 _P, _P, _P],
-        "spn_layered_classify_tp": [_P, _P, _I32, _P, _I32, _I64, _I64, _I64,
-                                    _I32, _I32, _I64, _P, _P, _I64, _I64,
-                                    _I64, _I32, _P, _P, _P, _P, _P]},
+        "spn_layered_scan": [_P, _P, _I32, _P, _I32, _I32, _I64, _I64, _I64,
+                             _I64, _P, _P, _I64, _I64, _I32, _P, _P, _P],
+        "spn_layered_classify": [_P, _P, _I32, _P, _I32, _I32, _I64, _P, _P,
+                                 _I64, _I64, _I64, _I32, _P, _P, _P, _P, _P],
+        "spn_layered_classify_tp": [_P, _P, _I32, _P, _I32, _I64, _I32, _I32,
+                                    _I64, _P, _P, _I64, _I64, _I64, _I32, _P,
+                                    _P, _P, _P, _P]},
     "occblock": {
         "spn_occ_scan": [_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
                          _I32, _I32, _I32, _P, _I32, _P, _P, _I64, _I64,
@@ -779,8 +777,8 @@ def _check_layered(index: LayeredIndex, reads_rev: torch.Tensor,
 
 
 def _layered_head(index: LayeredIndex):
-    """[charmeta, levels, D, fields, rows, probe bound, W, wide, n]: the index
-    arguments of both entry points. `levels` is a host int64 array, the D
+    """[charmeta, levels, D, fields, W, wide, n]: the index arguments of
+    both entry points. `levels` is a host int64 array, the D
     level pointers then their row counts, which the entry point copies
     into the kernel's parameters."""
     m = index.meta
@@ -788,8 +786,7 @@ def _layered_head(index: LayeredIndex):
         *(lv.data_ptr() for lv in index.levels),
         *(lv.shape[0] for lv in index.levels))
     return [index.charmeta.data_ptr(), levels, m.depth,
-            index.fields.data_ptr(), index.fields.shape[0], m.probe_bound,
-            m.width, int(m.wide), m.n]
+            index.fields.data_ptr(), m.width, int(m.wide), m.n]
 
 
 def layered_tables(index: LayeredIndex) -> list:
@@ -1126,9 +1123,8 @@ def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
                         lens: torch.Tensor, max_value_thr: int,
                         bin_width: int):
     """K14. layered_classify (K8) over a sharded layered index
-    (parallel/tp.py::shard_layered): each field row from its shard, probes
-    clipped to the sharded table's padded bound (index.meta.probe_bound).
-    Same inputs and outputs as layered_classify."""
+    (parallel/tp.py::shard_layered): each field row from its shard. Same
+    inputs and outputs as layered_classify."""
     if bin_width <= 0:
         raise ValueError("bin_width must be positive")
     dev = reads_rev.device
@@ -1152,9 +1148,9 @@ def layered_classify_tp(index: ShardedLayered, reads_rev: torch.Tensor,
     _launch(
         layered_classify_tp, "layered", "spn_layered_classify_tp", dev,
         index.charmeta.data_ptr(), levels, m.depth, _shard_ptrs(fields),
-        fields.S, fields.rows_per_shard, m.r + 1, m.probe_bound, m.width,
-        int(m.wide), m.n, reads_rev.data_ptr(), lens.data_ptr(), B,
-        reads_rev.shape[1], int(max_value_thr), int(bin_width),
+        fields.S, fields.rows_per_shard, m.width, int(m.wide), m.n,
+        reads_rev.data_ptr(), lens.data_ptr(), B, reads_rev.shape[1],
+        int(max_value_thr), int(bin_width),
         found.data_ptr(), above.data_ptr(), below.data_ptr(),
         summ.data_ptr())
     return found, above, below, summ
@@ -1654,8 +1650,8 @@ def pml_classify_tp_reference(index: ShardedBlockBits, tab: torch.Tensor,
 def layered_classify_tp_reference(index: ShardedLayered,
                                   reads_rev: torch.Tensor, lens: torch.Tensor,
                                   max_value_thr: int, bin_width: int):
-    """Plain PyTorch version of K14: K8's plain version over the shard list,
-    probes clipped to the sharded bound (layered.py:327-342)."""
+    """Plain PyTorch version of K14: K8's plain version over the shard
+    list."""
     return layered_classify_reference(index, reads_rev, lens, max_value_thr,
                                       bin_width)
 

@@ -19,12 +19,11 @@ The JAX package's TPU workarounds are not carried over: the one-hot f32
 `rootmat_planes` (bf16 matrix-unit exactness; the kernels read `charmeta`
 and the root row directly), the FIELD_GROUP grouping at the 2^17-row gather
 cliff (group = 1 here), the power-of-two padding of `fields` and `text`,
-and the chunked uploads. The padding's effect is kept: a position past the
-BWT (n, after a byte that sorts after every index character) makes the
-descent count the sentinels, and the JAX step then reads clamped level
-rows and field rows past r; so the port clamps level rows the same way,
-clips a field probe to `meta.probe_bound` (the JAX row count) and reads a
-row past r as padding (start n, zeros). The text's bound is kept as
+and the chunked uploads. A position past the BWT (n, after a byte that
+sorts after every index character) makes the descent count the sentinels;
+level rows clamp to the level's last row, and the field probe stops at
+c's last run, as SPUMONI's query loop (`NativeQueryEngine`) does, where
+the JAX step reads padded field rows. The text's bound is kept as
 `text_bound`.
 
 `layered_step` is the plain PyTorch step; K7 and K8 in `csrc/layered.cu`
@@ -39,6 +38,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from .. import trace
 
 NODE = 64
 MAX_DEPTH = 12   # 4 + D charmeta columns
@@ -56,7 +57,6 @@ class LayeredMeta(NamedTuple):
     wide: bool              # int64 positions
     has_samples: bool
     has_doc: bool
-    probe_bound: int        # the JAX package's padded field-row count
     last_run_sample: int = 0
     last_run_edoc: int = 0
     first_run_sdoc: int = 0
@@ -130,7 +130,19 @@ def build_layered(idx, dtype=None) -> LayeredIndex:
     spumoni_tpu/engine/layered.py::build_layered (its padding cut off).
     SA samples, doc ids and text are included when the index has them.
     dtype overrides the position type (int32 while n < 2^31 - 2, else
-    int64)."""
+    int64). Spans (trace.py) `load.fields` (levels, char table, fields)
+    and `load.text`."""
+    with trace.span("load.fields"):
+        charmeta, levels, fields, meta = _layered_tables(idx, dtype)
+    text = None
+    with trace.span("load.text"):
+        if idx.text is not None:
+            text = torch.from_numpy(np.array(idx.text, dtype=np.uint8))
+    return LayeredIndex(charmeta, levels, fields, meta, text)
+
+
+def _layered_tables(idx, dtype) -> tuple:
+    """(charmeta, levels, fields, meta) of build_layered, as tensors."""
     want_samples = idx.c_ssamp is not None
     want_doc = idx.c_sdoc is not None
     n, r = int(idx.n), int(idx.r)
@@ -166,9 +178,6 @@ def build_layered(idx, dtype=None) -> LayeredIndex:
     charmeta[:, 4:4 + D] = rowoffs.T
 
     W = 8 if (want_samples or want_doc) else 4
-    # the JAX package's padded row count (layered.py:155-158)
-    rp = (max(2, 1 << r.bit_length()) if r < (1 << 20)
-          else -(-(r + 2) // (1 << 20)) * (1 << 20))
     fields = np.zeros((r + 1, W), dtype=dtype)
     fields[:, F_START] = n       # row 0: the virtual predecessor of run 0
     fields[1:, F_START] = c_start
@@ -184,16 +193,13 @@ def build_layered(idx, dtype=None) -> LayeredIndex:
 
     meta = LayeredMeta(
         n=n, r=r, depth=D, width=W, wide=dtype == np.int64,
-        has_samples=want_samples, has_doc=want_doc, probe_bound=rp,
+        has_samples=want_samples, has_doc=want_doc,
         last_run_sample=int(idx.last_run_sample),
         last_run_edoc=int(idx.last_run_edoc),
         first_run_sdoc=int(idx.first_run_sdoc))
-    text = None
-    if idx.text is not None:
-        text = torch.from_numpy(np.array(idx.text, dtype=np.uint8))
-    return LayeredIndex(torch.from_numpy(charmeta.astype(dtype)),
-                        [torch.from_numpy(lv) for lv in levels],
-                        torch.from_numpy(fields), meta, text)
+    return (torch.from_numpy(charmeta.astype(dtype)),
+            [torch.from_numpy(lv) for lv in levels],
+            torch.from_numpy(fields), meta)
 
 
 def from_jax(arrays_np: dict, meta_fields: dict) -> LayeredIndex:
@@ -219,7 +225,7 @@ def from_jax(arrays_np: dict, meta_fields: dict) -> LayeredIndex:
         n=n, r=r, depth=int(meta_fields["depth"]), width=W,
         wide=np.dtype(meta_fields["dtype"]) == np.int64,
         has_samples=bool(meta_fields["has_samples"]),
-        has_doc=bool(meta_fields["has_doc"]), probe_bound=fields.shape[0],
+        has_doc=bool(meta_fields["has_doc"]),
         last_run_sample=int(np.asarray(arrays_np["last_run_sample"])),
         last_run_edoc=int(np.asarray(arrays_np["last_run_edoc"])),
         first_run_sdoc=int(np.asarray(arrays_np["first_run_sdoc"])))
@@ -313,15 +319,15 @@ def layered_step(index: LayeredIndex, carry: tuple, chars: torch.Tensor,
             dead = cnt_le == 0
         rank = rank * NODE + (cnt_le - 1).clamp(min=0)
     valid = ~dead
-    # row k+1 holds run k and the next run's targets; a dead lane probes
-    # row lo0, whose threshold (run lo0's) is 0: the jump down the
-    # reference takes when rank(pos, c) == 0 (compute_ms_pml.cpp:259-268)
-    probe = torch.where(valid, lo0 + rank + 1, lo0).clamp(0,
-                                                           m.probe_bound - 1)
-    row = index.fields[probe.clamp(max=m.r)].long()           # [B, W]
-    pad = torch.zeros_like(row[:1])
-    pad[0, F_START] = m.n
-    row = torch.where((probe > m.r)[:, None], pad, row)
+    # row k+1 holds run k and the next run's targets; the probe stops at row
+    # hi0, c's last run: past the BWT (pos = n, after a byte that sorts
+    # after every index character) every entry counts, padding too, and the
+    # run is c's last, as SPUMONI's upper bound over c's run starts finds
+    # it. A dead lane probes row lo0, whose threshold (run lo0's) is 0: the
+    # jump down the reference takes when rank(pos, c) == 0
+    # (compute_ms_pml.cpp:259-268)
+    probe = torch.minimum(torch.where(valid, lo0 + rank + 1, lo0), hi0)
+    row = index.fields[probe].long()                          # [B, W]
     start, rlen, cum = row[:, F_START], row[:, F_LEN], row[:, F_CUM]
     is_match = valid & (pos < start + rlen)
     rnk = torch.where(valid, cum + torch.minimum(pos - start, rlen), 0)

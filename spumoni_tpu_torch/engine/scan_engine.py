@@ -118,6 +118,10 @@ class ScanEngine:
         self._stage_amap = None    # its 256-byte LUT (255 = not covered)
         self._tabs: dict = {}      # (alphabet, device) -> table there
         self._groups = itertools.count()   # ids of staged groups
+        #: the layered index's last symbol (the bytes after it leave the
+        #: BWT: counter `symbols.past_index`)
+        self._last = (int(index.charmeta[:, 1].nonzero().max())
+                      if self.layered else None)
 
     def to_devices(self, devices, indexes=None) -> "ScanEngine":
         """Makes this engine data-parallel over `devices` (the JAX
@@ -197,8 +201,12 @@ class ScanEngine:
         every group of a batch in one alphabet and lays each device's
         parts out for one grouped launch (_lay_out). Counts (trace.py) the
         batch's staged groups, lanes, lane slots (lanes x L) and the bytes
-        uploaded."""
+        uploaded, and on the layered engine, only while the tracer records,
+        the read symbols that sort after every index symbol."""
         lens_all = np.asarray(packed.lens)
+        if self._last is not None and trace.recording():
+            trace.count("symbols.past_index", np.count_nonzero(
+                packed.buf[:packed.total_bases] > self._last))
         if (lens_all == 0).any():
             i = int(np.flatnonzero(lens_all == 0)[0])
             raise ValueError(

@@ -14,9 +14,10 @@ kernels then read each other's shards as peers.
   * `shard_blockbits_ms`: `bblocks` and `msrows` zero-padded to the same
     rows, the jump tables `jump_t` / `jump_d` zero-padded, and the text in
     whole 512-byte rows (tp.py:213-239, 282-292), for -M runs (K15, K16).
-  * `shard_layered`: layered `fields` padded with sentinel rows (F_START =
-    n, zeros elsewhere: tp.py:65-89), probes clipped to the JAX sharded
-    table's padded row count, for report-only PML (K14).
+  * `shard_layered`: layered `fields`, its r + 1 rows zero-padded to a
+    multiple of S (JAX pads its power-of-two table with sentinel rows,
+    tp.py:65-89, which its probes reach past the BWT; the port's stop at
+    row r), for report-only PML (K14).
   * `place_shards`: a copy with shard i of every table on devices[i %
     len(devices)] and the unsharded tables on devices[0].
   * `from_jax`: the same sharded index from the state of a JAX
@@ -41,10 +42,6 @@ from ..engine import layered as lay
 
 #: shards a kernel takes (kMaxShards of csrc/sharded.cuh)
 MAX_SHARDS = 16
-#: the JAX layered build's row grouping past its gather cliff
-#: (spumoni_tpu/engine/layered.py:80-81,159-160): it sets the padded bound
-_GATHER_ROW_CLIFF = 1 << 17
-_FIELD_GROUP = 16
 #: bytes of one row of the JAX package's sharded text table
 TEXT_ROW = 512
 #: K16's limit on its shards' bytes (csrc/blockbits_ms.cu, spn_ms_extend_tp:
@@ -77,11 +74,10 @@ class ShardedTable(nn.Module):
 
     @classmethod
     def from_rows(cls, table: torch.Tensor, S: int,
-                  rows_per_shard: Optional[int] = None,
-                  pad_row: Optional[torch.Tensor] = None) -> "ShardedTable":
+                  rows_per_shard: Optional[int] = None) -> "ShardedTable":
         """S shards of `table`'s rows (ceil(rows / S) each unless given),
         each a copy, so the full table can be freed; rows past the table are
-        zero, or `pad_row`."""
+        zero."""
         if not 1 <= S <= MAX_SHARDS:
             raise ValueError(f"S={S}: a sharded table takes 1 to "
                              f"{MAX_SHARDS} shards")
@@ -96,8 +92,6 @@ class ShardedTable(nn.Module):
             if piece.shape[0] < rps:
                 fill = torch.zeros((rps - piece.shape[0],) + table.shape[1:],
                                    dtype=table.dtype, device=table.device)
-                if pad_row is not None:
-                    fill[:] = pad_row
                 piece = torch.cat([piece, fill])
             shards.append(piece.contiguous().clone())
         return cls(shards)
@@ -184,9 +178,8 @@ class ShardedBlockBits(nn.Module):
 
 
 class ShardedLayered(nn.Module):
-    """A layered index with `fields` in shards (a ShardedTable padded with
-    sentinel rows) and `charmeta` and the levels whole; meta.probe_bound is
-    the JAX sharded table's padded row count (`sharded_probe_bound`)."""
+    """A layered index with `fields` in shards (a ShardedTable) and
+    `charmeta` and the levels whole."""
 
     def __init__(self, charmeta: torch.Tensor, levels,
                  fields: ShardedTable, meta: lay.LayeredMeta):
@@ -253,30 +246,11 @@ def sharded_text_bytes(ntext: int, S: int) -> int:
     return -(-rows512 // S) * TEXT_ROW * S
 
 
-def sharded_probe_bound(probe_bound: int, S: int) -> int:
-    """The field-row count a JAX layered step clips probes to under S
-    shards (layered.py:327-331): the replicated count `probe_bound`, in
-    groups of 16 rows past the gather cliff, padded to a multiple of S
-    groups (tp.py:73-75)."""
-    G = _FIELD_GROUP if probe_bound > _GATHER_ROW_CLIFF else 1
-    return -(-(probe_bound // G) // S) * S * G
-
-
-def shard_layered(index: lay.LayeredIndex, S: int,
-                  probe_bound: Optional[int] = None) -> ShardedLayered:
-    """K14's index: `fields` in S shards, padded with sentinel rows (start
-    n in the run slot, zeros elsewhere; tp.py::shard_index_tp), probes
-    clipped to `probe_bound` (default: sharded_probe_bound of the index's
-    own)."""
-    m = index.meta
-    pad = torch.zeros(m.width, dtype=index.fields.dtype,
-                      device=index.fields.device)
-    pad[lay.F_START] = m.n
-    bound = probe_bound or sharded_probe_bound(m.probe_bound, S)
-    return ShardedLayered(
-        index.charmeta, index.levels,
-        ShardedTable.from_rows(index.fields, S, pad_row=pad),
-        m._replace(probe_bound=bound))
+def shard_layered(index: lay.LayeredIndex, S: int) -> ShardedLayered:
+    """K14's index: the r + 1 `fields` rows in S shards, zero-padded to a
+    multiple of S rows (no probe passes row r)."""
+    return ShardedLayered(index.charmeta, index.levels,
+                          ShardedTable.from_rows(index.fields, S), index.meta)
 
 
 def place_shards(index, devices):
@@ -336,4 +310,4 @@ def from_jax(arrays_np: dict, meta_fields: dict, S: int,
     W = int(meta_fields["width"])
     fields = np.asarray(arrays_np["fields"]).reshape(-1, W)
     index = lay.from_jax({**arrays_np, "fields": fields}, meta_fields)
-    return shard_layered(index, S, probe_bound=fields.shape[0])
+    return shard_layered(index, S)

@@ -748,7 +748,8 @@ def make_engine(index_path: str, device: torch.device, mode: str = "pml",
                     ms_cache_path=(index_path + ".bbms.npz")
                     if want_ms or want_doc else None)
             else:
-                index = build_layered(dense)
+                with trace.span("load.layered"):
+                    index = build_layered(dense)
     with trace.span("load.upload"):
         index = index.to(device)
     parts: dict = {}

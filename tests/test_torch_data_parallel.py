@@ -96,15 +96,19 @@ def _build(kind, dense):
     return index, table, jo.build_occblock(dense, P=128)
 
 
-def _same(got, want, label):
+def _same(got, want, label, keep=None):
+    """Equal outputs, read by read; with `keep`, only those reads'."""
     assert set(got) == set(want), label
     for key in want:
         if isinstance(want[key], list):
             assert len(got[key]) == len(want[key]), (label, key)
             for i, (g, w) in enumerate(zip(got[key], want[key])):
-                assert np.array_equal(g, w), (label, key, i)
+                if keep is None or i in keep:
+                    assert np.array_equal(g, w), (label, key, i)
         else:
-            assert np.array_equal(got[key], want[key]), (label, key)
+            sel = slice(None) if keep is None else keep
+            assert np.array_equal(got[key][sel], want[key][sel]), (label,
+                                                                    key)
 
 
 @pytest.mark.parametrize("k", [2, 3])
@@ -114,10 +118,17 @@ def test_to_devices_matches_one_device_and_the_jax_mesh(dense_index, kind,
     """query_staged (PML, PML + doc, MS, MS + doc) and classify_staged
     (PML, MS) on k repeated CPU devices equal the single-device engine's,
     read by read, and at k = 3 the JAX engine's on a 3-device data mesh
-    too (whose compiles take most of this file's time)."""
+    too (whose compiles take most of this file's time); on the layered
+    engine only on the reads without an X, which sorts after every index
+    character: there the port follows SPUMONI's query loop and JAX's
+    layered step does not (ROADMAP section C)."""
     text, dense = dense_index
     index, table, (arrays, meta, host) = _build(kind, dense)
     reads = _reads(text)
+    keep = None
+    if kind == "layered":
+        keep = [i for i, rd in enumerate(reads) if b"X" not in rd]
+        assert 0 < len(keep) < len(reads)
     packed = _packed_reads(reads)
     mesh = make_data_mesh(jax.devices()[:k])
 
@@ -133,14 +144,14 @@ def test_to_devices_matches_one_device_and_the_jax_mesh(dense_index, kind,
         _same(many.query(reads), want, label)
         if k == 3:
             jeng = jax_engine(mode=mode, use_doc=use_doc)
-            _same(want, jeng.query_staged(jeng.stage(packed)), label)
+            _same(want, jeng.query_staged(jeng.stage(packed)), label, keep)
         if not use_doc:
             want = one.classify(reads, 150, 9)
             _same(many.classify(reads, 150, 9), want, label)
             if k == 3:
                 jcls = jax_engine(mode=mode)
                 _same(want, jcls.classify_staged(jcls.stage(packed), 150, 9),
-                      label)
+                      label, keep)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])

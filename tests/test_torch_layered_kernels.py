@@ -103,10 +103,11 @@ def test_layered_scan_checks_its_inputs(bad):
 @pytest.mark.parametrize("mode", ["pml", "ms"])
 def test_layered_scan_on_the_edge_reads_equals_native(L, mode):
     """K7's plain version on the edge reads (the lengths around its G = 8
-    lanes and L, the read whose last step jumps) equals the native engine:
-    PML lengths or MS pointers, and doc ids."""
+    lanes and L, the read whose last step jumps, section C's W read, whose
+    W sorts after every index character) equals the native engine: PML
+    lengths or MS pointers, and doc ids."""
     text, index, native = seeded_layered(10, 3000, docs=True)
-    reads = kernels.ms_edge_reads(text, L, terminator=False)[:-1]  # no W
+    reads = kernels.ms_edge_reads(text, L, terminator=False)
     assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
     rev, _, lens = raw_rows(reads, L)
     vals, docs = kernels.layered_scan(index, rev, lens, mode, True)
@@ -123,11 +124,11 @@ def test_layered_scan_on_the_edge_reads_equals_native(L, mode):
 @pytest.mark.parametrize("L", [1024, 1021])
 def test_layered_classify_on_the_edge_reads_equals_native(L):
     """K8's plain version on the edge reads (the lengths around its lanes
-    and L, the read whose last step jumps) equals classify/binmax.py over
-    the native engine's PML lengths; the empty read is NOT FOUND with no
-    bins."""
+    and L, the read whose last step jumps, section C's W read) equals
+    classify/binmax.py over the native engine's PML lengths; the empty
+    read is NOT FOUND with no bins."""
     text, index, native = seeded_layered(10, 3000)
-    reads = kernels.ms_edge_reads(text, L, terminator=False)[:-1]  # no W
+    reads = kernels.ms_edge_reads(text, L, terminator=False)
     assert {len(r) for r in reads} >= {0, 1, 7, 8, 9, L}
     rev, _, lens = raw_rows(reads, L)
     found, above, below, summ = kernels.layered_classify(index, rev, lens,
@@ -200,7 +201,7 @@ def test_layered_kernels_equal_plain_versions_on_gpu(case):
         index.text, index.text_bound, fwd, lens, ptrs))
     if alphabet is ACGT and not kw.get("digest"):
         vals = mslen.cpu().numpy()
-        for i, w in enumerate(native.query_ms(reads[:-1])[1]):
+        for i, w in enumerate(native.query_ms(reads)[1]):
             assert np.array_equal(vals[i, :len(w)], w), i
     for a, b in zip(kernels.layered_classify(index, rev, lens, 7, 150),
                     kernels.layered_classify_reference(index, rev, lens, 7,

@@ -117,40 +117,44 @@ def test_tp_matches_replicated_path(rng):
 
 
 def test_tp_fields_memory_is_sharded(rng):
-    """Each of the 4 shards holds padded / 4 rows, and the padded bound is
-    the JAX sharded table's run-row count."""
+    """Each of the 4 shards holds a quarter of the r + 1 field rows,
+    zero-padded to a multiple of 4 rows (fewer than the JAX sharded
+    table's power-of-two rows)."""
     jdense, tdense, _ = _dense(rand_dna(rng, 3000))
     clf = _jax_classifier(jdense, "layered", make_tp_mesh(2, 4))
-    sh = tp.shard_layered(tlay.build_layered(tdense), 4)
+    index = tlay.build_layered(tdense)
+    sh = tp.shard_layered(index, 4)
     total = sh.fields.shape[0]
-    assert total % 4 == 0 and total >= sh.meta.r + 1
+    assert total == -(-(sh.meta.r + 1) // 4) * 4
     for shard in sh.fields.shards:
         assert shard.shape[0] == total // 4
-    assert sh.meta.probe_bound == clf.arrays.fields.shape[0] * clf.meta.group
+    assert torch.equal(torch.cat(sh.fields.shards)[:sh.meta.r + 1],
+                       index.fields)
+    assert not torch.cat(sh.fields.shards)[sh.meta.r + 1:].any()
+    assert total < clf.arrays.fields.shape[0] * clf.meta.group
 
 
 @pytest.mark.parametrize("engine", ["layered", "bits"])
 def test_tp_uneven_row_padding(rng, engine):
-    """3 shards never divide the power-of-two layered table (nor, here, the
-    block-bits rows): the pad rows carry JAX's contents (layered: start n,
-    zeros; block-bits: zeros), the carried-over JAX state equals the port's
-    own shards, and the verdicts equal JAX's and the native engine's."""
-    text = rand_dna(rng, 2500)
+    """3 shards divide neither the port's r + 1 layered rows nor, here,
+    the block-bits rows: the pad rows are zero (JAX's layered pad rows hold
+    start n, zeros; no probe of the port reaches them), the carried-over
+    JAX state equals the port's own shards, and the verdicts equal JAX's
+    and the native engine's."""
+    text = rand_dna(rng, 2400)
     jdense, tdense, native = _dense(text)
     clf = _jax_classifier(jdense, engine, make_tp_mesh(1, 3))
     if engine == "layered":
         index = tlay.build_layered(tdense)
         m = index.meta
         sh = tp.shard_layered(index, 3)
-        assert sh.fields.shape[0] % 3 == 0
+        assert (m.r + 1) % 3 and sh.fields.shape[0] % 3 == 0
         jf = np.asarray(clf.arrays.fields).reshape(-1, clf.meta.width)
-        assert len(jf) > m.probe_bound   # JAX padded its 2^k rows
-        assert sh.meta.probe_bound == len(jf)
         sentinel = np.zeros(m.width, jf.dtype)
         sentinel[tlay.F_START] = m.n
+        assert len(jf) > sh.fields.shape[0]   # JAX padded its 2^k rows
         assert (jf[m.r + 1:] == sentinel).all()
-        pad = torch.cat(sh.fields.shards)[m.r + 1:].numpy()
-        assert (pad == sentinel).all()
+        assert not torch.cat(sh.fields.shards)[m.r + 1:].any()
         carried = tp.from_jax(
             {k: (np.asarray(v) if k != "levels" else
                  [np.asarray(lv) for lv in v])

@@ -55,15 +55,14 @@ def _reads(text, seed, num=12, m=300):
 
 def test_sharded_table_reads_rows_from_their_shard():
     """Rows come from shard r // rows_per_shard; rows past the table are
-    the pad row, and indexes outside the padded rows read 0 (JAX's
-    owner-masked read and psum)."""
+    zero, and indexes outside the padded rows read 0 (JAX's owner-masked
+    read and psum)."""
     table = torch.arange(30, dtype=torch.int32).reshape(10, 3)
-    sh = tp.ShardedTable.from_rows(table, 4, pad_row=torch.tensor([7, 8, 9]))
+    sh = tp.ShardedTable.from_rows(table, 4)
     assert sh.S == 4 and sh.rows_per_shard == 3 and tuple(sh.shape) == (12, 3)
     assert [t.shape[0] for t in sh.shards] == [3, 3, 3, 3]
     idx = torch.tensor([[0, 4], [9, 10], [11, 12], [-1, 5]])
-    want = torch.cat([table, torch.tensor([[7, 8, 9]] * 2, dtype=torch.int32),
-                      torch.zeros((1, 3), dtype=torch.int32)])
+    want = torch.cat([table, torch.zeros((3, 3), dtype=torch.int32)])
     got = sh[idx]
     assert torch.equal(got[:3], want[idx[:3].clamp(0, 12)])
     assert torch.equal(got[3, 0], torch.zeros(3, dtype=torch.int32))
@@ -242,42 +241,60 @@ def test_classify_tp_reference_on_the_edge_reads_equals_jax(S):
 
 
 def _layered_pad_row_index():
-    """(text, port layered index, JAX arrays / meta / host) of a 4,095-base
-    DNA text (seed 12, no samples: W = 4), where the W read of
-    kernels.classify_edge_reads probes past the real field rows at S = 1,
-    3 and 4: it reads a pad row (start n, zeros)."""
+    """(text, port layered index, JAX arrays / meta / host, native engine)
+    of a 4,095-base DNA text (seed 12, no samples: W = 4), whose JAX
+    field tables hold pad rows at S = 1, 3 and 4; the W read of
+    kernels.classify_edge_reads leaves the BWT (position n), from where
+    JAX's probe reads a pad row (start n, zeros) and the port's stops at
+    the character's last run."""
     from spumoni_tpu.engine import layered as jlay
     from spumoni_tpu.index.format import build_dense_index
     from spumoni_tpu.native import build_raw_index as jraw
     from spumoni_tpu_torch.engine.layered import build_layered
+    from spumoni_tpu_torch.native import NativeQueryEngine
 
     text = np.random.default_rng(12).choice(ACGT, 4095)
     dense = build_dense_index(jraw(text))
-    tdense = fmt.build_dense_index(build_raw_index(text))
-    return (text, build_layered(tdense), *jlay.build_layered(dense))
+    raw = build_raw_index(text)
+    tdense = fmt.build_dense_index(raw)
+    native = NativeQueryEngine(raw.n, raw.run_heads, raw.run_starts,
+                               raw.thresholds, raw.samples_start,
+                               raw.samples_last)
+    return (text, build_layered(tdense), *jlay.build_layered(dense), native)
 
 
 @pytest.mark.parametrize("S", [1, 3, 4])
 def test_layered_classify_tp_reference_on_the_edge_reads_equals_jax(S):
     """K14's plain version on S shards equals JAX's TpPmlClassifier on the
     layered arrays over a 1 x S mesh on kernels.classify_edge_reads (the
-    bin-width corners and section C's W read, whose probe reaches a pad
-    row)."""
+    bin-width corners), and on section C's W read, where JAX's probe
+    reaches a pad row, the bin-max of the native engine's PML values."""
     jax = pytest.importorskip("jax")
     cpus = jax.devices("cpu")
     if len(cpus) < S:
         pytest.skip(f"needs {S} JAX CPU devices (tests/conftest.py)")
     from spumoni_tpu.parallel import tp as jtp
 
-    text, index, arrays, meta, host = _layered_pad_row_index()
+    from spumoni_tpu_torch.classify import binmax
+
+    text, index, arrays, meta, host, native = _layered_pad_row_index()
     assert index.meta.width == 4
     reads = kernels.classify_edge_reads(text, 1024)
+    w = len(kernels.ms_edge_reads(text, 1024)) - 1     # the W read
+    assert b"W" in reads[w]
     want = jtp.TpPmlClassifier(arrays, meta, jtp.make_tp_mesh(1, S, cpus),
                                bin_width=150, max_value_thr=7,
                                host=host).classify(reads)
+    verdict = binmax.classify(native.query_pml([reads[w]])[0], 150, 7)
+    for key, v in (("found", verdict.status == "FOUND"),
+                   ("above", verdict.bins_above),
+                   ("below", verdict.bins_below),
+                   ("sum_maxes", int(verdict.bin_maxes.sum()))):
+        want[key] = np.array(want[key])
+        want[key][w] = v
     rev, _, lens = raw_rows(reads, 1024)
     sh = tp.shard_layered(index, S)
-    assert sh.meta.probe_bound > index.meta.r + 1   # pad rows to probe
+    assert sh.fields.shape[0] == -(-(index.meta.r + 1) // S) * S
     got = kernels.layered_classify_tp_reference(sh, rev, lens, 7, 150)
     assert int(got[0].sum()) > 0
     for key, g in zip(("found", "above", "below", "sum_maxes"), got):
